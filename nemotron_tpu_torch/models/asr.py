@@ -1,0 +1,135 @@
+"""The streaming serving tick (port of nemotron_tpu/models/asr.py, fused path).
+
+`fused_serve_tick` advances a batch of streams by one chunk: int16 PCM ->
+mel frontend (the mel kernel on the card) -> causal subsampling -> 24
+cached conformer layers (the T=1 attention kernel on the card) -> greedy
+RNNT. The caches are updated in place (see models/encoder.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..ops import mel as melops
+from ..shared.config import CacheConfig, Hparams
+from ..streaming.state import StreamState
+from .decoder import greedy_decode
+from .encoder import compact_cache, stream_encode_step
+
+
+def _gate0(active, new, old):
+    return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def fused_encode_tick(params, state: StreamState, audio_block, active,
+                      prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
+                      phase: int = 0):
+    """Frontend + encoder half of the tick: raw PCM blocks in, encoder frames
+    out, the frontend carries and caches advanced (decode state untouched).
+
+    audio_block: [B, shift_samples] int16 (or f32 in [-1, 1]). active: None
+    (all streams advance) or [B] bool — the masked fast path: inactive slots
+    keep every carry and cache slot bit for bit.
+    """
+    x = audio_block.to(torch.float32)
+    if not audio_block.is_floating_point():
+        x = x / 32768.0
+    window512 = melops.padded_window(params.preproc.window)
+    fb = params.preproc.filterbank.to(torch.float32)
+    mel_new, tail2, last2 = melops.mel_step(
+        x, state.pp_tail, state.pp_last, window512, fb,
+        n_frames=cfg.shift_mel_frames)
+    mel_chunk = torch.cat([state.mel_ov, mel_new], dim=1)
+    new_ov = mel_chunk[:, cfg.shift_mel_frames:, :]
+
+    prompt_onehot = None
+    if params.prompt is not None and prompt_idx is not None:
+        prompt_onehot = torch.nn.functional.one_hot(
+            prompt_idx.long(), hp.num_prompts).to(params.pos_emb.dtype)
+
+    act = None if active is None else active.to(torch.bool)
+    enc, k2, v2, c2, valid2 = stream_encode_step(
+        params, hp, cfg, mel_chunk.to(params.pos_emb.dtype),
+        state.k_cache, state.v_cache, state.conv_cache, state.cache_valid,
+        prompt_onehot=prompt_onehot, phase=phase, active_mask=act)
+    if act is not None:
+        tail2 = _gate0(act, tail2, state.pp_tail)
+        last2 = torch.where(act, last2, state.pp_last)
+        new_ov = _gate0(act, new_ov, state.mel_ov)
+    new_state = dataclasses.replace(
+        state, k_cache=k2, v_cache=v2, conv_cache=c2, cache_valid=valid2,
+        pp_tail=tail2, pp_last=last2, mel_ov=new_ov)
+    return new_state, enc
+
+
+def decode_tick(params, state: StreamState, enc, n_valid, active=None, *,
+                hp: Hparams):
+    """Greedy-RNNT half of the tick (inactive slots decode n_valid = 0)."""
+    n_valid = n_valid.to(torch.int32)
+    if active is not None:
+        n_valid = torch.where(active.to(torch.bool), n_valid, 0)
+    dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
+                                      n_valid=n_valid)
+    return dataclasses.replace(state, decode=dec_state), tokens
+
+
+def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
+                     prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
+                     phase: int = 0):
+    """Whole serving step: raw PCM in -> tokens [B, chunk_len, S] out.
+
+    Finalize: the host zero-pads the last partial block and passes the
+    reduced n_valid; the junk mel frames of the padding lie past the last
+    real frame, and the causal subsampling keeps them out of every valid
+    output frame, so they never reach an emitted token.
+    """
+    state, enc = fused_encode_tick(params, state, audio_block, active,
+                                   prompt_idx, hp=hp, cfg=cfg, phase=phase)
+    return decode_tick(params, state, enc, n_valid, active, hp=hp)
+
+
+def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
+                          prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
+                          k: int, phase: int = 0):
+    """k all-active ticks in one call (backlog micro-batching), as a loop over
+    chunks. Same contract as the JAX package: k | n_phases and phase % k == 0,
+    so the slack-buffer wrap can only land after the last chunk.
+
+    audio_blocks: [B, k * shift_samples]; returns tokens [B, k*chunk_len, S].
+    """
+    if cfg.n_phases % k or phase % k:
+        raise ValueError(
+            f"scan micro-batch needs k | n_phases and phase % k == 0 "
+            f"(k={k}, phase={phase}, n_phases={cfg.n_phases})")
+    shift = cfg.shift_samples
+    toks = []
+    for i in range(k):
+        state, t = fused_serve_tick(
+            params, state, audio_blocks[:, i * shift:(i + 1) * shift],
+            n_valid, None, prompt_idx, hp=hp, cfg=cfg, phase=phase + i)
+        toks.append(t)
+    if phase + k == cfg.n_phases:  # wrap: move the window back to phase 0
+        k2, v2 = compact_cache(cfg, hp, state.k_cache, state.v_cache)
+        state = dataclasses.replace(state, k_cache=k2, v_cache=v2)
+    return state, torch.cat(toks, dim=1)
+
+
+def tokens_to_list(tokens, n_valid=None):
+    """Emission tensor -> per-stream ordered [(token_id, frame_idx), ...]
+    (frame_idx relative to this chunk)."""
+    arr = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
+                     else tokens)
+    out = []
+    for b in range(arr.shape[0]):
+        tmax = arr.shape[1] if n_valid is None else int(n_valid[b])
+        seq = []
+        for t in range(min(tmax, arr.shape[1])):
+            for s in range(arr.shape[2]):
+                tok = int(arr[b, t, s])
+                if tok >= 0:
+                    seq.append((tok, t))
+        out.append(seq)
+    return out

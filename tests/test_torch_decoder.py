@@ -1,0 +1,95 @@
+"""The port's loop-labels greedy RNNT decode against the JAX package's: the
+tokens exactly equal, the decoder state within 5e-5 (f32). The port runs
+the loop's fixed bound instead of the JAX early exit; the tokens must not
+change. With bf16 weights, encoder frames and state in both packages the
+tokens are exactly equal too, and the state within 7.8e-3, one bf16 ulp of
+a value in [1, 2)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import rand, tiny_hparams
+
+from nemotron_tpu.models import decoder as jd
+from nemotron_tpu.params import random_params as j_random
+from nemotron_tpu_torch.models import decoder as td
+from nemotron_tpu_torch.params import random_params as t_random
+
+torch.set_num_threads(1)
+
+
+CASES = [
+    (1, 0.0, [1, 1, 0, 1]),
+    (1, -3.0, [1, 1, 1, 1]),   # blank suppressed: streams hit the 10-cap
+    (4, 0.5, [4, 2, 0, 3]),
+]
+
+
+def check_decode(t, blank_bias, n_valid, bf16=False, atol=5e-5):
+    hp = tiny_hparams()
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                else (jnp.float32, torch.float32))
+    jp, tp = j_random(hp, seed=5, dtype=jdt), t_random(hp, seed=5, dtype=tdt)
+    jp.joint.out_b = jp.joint.out_b.at[hp.blank_id].add(blank_bias)
+    tp.joint.out_b[hp.blank_id] += blank_bias
+    b = len(n_valid)
+    enc = rand(b, t, hp.d_model, seed=6)
+    h, c = rand(b, 2, hp.decoder_dim, seed=7), rand(b, 2, hp.decoder_dim, seed=8)
+    prev = np.array([hp.blank_id, 3, 5, hp.blank_id], np.int32)
+    off = np.array([0, 4, 9, 2], np.int32)
+    js = jd.DecodeState(h=jnp.asarray(h, jdt), c=jnp.asarray(c, jdt),
+                        prev_token=jnp.asarray(prev),
+                        frame_offset=jnp.asarray(off))
+    ts = td.DecodeState(h=torch.tensor(h).to(tdt), c=torch.tensor(c).to(tdt),
+                        prev_token=torch.tensor(prev),
+                        frame_offset=torch.tensor(off))
+    nv = np.asarray(n_valid, np.int32)
+    js2, jt = jd.greedy_decode(jp, hp, jnp.asarray(enc, jdt), js,
+                               jnp.asarray(nv))
+    ts2, tt = td.greedy_decode(tp, hp, torch.tensor(enc).to(tdt), ts,
+                               torch.tensor(nv))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    assert (tt.numpy() >= 0).any()
+    if blank_bias < 0:
+        assert ((tt.numpy() >= 0).sum(-1) == 10).all()
+    for name in ("h", "c"):
+        assert getattr(ts2, name).dtype == tdt
+        np.testing.assert_allclose(
+            getattr(ts2, name).float().numpy(),
+            np.asarray(getattr(js2, name)).astype(np.float32), atol=atol,
+            rtol=0)
+    for name in ("prev_token", "frame_offset"):
+        np.testing.assert_array_equal(getattr(ts2, name).numpy(),
+                                      np.asarray(getattr(js2, name)))
+
+
+@pytest.mark.parametrize("t, blank_bias, n_valid", CASES)
+def test_greedy_decode_tokens_equal(t, blank_bias, n_valid):
+    check_decode(t, blank_bias, n_valid)
+
+
+@pytest.mark.parametrize("t, blank_bias, n_valid", CASES)
+def test_greedy_decode_bf16_tokens_equal(t, blank_bias, n_valid):
+    check_decode(t, blank_bias, n_valid, bf16=True, atol=2.0 ** -7)
+
+
+def test_init_state_and_joint_match():
+    hp = tiny_hparams()
+    js, ts = jd.init_decode_state(3, hp), td.init_decode_state(3, hp)
+    for name in ("h", "c", "prev_token", "frame_offset"):
+        np.testing.assert_array_equal(getattr(ts, name).numpy(),
+                                      np.asarray(getattr(js, name)))
+    jp, tp = j_random(hp, seed=1), t_random(hp, seed=1)
+    e, d = rand(3, hp.joint_dim, seed=2), rand(3, hp.decoder_dim, seed=3)
+    np.testing.assert_allclose(
+        td.joint_from_proj(tp.joint, torch.tensor(e), torch.tensor(d)).numpy(),
+        np.asarray(jd.joint_from_proj(jp.joint, e, d)), atol=5e-5, rtol=0)
+
+
+def test_argmax_ties_take_the_first_maximum():
+    logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 3.0, 3.0]])
+    assert torch.argmax(logits, dim=-1).tolist() == [1, 0]
+    assert np.asarray(jnp.argmax(jnp.asarray(logits.numpy()), -1)).tolist() \
+        == [1, 0]
