@@ -1,7 +1,10 @@
 """Model handle for the streaming engine (port of the serving surface of
 nemotron_tpu/api.py:ASRModel).
 
-The model lives on an explicit `device`. Float32 numerics are pinned: the
+The model lives on an explicit `device`. Its encoder matrices may be
+weight-only quantized (Q8_0 / Q4_0, `from_gguf(keep_quantized=True)` or
+`params.quantize_encoder_layers`), and `kv_int8` gives its streams int8 K/V
+caches. Float32 numerics are pinned: the
 port turns TF32 off for matmuls and for cuDNN convolutions (cuDNN runs f32
 convolutions in TF32 by default, which alone would move the subsampling
 output by ~1e-3 against the JAX package).
@@ -32,10 +35,11 @@ class ASRModel:
     def __init__(self, hp: Hparams, params: ModelParams,
                  vocab: list[str] | None = None,
                  prompt_dict: dict[str, int] | None = None,
-                 device="cpu"):
+                 device="cpu", kv_int8: bool = False):
         self.hp = hp
         self.params = params
         self.device = torch.device(device)
+        self.kv_int8 = kv_int8  # int8 QuantKV attention caches
         self.tokenizer = Tokenizer(vocab or [])
         self.prompt_dict = prompt_dict or {}
         self.default_prompt_index = (
@@ -44,18 +48,22 @@ class ASRModel:
             self.default_prompt_index = 0
 
     @classmethod
-    def from_gguf(cls, path: str, dtype=torch.float32, device="cpu"):
-        hp, params, meta = load_model(path, dtype=dtype, device=device)
-        return cls(hp, params, meta["vocab"], meta["prompt_dict"], device)
+    def from_gguf(cls, path: str, dtype=torch.float32, device="cpu",
+                  keep_quantized: bool = False, kv_int8: bool = False):
+        hp, params, meta = load_model(path, dtype=dtype, device=device,
+                                      keep_quantized=keep_quantized)
+        return cls(hp, params, meta["vocab"], meta["prompt_dict"], device,
+                   kv_int8=kv_int8)
 
     @classmethod
     def random(cls, hp: Hparams | None = None, seed: int = 0,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cpu", kv_int8: bool = False):
         hp = hp or Hparams()
         vocab = [("▁w%d" % i) if i % 2 == 0 else ("p%d" % i)
                  for i in range(hp.vocab_size - 1)]
         return cls(hp, random_params(hp, seed=seed, dtype=dtype,
-                                     device=device), vocab, device=device)
+                                     device=device), vocab, device=device,
+                   kv_int8=kv_int8)
 
     def cache_config(self, mode: LatencyMode | int = LatencyMode.PURE_CAUSAL):
         return CacheConfig.for_mode(mode, self.hp)
@@ -74,9 +82,10 @@ class ASRModel:
         return torch.tensor(np.asarray(arr), device=self.device)
 
     def init_stream_state(self, batch: int, cfg: CacheConfig):
+        # the activation type, read from a leaf that is never quantized
         return state_mod.init_stream_state(
             batch, self.hp, cfg, dtype=self.params.pos_emb.dtype,
-            device=self.device)
+            device=self.device, kv_int8=self.kv_int8)
 
     @staticmethod
     def pack_tick_inputs(audio_block, n_valid, prompt_idx, active):

@@ -1,13 +1,17 @@
 """Build, load and launch the hand-written CUDA kernels in `csrc/`.
 
-Every `csrc/*.cu` file is compiled by nvcc into ONE shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+The `csrc/*.cu` files are compiled by nvcc, one process per file, all
+started together, and linked into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libnemotron_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <file>.o csrc/<file>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libnemotron_kernels_<hash>.so *.o
 
-The library is keyed by a hash of the sources and flags, built at first use
-into `_build/` (git-ignored) and loaded with ctypes. Each exported launcher
+The library is keyed by a hash of the sources (`*.cu` and the shared
+`*.cuh`) and flags, built at first use into `_build/` (git-ignored) and
+loaded with ctypes. Each exported launcher
 takes device pointers, sizes and the CUDA stream, launches on that stream
 without synchronising, and returns `cudaGetLastError()`; `Kernel.launch`
 raises on a non-zero code. There is no fallback: a failed build or launch
@@ -32,10 +36,9 @@ _PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +54,15 @@ _SIGNATURES = {
     # buf, window512, dft_cos, dft_sin, fb_t, out, batch, n_buf, n_frames,
     # n_mels, stream
     "mel_frames_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k_new, v_new, pos_mask, k codes, k scales, v codes, v scales, out,
+    # batch*heads, s_buf, d_head, scale, stream
+    "t1_attention_i8_f32": [_P] * 9 + [_I, _I, _I, _F, _P],
+    "t1_attention_i8_bf16": [_P] * 9 + [_I, _I, _I, _F, _P],
+    # x, weight codes, scales, y, M, N, K, stream
+    "q8_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q8_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q4_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "q4_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -80,33 +92,53 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *SRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libnemotron_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first failure. Returns
+    their joined output (ptxas -v prints each kernel's registers)."""
+    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True))
+             for c in cmds]
+    outs, failed = [], None
+    for cmd, p in procs:
+        out, _ = p.communicate()
+        outs.append(out)
+        if p.returncode != 0 and failed is None:
+            failed = (cmd, p.returncode, out)
+    if failed:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile csrc/*.cu into the hashed shared library unless it exists.
-    Concurrent builders write private temp files and rename atomically."""
+    Concurrent builders use private temp files and rename atomically."""
     out = library_path()
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources()]]
+    tmp_dir = BUILD_DIR / f"tmp.{os.getpid()}"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    objs = [tmp_dir / f"{src.stem}.o" for src in sources()]
+    tmp = tmp_dir / out.name
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(sources(), objs)])
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, log=proc.stdout + proc.stderr)
+                      cached=False, log=log)
     return out
 
 
@@ -151,7 +183,13 @@ T1_ATTENTION = Kernel(
 MEL_FRAMES = Kernel(
     "mel_frames", "nemotron_tpu_torch/csrc/mel_frames.cu",
     "nemotron_tpu/ops/mel_pallas.py:74")
-KERNELS = (T1_ATTENTION, MEL_FRAMES)
+Q8_MATMUL = Kernel(
+    "q8_matmul", "nemotron_tpu_torch/csrc/q8_matmul.cu",
+    "nemotron_tpu/ops/quant.py:122")
+Q4_MATMUL = Kernel(
+    "q4_matmul", "nemotron_tpu_torch/csrc/q4_matmul.cu",
+    "nemotron_tpu/ops/quant.py:276")
+KERNELS = (T1_ATTENTION, MEL_FRAMES, Q8_MATMUL, Q4_MATMUL)
 
 
 def reset_counts() -> None:

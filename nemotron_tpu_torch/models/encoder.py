@@ -1,7 +1,8 @@
 """Cache-aware streaming FastConformer encoder (port of the all-active and
 masked fast paths of nemotron_tpu/models/encoder.py).
 
-The K/V caches are head-major [L, B, H, S_buf, Dh] phased slack buffers:
+The K/V caches are head-major [L, B, H, S_buf, Dh] phased slack buffers
+(dense, or int8 `QuantKV` codes with per-frame scales [L, B, H, S_buf]):
 the 70-frame history window of a stream sits at slots [phase*chunk_len,
 phase*chunk_len + lc); each chunk appends its new frame right after the
 window and the caller moves to phase + 1; once every n_phases chunks
@@ -25,6 +26,8 @@ import torch.nn.functional as F
 
 from ..ops.basic import ffn, glu, layer_norm, linear
 from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
+from ..ops.kvquant import (is_quant, kv_parts, kv_slice, kv_update_slice_,
+                           kv_where, quantize_kv)
 from ..ops.rel_attention import rel_pos_mha_fullbuf
 from ..params import layer_slice
 from ..shared.config import CacheConfig, Hparams
@@ -110,13 +113,15 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     """One streaming encoder chunk on the phased fast path.
 
     mel_chunk: [B, chunk_mel_frames, n_mels]; k_cache/v_cache: [L, B, H,
-    S_buf, Dh]; conv_cache: [L, B, K-1, D]; cache_valid: [B] int32; phase:
+    S_buf, Dh], dense or QuantKV (the new frames are quantized as they are
+    written); conv_cache: [L, B, K-1, D]; cache_valid: [B] int32; phase:
     the slack-buffer phase in [0, n_phases). The new frame is appended at
     slot phase*chunk_len + lc, IN PLACE, and conv_cache is overwritten in
     place; the caller then moves to phase + 1 and compacts at the wrap.
 
     active_mask ([B] bool, optional) is the masked fast path: inactive slots
-    keep their append slot, conv cache and cache_valid bit for bit; their
+    keep their append slot (int8 codes and scales), conv cache and
+    cache_valid bit for bit; their
     windows stay where they were and the engine realigns them on resume.
 
     Returns (enc_out [B, chunk_len, D], k_cache, v_cache, conv_cache,
@@ -130,7 +135,7 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     x = x[:, cfg.drop_extra_pre_encoded:, :]
     pe = pos_emb_slice(params.pos_emb, 2 * (lc + chunk_len) - 1)
 
-    s_buf = k_cache.shape[3]
+    s_buf = kv_parts(k_cache)[0].shape[3]
     j_of_s, pos_index = _phase_tensors(lc, chunk_len, s_buf, phase, x.device)
     offset = lc - cache_valid  # [B]: slots with j < offset hold no history
     mask_full = torch.where(j_of_s[None, :] < offset[:, None], -1e9, 0.0
@@ -142,13 +147,15 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
         kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
         x, k_new, v_new, cc2 = conformer_layer(
             x, pe, lp, hp, kl, vl, cl, mask_full, pos_index)
-        app = slice(win_hi, win_hi + chunk_len)
+        if is_quant(kl):
+            k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
         if am is not None:
-            k_new = torch.where(am[:, None, None, None], k_new, kl[:, :, app])
-            v_new = torch.where(am[:, None, None, None], v_new, vl[:, :, app])
+            hi = win_hi + chunk_len
+            k_new = kv_where(am, k_new, kv_slice(kl, win_hi, hi, 2), 0)
+            v_new = kv_where(am, v_new, kv_slice(vl, win_hi, hi, 2), 0)
             cc2 = torch.where(am[:, None, None], cc2, cl)
-        kl[:, :, app] = k_new
-        vl[:, :, app] = v_new
+        kv_update_slice_(kl, k_new, win_hi, 2)
+        kv_update_slice_(vl, v_new, win_hi, 2)
         cl.copy_(cc2)
 
     if params.prompt is not None and prompt_onehot is not None:
@@ -178,11 +185,11 @@ def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
     if lo == 0:
         return k_cache, v_cache
     rows = _rows(mask)
-    for buf in (k_cache, v_cache):
+    for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):  # q and s alike
         if rows is None:
             buf[:, :, :, :lc] = buf[:, :, :, lo:lo + lc].clone()
         else:
-            sel = buf[:, rows]  # [L, n, H, S, Dh] copy
+            sel = buf[:, rows]  # [L, n, H, S(, Dh)] copy
             sel[:, :, :, :lc] = sel[:, :, :, lo:lo + lc].clone()
             buf[:, rows] = sel
     return k_cache, v_cache
@@ -197,6 +204,6 @@ def realign_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
         raise ValueError("realign_cache: delta must be non-zero")
     shift = delta * cfg.chunk_len(hp)
     rows = _rows(mask)
-    for buf in (k_cache, v_cache):
+    for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):
         buf[:, rows] = torch.roll(buf[:, rows], shift, dims=3)
     return k_cache, v_cache

@@ -16,8 +16,15 @@ def layer_norm(x, w, b, eps: float = 1e-5):
 
 
 def linear(x, w, b=None):
-    """x @ w.T (+ b) with w in (out, in) order."""
-    return F.linear(x, w, b)
+    """x @ w.T (+ b) with w in (out, in) order: a dense tensor, or a
+    QuantizedTensor / QuantizedTensor4 (weight-only Q8_0 / Q4_0,
+    dequantized inside kernel B4 / B5)."""
+    if isinstance(w, torch.Tensor):
+        return F.linear(x, w, b)
+    from .quant import QuantizedTensor, linear_q4, linear_q8
+
+    y = linear_q8(x, w) if isinstance(w, QuantizedTensor) else linear_q4(x, w)
+    return y if b is None else y + b
 
 
 def ffn(x, w1, w2):

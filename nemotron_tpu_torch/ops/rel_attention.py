@@ -24,10 +24,12 @@ def rel_pos_mha_fullbuf(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u,
     """Streaming rel-pos MHA for one new frame (chunk_len 1).
 
     x: [B, 1, D]; pos_emb: [pos_len, D]; k_buf/v_buf: [B, H, S_buf, Dh]
-    head-major per-layer cache views (read only); pos_index: [S_buf + 1]
+    head-major per-layer cache views (read only), dense or int8 QuantKV;
+    the weights are dense or quantized (ops/basic.linear); pos_index: [S_buf + 1]
     int64, the pos_emb row of each slot, -1 for slots outside the window;
     attn_mask: [B, S_buf + 1] additive. Returns (out [B, 1, D], k_new,
-    v_new [B, H, 1, Dh]); the caller appends the new frame to the cache.
+    v_new [B, H, 1, Dh] in x's dtype); the caller appends the new frame to
+    the cache (quantizing it for an int8 cache).
     """
     B, T, D = x.shape
     if T != 1:

@@ -5,6 +5,11 @@ can be compared leaf by leaf: the conformer layers are stacked on a leading
 [L] axis and linear weights keep PyTorch (out, in) order. `random_params`
 draws the same numpy stream in the same order as the JAX package, so
 `ASRModel.random()` gives identical weights in both.
+
+A stacked layer field may also be a weight-only quantized matrix
+(`ops.quant.QuantizedTensor` / `QuantizedTensor4`, with the same leading
+[L] axis): `quantize_encoder_layers` makes them from dense weights, and
+`load_model(keep_quantized=True)` keeps a Q8_0 / Q4_0 checkpoint's.
 """
 
 from __future__ import annotations
@@ -14,8 +19,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.quant import (QuantizedTensor, QuantizedTensor4, from_gguf_q4,
+                        from_gguf_q8, is_quantized, quantize_q4, quantize_q8)
 from .shared.config import Hparams
-from .shared.gguf import GGML_F16, GGML_F32, read_gguf
+from .shared.gguf import GGML_Q4_0, GGML_Q8_0, read_gguf
 
 
 @dataclasses.dataclass
@@ -113,7 +120,8 @@ class ModelParams:
 
 
 def layer_slice(layers: ConformerLayerParams, i: int) -> ConformerLayerParams:
-    """Views of layer i of the stacked layer parameters (no copies)."""
+    """Views of layer i of the stacked layer parameters (no copies; a
+    quantized field gives the views of its codes and scales)."""
     return ConformerLayerParams(
         **{f.name: getattr(layers, f.name)[i]
            for f in dataclasses.fields(layers)})
@@ -121,11 +129,14 @@ def layer_slice(layers: ConformerLayerParams, i: int) -> ConformerLayerParams:
 
 def params_to(params: ModelParams, device=None, dtype=None) -> ModelParams:
     """Move every tensor to `device`; cast floating tensors other than the
-    f32 frontend tables (filterbank, window) to `dtype`."""
+    f32 frontend tables (filterbank, window) to `dtype`. Quantized weights
+    only move: their codes stay integer and their scales f32."""
 
     def conv(obj):
         if obj is None:
             return None
+        if is_quantized(obj):
+            return obj.to(device)
         if isinstance(obj, torch.Tensor):
             return obj.to(device=device, dtype=dtype)
         kw = {}
@@ -143,11 +154,20 @@ def params_to(params: ModelParams, device=None, dtype=None) -> ModelParams:
 def params_from_numpy(tree, device="cpu", dtype=torch.float32) -> ModelParams:
     """Bridge from the JAX package: `tree` is its ModelParams (or any object
     with the same field names) whose leaves convert with np.asarray. Every
-    leaf is copied, so in-place updates never reach the source."""
+    leaf is copied, so in-place updates never reach the source. A quantized
+    leaf (JAX QuantizedTensor / QuantizedTensor4) keeps its int8 / uint8
+    codes exactly and its scales in f32."""
 
     def leaf(x, dt):
+        if hasattr(x, "w_i8"):
+            return QuantizedTensor(exact(x.w_i8), exact(x.scales))
+        if hasattr(x, "w_packed"):
+            return QuantizedTensor4(exact(x.w_packed), exact(x.scales))
         return torch.tensor(np.asarray(x, dtype=np.float32), dtype=dt,
                             device=device)
+
+    def exact(x):
+        return torch.tensor(np.asarray(x), device=device)
 
     def group(cls, src, dt=dtype):
         return cls(**{f.name: leaf(getattr(src, f.name), dt)
@@ -279,21 +299,18 @@ def norm_featurizer_fb(arr) -> np.ndarray:
     return arr
 
 
-def load_model(path: str, dtype=torch.float32, device="cpu"
+def load_model(path: str, dtype=torch.float32, device="cpu",
+               keep_quantized: bool = False
                ) -> tuple[Hparams, ModelParams, dict]:
-    """Load a GGUF checkpoint (F32/F16 tensors) into stacked tensors.
+    """Load a GGUF checkpoint into stacked tensors.
 
     Returns (hparams, params, meta) with meta carrying vocab / prompt dict.
-    Quantized checkpoints (Q8_0/Q4_0) are refused: the port does not run
-    quantized weights yet.
+    F16, Q8_0 and Q4_0 tensors are dequantized at load. With
+    keep_quantized, a layer field whose tensors are all Q8_0 (or all Q4_0)
+    stays quantized: a QuantizedTensor (QuantizedTensor4) read from the raw
+    payload, dequantized inside kernel B4 (B5) on the card.
     """
     g = read_gguf(path)
-    quant = sorted(n for n, t in g.tensors.items()
-                   if t.ggml_type not in (GGML_F32, GGML_F16))
-    if quant:
-        raise ValueError(
-            f"{path}: quantized tensors ({quant[0]}, ...) are not supported "
-            "by nemotron_tpu_torch yet; convert the checkpoint to F32/F16")
     hp = hparams_from_kv(g.kv)
     raw = g.load_all()
 
@@ -312,13 +329,23 @@ def load_model(path: str, dtype=torch.float32, device="cpu"
     def J(name):
         return T(_normalize_conv_weights(name, raw[name]))
 
+    def layer_field(suffix):
+        names = [f"encoder.layers.{i}.{suffix}" for i in range(hp.n_layers)]
+        types = {g.tensors[n].ggml_type for n in names}
+        for code, read, cls in ((GGML_Q8_0, from_gguf_q8, QuantizedTensor),
+                                (GGML_Q4_0, from_gguf_q4, QuantizedTensor4)):
+            if keep_quantized and types == {code}:
+                qts = [read(g.raw_tensor(n), *g.tensors[n].shape)
+                       for n in names]
+                return cls(*(torch.stack([getattr(q, f.name) for q in qts]
+                                         ).to(device)
+                             for f in dataclasses.fields(cls)))
+        return T(np.stack([_normalize_conv_weights(n, raw[n])
+                           for n in names]))
+
     sub = SubsamplingParams(**{f: J(n) for f, n in _SUB_MAP.items()})
     layers = ConformerLayerParams(**{
-        field: T(np.stack([
-            _normalize_conv_weights(f"encoder.layers.{i}.{suffix}",
-                                    raw[f"encoder.layers.{i}.{suffix}"])
-            for i in range(hp.n_layers)]))
-        for field, suffix in _LAYER_MAP.items()})
+        field: layer_field(suffix) for field, suffix in _LAYER_MAP.items()})
     rnn = "decoder.prediction.dec_rnn.lstm"
     dec = DecoderParams(
         embedding=J("decoder.prediction.embed.weight"),
@@ -361,6 +388,35 @@ def load_model(path: str, dtype=torch.float32, device="cpu"
         prompt_dict = dict(zip(g.kv["nemo.prompt_langs"], g.kv["nemo.prompt_ids"]))
     meta = {"vocab": vocab or [], "prompt_dict": prompt_dict, "kv": g.kv}
     return hp, params, meta
+
+
+# The reference's default quantization set: the encoder layers' 2-D
+# matrices; depthwise conv, norms, biases and position biases stay dense.
+QUANT_LAYER_FIELDS = (
+    "ffn1_w1", "ffn1_w2", "ffn2_w1", "ffn2_w2",
+    "attn_q_w", "attn_k_w", "attn_v_w", "attn_pos_w", "attn_out_w",
+    "conv_pw1_w", "conv_pw2_w",
+)
+
+
+def quantize_encoder_layers(params: ModelParams, bits: int = 8
+                            ) -> ModelParams:
+    """Weight-only quantization of the stacked encoder-layer matrices to
+    Q8_0 (bits=8) or Q4_0 (bits=4), as nemotron_tpu/params.py does: a field
+    whose input width is not a multiple of 32 (Q8) or 64 (Q4) stays dense.
+    The quantized leaves land on the device of the dense ones."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    lay = params.layers
+    upd = {}
+    for name in QUANT_LAYER_FIELDS:
+        w = getattr(lay, name)
+        if w.dim() != 3 or w.shape[-1] % (32 if bits == 8 else 64):
+            continue
+        v = w.detach().float().cpu().numpy()  # [L, out, in]
+        upd[name] = (quantize_q8(v) if bits == 8 else quantize_q4(v)
+                     ).to(w.device)
+    return dataclasses.replace(params, layers=dataclasses.replace(lay, **upd))
 
 
 def random_params(hp: Hparams, seed: int = 0, dtype=torch.float32,

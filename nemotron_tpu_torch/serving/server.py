@@ -289,8 +289,6 @@ class StreamServer:
 
 # Options of the JAX server that the port refuses until it runs them.
 _NOT_PORTED = (
-    ("--kv-int8", {"action": "store_true"}, "int8 K/V caches"),
-    ("--quantized", {"action": "store_true"}, "quantized weights"),
     ("--native", {"action": "store_true"}, "the native ingest server"),
     ("--diarize", {"default": None, "metavar": "DIARIZE_GGUF"},
      "diarization"),
@@ -315,6 +313,13 @@ def main(argv=None) -> int:
                     help="stream slots per latency group")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 weights, activations and K/V caches")
+    ap.add_argument("--quantized", action="store_true",
+                    help="keep a GGUF's Q8_0 / Q4_0 encoder matrices "
+                         "quantized (dequantized inside the CUDA kernels "
+                         "B4 / B5); 'random' ignores it")
+    ap.add_argument("--kv-int8", action="store_true",
+                    help="int8 attention K/V caches with per-frame scales "
+                         "(read directly by the attention kernel B1)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     ap.add_argument("--mem-budget", type=int, default=P.DEFAULT_MEM_BUDGET,
@@ -340,9 +345,12 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     device = torch.device(args.device)
     if args.model == "random":
-        model = ASRModel.random(dtype=dtype, device=device)
+        model = ASRModel.random(dtype=dtype, device=device,
+                                kv_int8=args.kv_int8)
     else:
-        model = ASRModel.from_gguf(args.model, dtype=dtype, device=device)
+        model = ASRModel.from_gguf(args.model, dtype=dtype, device=device,
+                                   keep_quantized=args.quantized,
+                                   kv_int8=args.kv_int8)
     if args.blank_bias:
         model.params.joint.out_b[model.hp.blank_id] += args.blank_bias
 

@@ -9,6 +9,7 @@ import dataclasses
 import torch
 
 from ..models.decoder import DecodeState, init_decode_state
+from ..ops.kvquant import kv_parts, kv_zeros
 from ..shared.config import CacheConfig, Hparams
 
 # Steady-state preprocessor tail: with the carry primed as [256 centre-pad
@@ -20,7 +21,7 @@ PP_TAIL_LEN = 512 - 160  # n_fft - hop
 @dataclasses.dataclass
 class StreamState:
     k_cache: torch.Tensor      # [L, B, H, cache_buf_len, Dh] head-major
-    v_cache: torch.Tensor      # [L, B, H, cache_buf_len, Dh]
+    v_cache: torch.Tensor      # ... or ops.kvquant.QuantKV (kv_int8)
     conv_cache: torch.Tensor   # [L, B, kernel-1, D]
     cache_valid: torch.Tensor  # [B] int32
     decode: DecodeState
@@ -30,13 +31,21 @@ class StreamState:
 
 
 def init_stream_state(batch: int, hp: Hparams, cfg: CacheConfig,
-                      dtype=torch.float32, device="cpu") -> StreamState:
+                      dtype=torch.float32, device="cpu",
+                      kv_int8: bool = False) -> StreamState:
+    """Zero state; kv_int8 allocates int8 QuantKV K/V caches."""
     L, D = hp.n_layers, hp.d_model
     kv_shape = (L, batch, hp.n_heads, cfg.cache_buf_len(hp), hp.d_head)
     f32 = dict(dtype=torch.float32, device=device)
+
+    def kv():
+        if kv_int8:
+            return kv_zeros(kv_shape, device=device)
+        return torch.zeros(kv_shape, dtype=dtype, device=device)
+
     return StreamState(
-        k_cache=torch.zeros(kv_shape, dtype=dtype, device=device),
-        v_cache=torch.zeros(kv_shape, dtype=dtype, device=device),
+        k_cache=kv(),
+        v_cache=kv(),
         conv_cache=torch.zeros((L, batch, cfg.conv_kernel_size - 1, D),
                                dtype=dtype, device=device),
         cache_valid=torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -52,7 +61,8 @@ def reset_slots(state: StreamState, mask, hp: Hparams) -> StreamState:
     """Zero the slots where mask[b] is True (stream join), in place."""
     rows = torch.nonzero(torch.as_tensor(mask, device=state.cache_valid.device)
                          ).flatten()
-    for buf in (state.k_cache, state.v_cache, state.conv_cache):
+    for buf in (*kv_parts(state.k_cache), *kv_parts(state.v_cache),
+                state.conv_cache):
         buf[:, rows] = 0
     for buf in (state.cache_valid, state.decode.h, state.decode.c,
                 state.decode.frame_offset, state.pp_tail, state.pp_last,

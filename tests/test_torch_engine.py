@@ -2,12 +2,14 @@
 transcript equals the direct tick loop over its audio (exact tokens) when
 the engine takes the k=8 backlog path, and when streams join late, starve
 mid-stream (masked ticks, realign on resume, masked wrap compaction) and
-end on and off chunk boundaries."""
+end on and off chunk boundaries. The checks take the model, so that
+tests/test_torch_serve_int8.py runs them on the int8 configuration."""
 
 import torch
 
 from test_torch_server import build_model, direct_transcript, make_audio
 
+from nemotron_tpu_torch.ops.kvquant import kv_parts
 from nemotron_tpu_torch.streaming.engine import BatchedEngine
 
 torch.set_num_threads(1)
@@ -33,7 +35,10 @@ def texts_by_stream(events):
 
 
 def test_backlog_ticks_advance_k_chunks_and_match():
-    model = build_model()
+    check_backlog_ticks(build_model())
+
+
+def check_backlog_ticks(model):
     engine = BatchedEngine(model, batch_per_group=2)
     audios = [make_audio(96 + 20 * 1280 + 300, seed=11),
               make_audio(96 + 18 * 1280, seed=12)]  # ends on a chunk boundary
@@ -55,7 +60,10 @@ def test_backlog_ticks_advance_k_chunks_and_match():
 
 
 def test_staggered_join_starve_and_resume_match():
-    model = build_model()
+    check_staggered_join_starve_and_resume(build_model())
+
+
+def check_staggered_join_starve_and_resume(model):
     engine = BatchedEngine(model, batch_per_group=4)
     audios = [make_audio(n, seed=20 + i)
               for i, n in enumerate((14000, 17000, 9000))]
@@ -90,12 +98,16 @@ def test_staggered_join_starve_and_resume_match():
 
 
 def test_prewarm_leaves_a_clean_group():
-    model = build_model()
+    check_prewarm_leaves_a_clean_group(build_model())
+
+
+def check_prewarm_leaves_a_clean_group(model):
     engine = BatchedEngine(model, batch_per_group=4)
     engine.prewarm()
     group = engine.groups[0]
     assert group.phase == 0 and not group.slot_phase.any()
-    assert not group.state.k_cache.any() and not group.state.pp_tail.any()
+    assert not any(t.any() for t in kv_parts(group.state.k_cache))
+    assert not group.state.pp_tail.any()
     audio = make_audio(7000, seed=30)
     sid = engine.start_stream(0)
     engine.push_audio(sid, audio)

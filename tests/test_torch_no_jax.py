@@ -34,15 +34,23 @@ CHILD = textwrap.dedent("""
 
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.ops.attn_kernel import t1_attention_core
+    from nemotron_tpu_torch.ops.kvquant import quantize_kv
     from nemotron_tpu_torch.ops.mel_kernel import mel_frames
+    from nemotron_tpu_torch.ops.quant import (linear_q4, linear_q8,
+                                              quantize_q4, quantize_q8)
     q = torch.randn(2, 2, 8)
     kb = torch.randn(2, 2, 5, 8)
     pm = torch.zeros(2, 2, 6)
     assert t1_attention_core(q, q, q, pm, kb, kb).shape == (2, 2, 8)
+    kq = quantize_kv(kb)
+    assert t1_attention_core(q, q, q, pm, kq, kq).shape == (2, 2, 8)
     buf = torch.randn(2, 672)
     assert mel_frames(buf, torch.ones(512), torch.rand(4, 257), 2).shape \\
         == (2, 2, 4)
-    assert [k.launches for k in kernels.KERNELS] == [0, 0]
+    w = torch.randn(6, 64).numpy()
+    assert linear_q8(torch.randn(3, 64), quantize_q8(w)).shape == (3, 6)
+    assert linear_q4(torch.randn(3, 64), quantize_q4(w)).shape == (3, 6)
+    assert [k.launches for k in kernels.KERNELS] == [0] * 4
     assert kernels._lib is None  # nothing was built or loaded
     print("ok", len(names))
 """)

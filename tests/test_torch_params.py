@@ -14,7 +14,7 @@ from helpers import tiny_hparams
 from scripts_support import export_random_checkpoint
 
 from nemotron_tpu import params as jparams
-from nemotron_tpu.gguf.reader import GGML_F16, GGML_Q8_0
+from nemotron_tpu.gguf.reader import GGML_F16
 from nemotron_tpu_torch import params as tparams
 
 torch.set_num_threads(1)
@@ -76,16 +76,6 @@ def test_gguf_loads_identically(tmp_path, f16):
     assert dataclasses.asdict(jhp) == dataclasses.asdict(thp)
     assert jmeta["vocab"] == tmeta["vocab"] and len(tmeta["vocab"]) == 32
     assert_trees_equal(jp, tp)
-
-
-def test_quantized_gguf_is_refused(tmp_path):
-    hp = tiny_hparams()
-    path = str(tmp_path / "q8.gguf")
-    names = export_random_checkpoint(hp, path, seed=7)
-    export_random_checkpoint(hp, path, seed=7, tensor_types={
-        n: GGML_Q8_0 for n in names if n.endswith("feed_forward1.linear1.weight")})
-    with pytest.raises(ValueError, match="quantized"):
-        tparams.load_model(path)
 
 
 def test_hparams_and_conv_normalization_match():

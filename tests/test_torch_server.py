@@ -130,9 +130,8 @@ def test_server_refuses_what_the_port_does_not_run():
     assert sid >= 1
 
 
-@pytest.mark.parametrize("flag", [["--kv-int8"], ["--quantized"], ["--native"],
-                                  ["--diarize", "d.gguf"], ["--dp", "2"],
-                                  ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--native"], ["--diarize", "d.gguf"],
+                                  ["--dp", "2"], ["--tp", "2"]])
 def test_main_refuses_unported_options(flag, capsys):
     with pytest.raises(SystemExit) as e:
         main(["random", *flag])

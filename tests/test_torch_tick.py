@@ -18,7 +18,14 @@ validity) must lie within 4 bf16 ulps of the leaf's largest magnitude
 (2^-5 x max|leaf|); JAX's own bf16 state lies up to 0.032 from its f32
 state here, and the port's lies as far from JAX's bf16 state. The bf16
 case is tests/test_torch_tick_bf16.py; the bf16 decoder is held token for
-token in tests/test_torch_decoder.py."""
+token in tests/test_torch_decoder.py.
+
+The harness also runs weight-only quantized encoders (Q8_0 / Q4_0, the same
+quantized bits in both packages) and int8 K/V caches, whose codes may differ
+by one where a value sits on a rounding boundary: codes are held within +-1
+(tests/test_torch_quant.py, tests/test_torch_kv_int8.py). Those cases run
+the schedule in five short segments, each from a fresh state at its own
+starting phase (SEGMENTS below), so that each test stays short."""
 
 import dataclasses
 
@@ -30,8 +37,11 @@ from helpers import tiny_hparams
 
 from nemotron_tpu.api import ASRModel as JaxModel
 from nemotron_tpu.models.asr import tokens_to_list as j_tokens_to_list
+from nemotron_tpu.params import quantize_encoder_layers as j_quantize
 from nemotron_tpu_torch.api import ASRModel as TorchModel
 from nemotron_tpu_torch.models.asr import tokens_to_list
+from nemotron_tpu_torch.params import quantize_encoder_layers
+from nemotron_tpu_torch.shared.config import CacheConfig
 from nemotron_tpu_torch.streaming.engine import PRIME_SAMPLES, prime_carry
 
 torch.set_num_threads(1)
@@ -44,10 +54,18 @@ ENCODER_LEAVES = ("k_cache", "v_cache", "conv_cache", "cache_valid",
 
 
 def leaves(state):
-    d = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)
-         if f.name != "decode"}
-    d.update({"decode." + f.name: getattr(state.decode, f.name)
-              for f in dataclasses.fields(state.decode)})
+    """{name: f32 numpy} over a state; an int8 cache gives two leaves,
+    `<name>.q` (codes) and `<name>.s` (per-frame scales)."""
+    d = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if f.name == "decode":
+            d.update({"decode." + g.name: getattr(v, g.name)
+                      for g in dataclasses.fields(v)})
+        elif hasattr(v, "q"):  # QuantKV of either package
+            d.update({f.name + ".q": v.q, f.name + ".s": v.s})
+        else:
+            d[f.name] = v
     return {k: (v.cpu().float().numpy() if isinstance(v, torch.Tensor)
                 else np.asarray(v).astype(np.float32)) for k, v in d.items()}
 
@@ -58,9 +76,12 @@ def assert_states_close(js, ts, where, bf16=False):
     for k in jl:
         assert jl[k].shape == tl[k].shape, (where, k)
         assert np.isfinite(tl[k]).all(), (where, k)
-        if bf16 and k not in ENCODER_LEAVES:
+        if bf16 and k.split(".")[0] not in ENCODER_LEAVES:
             continue
-        atol = BF16_REL * np.abs(jl[k]).max() if bf16 else ATOL
+        if bf16:
+            atol = BF16_REL * np.abs(jl[k]).max()
+        else:  # int8 codes within +-1
+            atol = 1.0 if k.endswith(".q") else ATOL
         np.testing.assert_allclose(tl[k], jl[k], atol=atol, rtol=0,
                                    err_msg=f"{where}: {k}")
 
@@ -69,13 +90,24 @@ class Lockstep:
     """Both packages' states advanced tick by tick with the engine's phase
     bookkeeping (slot phases, realign on resume, masked wrap compaction)."""
 
-    def __init__(self, audio, bf16=False):
+    def __init__(self, audio, bf16=False, quant_bits=None, kv_int8=False,
+                 phase=0):
+        """quant_bits: Q8_0 (8) or Q4_0 (4) encoder matrices in both
+        packages. kv_int8: int8 K/V caches; the JAX package reads its
+        NEMOTRON_TPU_KV_INT8 at state allocation, so the caller sets it.
+        phase: the group's starting phase (a fresh state is aligned at any
+        phase)."""
         hp = tiny_hparams()
         self.bf16 = bf16
         self.jm = JaxModel.random(
             hp, seed=1, dtype=jnp.bfloat16 if bf16 else jnp.float32)
         self.tm = TorchModel.random(
-            hp, seed=1, dtype=torch.bfloat16 if bf16 else torch.float32)
+            hp, seed=1, dtype=torch.bfloat16 if bf16 else torch.float32,
+            kv_int8=kv_int8)
+        if quant_bits:
+            self.jm.params = j_quantize(self.jm.params, bits=quant_bits)
+            self.tm.params = quantize_encoder_layers(self.tm.params,
+                                                     bits=quant_bits)
         self.cfg = self.tm.cache_config(0)
         assert dataclasses.asdict(self.cfg) \
             == dataclasses.asdict(self.jm.cache_config(0))
@@ -86,8 +118,8 @@ class Lockstep:
         args = (np.ones(B, bool), np.stack(tails), np.asarray(lasts, np.float32))
         self.js = self.jm.prime_frontend(self.js, *args)
         self.ts = self.tm.prime_frontend(self.ts, *args)
-        self.phase = 0
-        self.slot_phase = np.zeros(B, int)
+        self.phase = phase
+        self.slot_phase = np.full(B, phase)
         self.ids = [[], [], []]
         self.n_ticks = 0
 
@@ -177,6 +209,64 @@ def run_schedule(run, bf16=False):
     assert_states_close(run.js, run.ts, "after finalize", bf16)
     assert run.n_ticks == 19
     assert all(run.ids), run.ids          # every stream emitted tokens
+
+
+def _wrap(run):
+    """From phase n_phases - 2: two ticks to the wrap compaction."""
+    run.tick()
+    run.tick()
+    assert run.phase == 0
+
+
+def _k8(run):
+    """From phase 0: one k=8 chunk-loop tick, its wrap inside."""
+    run.tick(k=8)
+    assert run.phase == 0
+
+
+def _masked_realign(run):
+    """From phase 0: stream 1 paused for two ticks, then realign +2."""
+    paused = np.array([True, False, True])
+    run.tick(active=paused)
+    run.tick(active=paused)
+    run.tick(active=np.ones(B, bool))     # resume: realign delta +2
+
+
+def _masked_wrap(run):
+    """From phase n_phases - 2: stream 2 paused through a masked wrap
+    compaction, then realign -(n_phases - 2) on resume."""
+    start = run.phase
+    paused = np.array([True, True, False])
+    run.tick(active=paused)
+    run.tick(active=paused)               # masked wrap compaction
+    assert run.phase == 0 and run.slot_phase[2] == start
+    run.tick(active=np.ones(B, bool))     # resume: realign delta -start
+
+
+def _finalize(run):
+    """From phase 0: a tick, then stream 0 finalizes with a zero-padded
+    partial block, stream 1 decodes n_valid 0, stream 2 is idle."""
+    run.tick()
+    run.tick(active=np.array([True, True, False]),
+             n_valid=np.array([1, 0, 0]), partial={0: 500})
+
+
+# name -> (starting phase as an offset from n_phases, or 0; the segment)
+SEGMENTS = {"wrap": (-2, _wrap), "k8": (0, _k8),
+            "masked_realign": (0, _masked_realign),
+            "masked_wrap": (-2, _masked_wrap), "finalize": (0, _finalize)}
+
+
+def run_segment(name, **kw):
+    """One schedule segment from a fresh lockstep state; returns the run."""
+    offset, seg = SEGMENTS[name]
+    n_phases = CacheConfig.for_mode(0, tiny_hparams()).n_phases
+    run = Lockstep(make_audio(PRIME_SAMPLES + 10 * 1280, seed=5),
+                   phase=offset % n_phases, **kw)
+    seg(run)
+    assert_states_close(run.js, run.ts, f"after {name}", run.bf16)
+    assert any(run.ids), run.ids          # the segment emitted tokens
+    return run
 
 
 def test_fused_tick_matches_jax_over_multichunk_streams():
