@@ -11,17 +11,25 @@ Phases, one line each, any failure exits non-zero:
   2 build    nvcc of nemotron_tpu_torch/csrc/*.cu, one process per file
   3 kernels  each kernel vs its plain version at the main path's shapes
              (max |err|, device ms per call of both): B1 over dense and
-             int8 caches, B2, B4 (Q8_0) and B5 (Q4_0) at M in {256, 141}
+             int8 caches, B3 (the fused attention block) at B in {32, 256}
+             in f32 and bf16 over dense and int8 caches, B2, B4 (Q8_0) and
+             B5 (Q4_0) at M in {256, 141}
   4 tick     full-width random model (Hparams() defaults), 4 streams x 10
              fused ticks (through the slack-buffer wrap) on the card vs the
-             same ticks on the CPU: f32 and bf16 dense; (a) f32 Q8_0 +
-             int8 K/V, (b) f32 Q4_0, (c) bf16 Q8_0 + int8 K/V
+             same ticks on the CPU: f32 and bf16 dense; the same with the
+             attention block (B3), and f32 int8 K/V with it; (a) f32 Q8_0
+             + int8 K/V, (b) f32 Q4_0, (c) bf16 Q8_0 + int8 K/V
   5 server   StreamServer on a free localhost port (batch 8), 4 concurrent
-             clients x ~3 s of PCM, three times: f32 dense, bf16 Q8_0 +
-             int8 K/V (the serving form), bf16 Q4_0; the kernel launch
-             counts of each run; then fused_tick_packed timed and profiled
-             at B=32 and B=256 in f32, and at B=256 in bf16 dense, bf16 +
-             int8 K/V, bf16 Q8_0 + int8 K/V and bf16 Q4_0
+             clients x ~3 s of PCM, four times: f32 dense, bf16 Q8_0 +
+             int8 K/V (the serving form), bf16 Q4_0, bf16 int8 K/V with
+             the attention block; the kernel launch counts of each run;
+    cli      the streaming CLI in a subprocess with the block against an
+             in-process StreamSession without it, on an F16 GGUF of the
+             random model;
+    times    fused_tick_packed timed and profiled at B=32 and B=256 in f32,
+             and at B=256 in bf16 dense, bf16 + int8 K/V, bf16 Q8_0 + int8
+             K/V, bf16 Q4_0, and f32, bf16 and bf16 + int8 K/V with the
+             block
 The second-to-last line is the kernels JSON, the last line the device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
@@ -107,10 +115,49 @@ def _attn_case(torch, rng, dev, dtype, int8):
     return q, kn, vn, torch.tensor(pm, device=dev), kb, vb
 
 
+def _block_case(torch, rng, dev, dtype, int8, B):
+    """B3 inputs at full width (D=1024, H=8, Dh=128, S_buf=78): random
+    validity windows, dead slots at -1e9 in the mask and 0 in pp; int8
+    caches carry garbage codes and scales there."""
+    from nemotron_tpu_torch.ops.kvquant import quantize_kv
+
+    H, Dh, S = 8, 128, 78
+    D = H * Dh
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), device=dev).to(dt)
+
+    live = np.zeros((B, S + 1), bool)
+    lo, valid = rng.integers(0, 9, B), rng.integers(1, 71, B)
+    for b in range(B):
+        live[b, lo[b] + 70 - valid[b]:lo[b] + 70] = True
+    live[:, S] = True
+    pp = t(H, Dh, S + 1, scale=0.5, dt=torch.float32) * torch.tensor(
+        live.any(0), device=dev)
+    kb, vb = t(B, H, S, Dh), t(B, H, S, Dh)
+    if int8:
+        kb, vb = quantize_kv(kb), quantize_kv(vb)
+        dead = torch.tensor(~live[:, :S], device=dev)[:, None, :]
+        for buf in (kb, vb):
+            buf.q.masked_fill_(dead[..., None], 127)
+            buf.s.masked_fill_(dead, 3.0e4)
+    return dict(
+        x=t(B, D), ln_w=1 + t(D, scale=0.1), ln_b=t(D, scale=0.1),
+        q_w=t(D, D, scale=D ** -0.5), k_w=t(D, D, scale=D ** -0.5),
+        v_w=t(D, D, scale=D ** -0.5), out_w=t(D, D, scale=D ** -0.5),
+        bias_u=t(H, Dh, scale=0.1), bias_v=t(H, Dh, scale=0.1), pp=pp,
+        mask=torch.tensor(np.where(live, 0.0, -1e9).astype(np.float32),
+                          device=dev).to(dtype),
+        k_buf=kb, v_buf=vb, n_heads=H, d_head=Dh)
+
+
 def phase_kernels(torch, report):
     """Each kernel against its plain version at the main path's shapes."""
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.ops import quant
+    from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
+                                                   t1_attention_block_ref)
     from nemotron_tpu_torch.ops.attn_kernel import (t1_attention_core,
                                                     t1_attention_core_ref)
     from nemotron_tpu_torch.ops.mel import padded_window
@@ -146,6 +193,26 @@ def phase_kernels(torch, report):
                         lambda: t1_attention_core_ref(*args))
             if int8 and dtype == torch.bfloat16:  # the serving form
                 report["t1_attention"].update(res)
+
+    def flat(outs):  # (out, k_new, v_new) as one vector
+        return torch.cat([o.float().flatten() for o in outs])
+
+    for b in (32, 256):
+        for int8 in (False, True):
+            for dname, dtype in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                a = _block_case(torch, rng, dev, dtype, int8, b)
+                want = flat(t1_attention_block_ref(**a))
+                res = check(
+                    "t1_attention_block",
+                    f"{'int8' if int8 else 'dense'} caches, {dname} B={b} "
+                    f"D=1024 H=8 S_buf=78 Dh=128",
+                    flat(t1_attention_block(**a)), want,
+                    GEMM_REL[dname] * float(want.abs().max()),
+                    lambda: t1_attention_block(**a),
+                    lambda: t1_attention_block_ref(**a))
+                if (b, int8, dname) == (256, True, "bf16"):  # serving form
+                    report["t1_attention_block"].update(res)
 
     for bits, kname in ((8, "q8_matmul"), (4, "q4_matmul")):
         qz = quant.quantize_q8 if bits == 8 else quant.quantize_q4
@@ -447,6 +514,90 @@ def phase_server(torch, model, name: str, per_step: dict) -> dict:
     return counts
 
 
+# Runs the streaming CLI as `python -m` would, and prints the kernels'
+# launch counts of that process on stderr when it exits.
+CLI_RUNNER = """
+import atexit, json, runpy, sys
+from nemotron_tpu_torch import kernels
+atexit.register(lambda: print("KERNEL_LAUNCHES " + json.dumps(
+    {k.name: k.launches for k in kernels.KERNELS}), file=sys.stderr))
+sys.argv = ["transcribe_stream", *sys.argv[1:]]
+runpy.run_module("nemotron_tpu_torch.cli.transcribe_stream",
+                 run_name="__main__", alter_sys=True)
+"""
+
+
+def phase_cli(torch, hp, dense, vocab):
+    """The streaming CLI on the card: the full-width random model written as
+    an F16 GGUF (into the git-ignored _smoke/, deleted afterwards), 3 s of
+    PCM through `python -m nemotron_tpu_torch.cli.transcribe_stream` with
+    NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1 in a subprocess; its stdout must equal
+    the text of an in-process StreamSession of the same GGUF without the
+    block, its stderr show the RTF line, and the subprocess launch B3 24
+    times per chunk and B1 never."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import save_gguf
+    from nemotron_tpu_torch.shared.config import CacheConfig
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    root = Path(__file__).resolve().parent
+    work = root / "_smoke"
+    work.mkdir(exist_ok=True)
+    try:
+        gguf, pcm = work / "random_f16.gguf", work / "audio.pcm"
+        t0 = time.perf_counter()
+        save_gguf(str(gguf), hp, dense, vocab)
+        audio = stream_audio(1, 48000, SEED + 3)[0]
+        pcm.write_bytes(audio.astype("<i2").tobytes())
+        log(f"[5 cli] wrote {gguf.stat().st_size / 1e9:.2f} GB F16 GGUF in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        model = ASRModel.from_gguf(str(gguf), device="cuda")
+        sess = StreamSession(model, CacheConfig.for_mode(0, model.hp))
+        kernels.reset_counts()
+        text = "".join(sess.process_incremental(audio[i:i + 1280])
+                       for i in range(0, len(audio), 1280))
+        text += sess.finalize() + "\n"
+        torch.cuda.synchronize()
+        chunks = sess.total_chunks
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        log(f"[5 cli] in-process StreamSession, no block: {chunks} chunks, "
+            f"{len(text.strip())} chars, launches {counts}")
+        del sess, model
+        torch.cuda.empty_cache()
+
+        env = dict(os.environ, NEMOTRON_TPU_PALLAS_ATTN_BLOCK="1")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", CLI_RUNNER, str(gguf), str(pcm)],
+            cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rtf = [ln for ln in out.stderr.splitlines() if "RTF: " in ln]
+    got = [ln for ln in out.stderr.splitlines()
+           if ln.startswith("KERNEL_LAUNCHES ")]
+    sub = json.loads(got[-1].split(" ", 1)[1]) if got else {}
+    L = hp.n_layers
+    log(f"[5 cli] python -m nemotron_tpu_torch.cli.transcribe_stream with "
+        f"NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1: rc {out.returncode} in "
+        f"{secs:.1f} s; stdout equal to the session's: {out.stdout == text}; "
+        f"{rtf[-1].strip() if rtf else 'no RTF line'}; launches {sub} (want "
+        f"t1_attention_block {L} x {chunks}, t1_attention 0)")
+    if out.returncode != 0 or out.stdout != text or not rtf or not chunks \
+            or sub.get("t1_attention_block") != L * chunks \
+            or sub.get("t1_attention") != 0 or not sub.get("mel_frames") \
+            or not text.strip():
+        raise SystemExit(
+            f"phase 5 (cli): the CLI run does not match:\nstdout "
+            f"{out.stdout!r}\nsession {text!r}\nstderr {out.stderr[-3000:]}")
+
+
 def quant_bytes(model) -> int:
     """Bytes of the quantized encoder weights (codes and scales, all
     layers): what one tick reads of them."""
@@ -468,7 +619,8 @@ def phase_tick_times(torch, models, card: str):
 
     for name, b in (("f32", 32), ("f32", 256), ("bf16", 256),
                     ("bf16 int8-KV", 256), ("bf16 Q8_0 int8-KV", 256),
-                    ("bf16 Q4_0", 256)):
+                    ("bf16 Q4_0", 256), ("f32 block", 256),
+                    ("bf16 block", 256), ("bf16 int8-KV block", 256)):
         model = models[name]
         ms = time_ticks(torch, model, b)
         log(f"[5 tick time] B={b} all-active {name}: {ms:.2f} ms/tick, "
@@ -497,7 +649,13 @@ def phase_tick_times(torch, models, card: str):
                 f"{per_launch * 1e3:.1f} us per launch, "
                 f"{kv_bytes / per_launch / 1e6:.0f} GB/s of K/V "
                 f"({kv_bytes / 1e6:.1f} MB per layer) ({card})")
-        gemm = [r for r in rows if "wq::gemm" in r[0]]
+        block = [r for r in rows if "DenseW" in r[0]
+                 or "block_attention_kernel" in r[0]]
+        if block:  # B3: its two GEMMs and its attention launch
+            log(f"[5 profile] {name} B={b}: attention block (B3) "
+                f"{sum(r[1] for r in block):.3f} ms/tick over "
+                f"{sum(r[2] for r in block):.0f} launches ({card})")
+        gemm = [r for r in rows if "wq::gemm" in r[0] and r not in block]
         if gemm:
             g_ms = sum(r[1] for r in gemm)
             wbytes = quant_bytes(model)
@@ -548,15 +706,29 @@ def main() -> int:
     q4 = quantize_encoder_layers(dense, bits=4)
     bf16 = torch.bfloat16
 
-    def model(params, device="cpu", dtype=None, kv_int8=False):
+    def model(params, device="cpu", dtype=None, kv_int8=False, block=False):
         return ASRModel(hp, params_to(params, device, dtype), vocab,
-                        device=device, kv_int8=kv_int8)
+                        device=device, kv_int8=kv_int8, attn_block=block)
+
+    def share(name, **kw):  # gpu[name]'s weights, other options
+        return ASRModel(hp, gpu[name].params, vocab, device="cuda", **kw)
 
     gpu = {"f32": model(dense, "cuda"), "bf16": model(dense, "cuda", bf16)}
+    gpu["f32 block"] = share("f32", attn_block=True)
+    gpu["bf16 block"] = share("bf16", attn_block=True)
     log(f"[4 tick] random full-width params drawn, quantized to Q8_0 and "
         f"Q4_0 and placed in {time.perf_counter() - t0:.1f} s")
     ref = phase_tick(torch, cpu_model, gpu["f32"], "f32")
     phase_tick(torch, model(dense, dtype=bf16), gpu["bf16"], "bf16", ref)
+    del ref
+    # the attention block (B3 on the card, its plain version on the CPU)
+    ref = phase_tick(torch, model(dense, block=True), gpu["f32 block"],
+                     "f32 block")
+    phase_tick(torch, model(dense, dtype=bf16, block=True),
+               gpu["bf16 block"], "bf16 block", ref)
+    phase_tick(torch, model(dense, kv_int8=True, block=True),
+               share("f32", kv_int8=True, attn_block=True),
+               "f32 int8-KV block", own=ref)
     del cpu_model, ref
     own = run_ticks(model(q8), stream_audio(4, 96 + N_TICKS * 1280,
                                             SEED + 1), N_TICKS)
@@ -585,8 +757,14 @@ def main() -> int:
                            {"t1_attention": L, "q8_matmul": 0,
                             "q4_matmul": n_q})
     counts["q4_matmul"] = counts4["q4_matmul"]
+    gpu["bf16 int8-KV block"] = share("bf16", kv_int8=True, attn_block=True)
+    counts["t1_attention_block"] = phase_server(
+        torch, gpu["bf16 int8-KV block"], "bf16 int8-KV block",
+        {"t1_attention": 0, "t1_attention_block": L, "q8_matmul": 0,
+         "q4_matmul": 0})["t1_attention_block"]
     for k in kernels.KERNELS:
         report[k.name]["launches"] = counts[k.name]
+    phase_cli(torch, hp, dense, vocab)
     phase_tick_times(torch, gpu, card)
 
     kernel_line = {"kernels": [

@@ -1,10 +1,17 @@
-"""Model handle for the streaming engine (port of the serving surface of
+"""Model handle for the streaming engine and the single-stream session
+(port of the serving surface and `stream_step` of
 nemotron_tpu/api.py:ASRModel).
 
 The model lives on an explicit `device`. Its encoder matrices may be
 weight-only quantized (Q8_0 / Q4_0, `from_gguf(keep_quantized=True)` or
 `params.quantize_encoder_layers`), and `kv_int8` gives its streams int8 K/V
-caches. Float32 numerics are pinned: the
+caches. Two more explicit arguments stand in for the JAX package's
+environment variables: `attn_block` (NEMOTRON_TPU_PALLAS_ATTN_BLOCK) runs
+each layer's attention sub-block as one call of kernel B3 at chunk_len 1,
+and `confidence` (NEMOTRON_TPU_CONFIDENCE) packs per-token confidences into
+the tokens. The entry points (the server, the streaming CLI) map the
+environment variable of the attention block onto the argument. Float32
+numerics are pinned: the
 port turns TF32 off for matmuls and for cuDNN convolutions (cuDNN runs f32
 convolutions in TF32 by default, which alone would move the subsampling
 output by ~1e-3 against the JAX package).
@@ -18,7 +25,8 @@ import numpy as np
 import torch
 
 from .models import asr
-from .models.encoder import compact_cache, realign_cache
+from .models.encoder import (check_attn_block_weights, compact_cache,
+                             realign_cache)
 from .params import ModelParams, load_model, random_params
 from .shared.config import CacheConfig, Hparams, LatencyMode
 from .shared.tokenizer import Tokenizer
@@ -35,11 +43,16 @@ class ASRModel:
     def __init__(self, hp: Hparams, params: ModelParams,
                  vocab: list[str] | None = None,
                  prompt_dict: dict[str, int] | None = None,
-                 device="cpu", kv_int8: bool = False):
+                 device="cpu", kv_int8: bool = False,
+                 attn_block: bool = False, confidence: bool = False):
         self.hp = hp
         self.params = params
         self.device = torch.device(device)
         self.kv_int8 = kv_int8  # int8 QuantKV attention caches
+        self.attn_block = attn_block  # kernel B3 for the attention sub-block
+        self.confidence = confidence  # packed per-token confidences
+        if attn_block:
+            check_attn_block_weights(params.layers)
         self.tokenizer = Tokenizer(vocab or [])
         self.prompt_dict = prompt_dict or {}
         self.default_prompt_index = (
@@ -49,21 +62,25 @@ class ASRModel:
 
     @classmethod
     def from_gguf(cls, path: str, dtype=torch.float32, device="cpu",
-                  keep_quantized: bool = False, kv_int8: bool = False):
+                  keep_quantized: bool = False, kv_int8: bool = False,
+                  attn_block: bool = False, confidence: bool = False):
         hp, params, meta = load_model(path, dtype=dtype, device=device,
                                       keep_quantized=keep_quantized)
         return cls(hp, params, meta["vocab"], meta["prompt_dict"], device,
-                   kv_int8=kv_int8)
+                   kv_int8=kv_int8, attn_block=attn_block,
+                   confidence=confidence)
 
     @classmethod
     def random(cls, hp: Hparams | None = None, seed: int = 0,
-               dtype=torch.float32, device="cpu", kv_int8: bool = False):
+               dtype=torch.float32, device="cpu", kv_int8: bool = False,
+               attn_block: bool = False, confidence: bool = False):
         hp = hp or Hparams()
         vocab = [("▁w%d" % i) if i % 2 == 0 else ("p%d" % i)
                  for i in range(hp.vocab_size - 1)]
         return cls(hp, random_params(hp, seed=seed, dtype=dtype,
                                      device=device), vocab, device=device,
-                   kv_int8=kv_int8)
+                   kv_int8=kv_int8, attn_block=attn_block,
+                   confidence=confidence)
 
     def cache_config(self, mode: LatencyMode | int = LatencyMode.PURE_CAUSAL):
         return CacheConfig.for_mode(mode, self.hp)
@@ -119,14 +136,32 @@ class ASRModel:
         n_valid = packed_dev[:, k * shift].to(torch.int32)
         prompt = (packed_dev[:, k * shift + 1].to(torch.int32)
                   if hp.num_prompts > 0 else None)
+        flags = dict(attn_block=self.attn_block, confidence=self.confidence)
         if k > 1:
             return asr.fused_serve_tick_scan(
                 self.params, state, audio, n_valid, prompt, hp=hp, cfg=cfg,
-                k=k, phase=phase)
+                k=k, phase=phase, **flags)
         act = None if all_active else packed_dev[:, k * shift + 2] != 0
         return asr.fused_serve_tick(
             self.params, state, audio, n_valid, act, prompt, hp=hp, cfg=cfg,
-            phase=phase)
+            phase=phase, **flags)
+
+    def stream_step(self, cfg, state, mel_chunk, n_valid, active,
+                    prompt_idx=None, phase: int = 0):
+        """One chunk of mel frames [B, chunk_mel_frames, n_mels] for every
+        stream (tensors on the model's device). active must be None: the
+        all-active fast path, after which the caller advances the phase and
+        calls compact_state at the wrap (the gated path is not ported).
+        The state's caches are updated in place."""
+        b = mel_chunk.shape[0]
+        if prompt_idx is None:
+            prompt_idx = torch.full((b,), max(self.default_prompt_index, 0),
+                                    dtype=torch.int32, device=self.device)
+        return asr.stream_step(
+            self.params, state, mel_chunk, n_valid, active,
+            prompt_idx if self.hp.num_prompts > 0 else None, hp=self.hp,
+            cfg=cfg, phase=phase, attn_block=self.attn_block,
+            confidence=self.confidence)
 
     def prime_frontend(self, state, mask, tails, lasts):
         """Install frontend carries for newly joined slots."""

@@ -25,7 +25,8 @@ struct Q4Codes {
       col -= half;
       shift = 4;                 // high nibble
     }
-    const uint2 v = *reinterpret_cast<const uint2*>(w + (long)n * half + col);
+    const uint2 v =
+        __ldg(reinterpret_cast<const uint2*>(w + (long)n * half + col));
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       c[j] = (float)((int)((v.x >> (8 * j + shift)) & 0xFu) - 8);

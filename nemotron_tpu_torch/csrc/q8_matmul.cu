@@ -17,7 +17,8 @@ struct Q8Codes {
   // row n holds K int8 codes, column k at byte k
   __device__ __forceinline__ static void load8(const uint8_t* w, int n, int K,
                                                int k0, float* c) {
-    const uint2 v = *reinterpret_cast<const uint2*>(w + (long)n * K + k0);
+    const uint2 v =
+        __ldg(reinterpret_cast<const uint2*>(w + (long)n * K + k0));
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       c[j] = (float)(int8_t)(v.x >> (8 * j));

@@ -1,24 +1,31 @@
-// Weight-only quantized GEMM for Hopper, sm_90a: the body shared by kernels
-// B4 (q8_matmul.cu, Q8_0) and B5 (q4_matmul.cu, Q4_0).
+// GEMM body for Hopper, sm_90a, shared by kernels B4 (q8_matmul.cu, Q8_0),
+// B5 (q4_matmul.cu, Q4_0) and the projections of B3
+// (t1_attention_block.cu):
 //
-//     y[m, n] = sum_k x[m, k] * code(n, k) * scales[n, k / 32]
+//     y[m, n] = epilogue(m, n, sum_k a(m, k) * w(n, k))
 //
-// x [M, K] row-major (f32 or bf16), y [M, N] in x's type, scales [N, K/32]
-// f32. `Codes` reads the stored weight: Codes::load8(w, n, K, k0, c) fills
-// c[0..7] with the integer codes of row n at k = k0 .. k0 + 7 (k0 % 8 ==
-// 0), from one 8-byte load.
+// Three policies make one kernel serve all of them:
+//   * the A loader gives a(m, k): PlainA reads x [M, K] row-major; LnA
+//     reads x and applies a layer norm whose row statistics (mean,
+//     1/sqrt(var + eps), f32, population variance) the block computes
+//     first for its own rows, so the normalised rows never reach memory;
+//   * the weight loader gives 8 values of row n from k0 (k0 % 8 == 0) as
+//     f32: QuantW dequantizes Q8_0 / Q4_0 codes (`Codes::load8(w, n, K, k0,
+//     c)` reads the integer codes, times the per-32-input scale [N, K/32]);
+//     DenseW reads up to three row-major [rows, K] matrices stacked along N;
+//   * the epilogue stores y[m, n] from the f32 sum (in x's type, in f32,
+//     or added to a residual).
 //
 // What bounds it on the H100: at the serving shapes (M = B <= 256 streams,
-// N, K in 1024..4096) one call reads the weight once, N*K bytes of codes
-// (half that for Q4) plus N*K/8 bytes of scales, and does 2*M*N*K flops;
-// M = 256 sits right at the bf16 tensor cores' ridge, so small batches are
-// bound by the weight bytes and larger ones by the MMA rate. Design, a
-// first version that is simple and right (no TMA, no wgmma, no
+// N, K in 1024..4096) one call reads the weight once and does 2*M*N*K
+// flops; M = 256 sits right at the bf16 tensor cores' ridge, so small
+// batches are bound by the weight bytes and larger ones by the MMA rate.
+// Design, a first version that is simple and right (no TMA, no wgmma, no
 // multi-stage pipeline):
 //   * one block per output tile, a K loop over steps of whole Q8_0 / Q4_0
 //     blocks (32 inputs each, one scale per (row n, block));
-//   * the step's x tile and weight tile go to shared memory; the weight is
-//     dequantized there, code * scale in f32, into the operand type;
+//   * the step's x tile and weight tile go to shared memory, the weight
+//     dequantized there (code * scale in f32) into the operand type;
 //   * f32 activations: FFMA with f32 sums, no TF32; 64x64 tiles, K steps
 //     of 32, 256 threads with 4x4 outputs each;
 //   * bf16 activations: the weight rounded to bf16 as the plain version
@@ -31,8 +38,8 @@
 //     M=256, N=1024, K=4096 at 32);
 //   * ragged M and N are masked in the loads and the stores: the wrapper
 //     never pads, and rows past M or N read as zero.
-// The wrapper checks K % 32 == 0 (Q8) or K % 64 == 0 (Q4), 16-byte aligned
-// x, contiguous weights.
+// The wrappers check K % 32 == 0 (K % 64 == 0 for Q4), 16-byte aligned
+// rows, contiguous weights.
 
 #pragma once
 
@@ -40,61 +47,218 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace wq {
 
 constexpr int QB = 32;  // inputs per quantization block (one scale)
+
+// ---- loads of 4 or 8 consecutive values as f32 ---------------------------
+// Every global read of the operands goes through __ldg, the read-only
+// path: the policies below hold plain pointers, which the compiler cannot
+// prove unaliased as it could the kernels' __restrict__ arguments.
+
+template <int NV>
+__device__ __forceinline__ void ld_f32(const float* p, float* v) {
+#pragma unroll
+  for (int i = 0; i < NV; i += 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p + i));
+    v[i] = a.x;
+    v[i + 1] = a.y;
+    v[i + 2] = a.z;
+    v[i + 3] = a.w;
+  }
+}
+
+template <int NV>
+__device__ __forceinline__ void ld_f32(const __nv_bfloat16* p, float* v) {
+  static_assert(NV % 8 == 0, "bf16 values load 8 at a time");
+#pragma unroll
+  for (int i = 0; i < NV; i += 8) {
+    union {
+      uint4 u;
+      __nv_bfloat16 h[8];
+    } a;
+    a.u = __ldg(reinterpret_cast<const uint4*>(p + i));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[i + j] = __bfloat162float(a.h[j]);
+  }
+}
+
+__device__ __forceinline__ void store(float* y, float v) { *y = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* y, float v) {
+  *y = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// ---- A loaders: load<NV>(..., m, k, v) fills v[0..NV) = a(m, k .. k+NV) ---
+
+template <typename T>
+struct PlainA {
+  const T* x;
+  int K;
+  static constexpr bool kStats = false;
+  // bf16 rows go to the tensor-core tile as they are, 16 bytes at a time
+  static constexpr bool kRaw = std::is_same<T, __nv_bfloat16>::value;
+  template <int NV>
+  __device__ void load(int m, int k, float* v) const {
+    ld_f32<NV>(x + (long)m * K + k, v);
+  }
+  __device__ uint4 raw8(int m, int k) const {
+    return __ldg(reinterpret_cast<const uint4*>(x + (long)m * K + k));
+  }
+};
+
+template <typename T>
+struct LnA {
+  const T* x;
+  const T* ln_w;
+  const T* ln_b;
+  float eps;
+  int K;
+  static constexpr bool kStats = true;
+  static constexpr bool kRaw = false;
+
+  // mean and 1/sqrt(var + eps) of rows m0 .. m0 + rows - 1 into st[], each
+  // row by one warp (two passes over the row, as the reference formula)
+  __device__ void stats(float2* st, int m0, int rows, int M) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int r = warp; r < rows; r += blockDim.x >> 5) {
+      float mu = 0.f, var = 0.f;
+      if (m0 + r < M) {
+        const T* row = x + (long)(m0 + r) * K;
+        float s = 0.f;
+        for (int k = lane; k < K; k += 32) s += val(row[k]);
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        mu = s / K;
+        float q = 0.f;
+        for (int k = lane; k < K; k += 32) {
+          const float d = val(row[k]) - mu;
+          q = fmaf(d, d, q);
+        }
+        for (int o = 16; o > 0; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+        var = q / K;
+      }
+      if (lane == 0) st[r] = make_float2(mu, 1.f / sqrtf(var + eps));
+    }
+  }
+
+  // st is indexed by the row within the block's tile
+  template <int NV>
+  __device__ void load(const float2* st, int r, int m, int k, float* v) const {
+    ld_f32<NV>(x + (long)m * K + k, v);
+    const float2 s = st[r];
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      v[j] = (v[j] - s.x) * s.y * val(ln_w[k + j]) + val(ln_b[k + j]);
+  }
+};
+
+// dispatch: PlainA ignores the tile row, LnA reads its statistics
+template <int NV, typename A>
+__device__ __forceinline__ void load_a(const A& a, const float2* st, int r,
+                                       int m, int k, float* v) {
+  if constexpr (A::kStats)
+    a.template load<NV>(st, r, m, k, v);
+  else
+    a.template load<NV>(m, k, v);
+}
+
+// ---- weight loaders: load8(n, k0, c) fills c[0..8) = w(n, k0 .. k0+8) ----
+
+template <class Codes>
+struct QuantW {
+  const uint8_t* w;
+  const float* scales;  // [N, K / QB]
+  int K;
+  __device__ void load8(int n, int k0, float* c) const {
+    Codes::load8(w, n, K, k0, c);
+    const float s = __ldg(scales + (long)n * (K / QB) + k0 / QB);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[j] *= s;
+  }
+};
+
+template <typename T>
+struct DenseW {
+  const T* part[3];  // row n lies in part[n / rows] at row n % rows
+  int rows;
+  int K;
+  __device__ void load8(int n, int k0, float* c) const {
+    ld_f32<8>(part[n / rows] + (long)(n % rows) * K + k0, c);
+  }
+};
+
+// ---- epilogues: e(m, n, acc) ---------------------------------------------
+
+template <typename T>
+struct StoreY {
+  T* y;
+  int N;
+  __device__ void operator()(int m, int n, float acc) const {
+    store(y + (long)m * N + n, acc);
+  }
+};
+
+template <typename T>
+struct AddResidual {  // y = res + acc, summed in f32, rounded once
+  T* y;
+  const T* res;
+  int N;
+  __device__ void operator()(int m, int n, float acc) const {
+    const long i = (long)m * N + n;
+    store(y + i, val(__ldg(res + i)) + acc);
+  }
+};
 
 // ---- f32 activations: FFMA, 256 threads, 4x4 outputs per thread ----------
 
 constexpr int BM = 64, BN = 64, BK = QB;  // f32 tile and K step
 
-template <class Codes>
+template <class A, class W, class E>
 __global__ void __launch_bounds__(256)
-gemm_f32(const float* __restrict__ x, const uint8_t* __restrict__ w,
-         const float* __restrict__ scales, float* __restrict__ y, int M,
-         int N, int K) {
+gemm_f32(A a, W w, E e, int M, int N, int K) {
   // K-major tiles, padded to keep float4 rows aligned
   __shared__ __align__(16) float xs[BK][BM + 4];
   __shared__ __align__(16) float ws[BK][BN + 4];
+  __shared__ float2 stats[BM];
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tx = tid % 16, ty = tid / 16;
-  const int kblocks = K / BK;
   float acc[4][4] = {};
+  if constexpr (A::kStats) {
+    a.stats(stats, m0, BM, M);
+    __syncthreads();
+  }
 
-  for (int kb = 0; kb < kblocks; ++kb) {
-    // x tile: BM rows x BK = 512 float4 loads, 2 per thread
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // x tile: BM rows x BK = 512 groups of 4, 2 per thread
     for (int i = tid; i < BM * BK / 4; i += 256) {
       const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const float4*>(x + (long)(m0 + r) * K +
-                                             kb * BK + c);
-      xs[c + 0][r] = v.x;
-      xs[c + 1][r] = v.y;
-      xs[c + 2][r] = v.z;
-      xs[c + 3][r] = v.w;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (m0 + r < M) load_a<4>(a, stats, r, m0 + r, k0 + c, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[c + j][r] = v[j];
     }
-    // weight tile: BN rows x 32 codes, 8 codes per thread
+    // weight tile: BN rows x 32 values, 8 per thread
     {
       const int r = tid / 4, j0 = (tid % 4) * 8, n = n0 + r;
       float c[8] = {};
-      if (n < N) {
-        Codes::load8(w, n, K, kb * BK + j0, c);
-        const float s = scales[(long)n * kblocks + kb];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) c[j] *= s;
-      }
+      if (n < N) w.load8(n, k0 + j0, c);
 #pragma unroll
       for (int j = 0; j < 8; ++j) ws[j0 + j][r] = c[j];
     }
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[k][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      const float4 av4 = *reinterpret_cast<const float4*>(&xs[k][ty * 4]);
+      const float4 bv4 = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
+      const float av[4] = {av4.x, av4.y, av4.z, av4.w};
+      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -109,7 +273,7 @@ gemm_f32(const float* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx * 4 + j;
-      if (n < N) y[(long)m * N + n] = acc[i][j];
+      if (n < N) e(m, n, acc[i][j]);
     }
   }
 }
@@ -126,76 +290,87 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ uint4 pack_bf16(const float* v) {
+  union {
+    uint4 u;
+    __nv_bfloat16 h[8];
+  } p;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p.h[j] = __float2bfloat16(v[j]);
+  return p.u;
+}
+
 constexpr int HM = 64, HN = 32, HK = 4 * QB;  // bf16 tile and K step
 
-template <class Codes>
+template <class A, class W, class E>
 __global__ void __launch_bounds__(128)
-gemm_bf16(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-          const float* __restrict__ scales, __nv_bfloat16* __restrict__ y,
-          int M, int N, int K) {
+gemm_bf16(A a, W w, E e, int M, int N, int K) {
   // row-major tiles, K contiguous, rows padded by 8 bf16 (16 bytes) so
   // the fragment loads of a warp hit 32 distinct banks
   constexpr int LD = HK + 8;
   __shared__ __align__(16) __nv_bfloat16 xs[HM][LD];
   __shared__ __align__(16) __nv_bfloat16 ws[HN][LD];
+  __shared__ float2 stats[HM];
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
   const int m0 = blockIdx.y * HM, n0 = blockIdx.x * HN;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 16;  // 32x16 per warp
   float acc[2][2][4] = {};
+  if constexpr (A::kStats) {
+    a.stats(stats, m0, HM, M);
+    __syncthreads();
+  }
 
   for (int k0 = 0; k0 < K; k0 += HK) {
     const int kw = min(HK, K - k0);  // a multiple of 32
-    // x tile: HM rows x kw/8 chunks of 8 bf16 (16 bytes)
+    // x tile: HM rows x kw/8 chunks of 8 values: bf16 rows copied as they
+    // are, normalised rows rounded to bf16
     for (int i = tid; i < HM * HK / 8; i += 128) {
       const int r = i / (HK / 8), c = (i % (HK / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && c < kw)
-        v = *reinterpret_cast<const uint4*>(x + (long)(m0 + r) * K + k0 + c);
-      *reinterpret_cast<uint4*>(&xs[r][c]) = v;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M && c < kw) {
+        if constexpr (A::kRaw) {
+          u = a.raw8(m0 + r, k0 + c);
+        } else {
+          float v[8];
+          load_a<8>(a, stats, r, m0 + r, k0 + c, v);
+          u = pack_bf16(v);
+        }
+      }
+      *reinterpret_cast<uint4*>(&xs[r][c]) = u;
     }
-    // weight tile: HN rows x kw/8 groups of 8 codes, dequantized as the
-    // plain version does: bf16(f32(code) * scale)
+    // weight tile: HN rows x kw/8 groups of 8, rounded to bf16 as the plain
+    // version rounds it: bf16(f32(code) * scale)
     for (int i = tid; i < HN * HK / 8; i += 128) {
       const int r = i / (HK / 8), c = (i % (HK / 8)) * 8, n = n0 + r;
       float v[8] = {};
-      float s = 0.f;
-      if (n < N && c < kw) {
-        Codes::load8(w, n, K, k0 + c, v);
-        s = scales[(long)n * (K / QB) + (k0 + c) / QB];
-      }
-      union {
-        uint4 u;
-        __nv_bfloat16 h[8];
-      } pack;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) pack.h[j] = __float2bfloat16(v[j] * s);
-      *reinterpret_cast<uint4*>(&ws[r][c]) = pack.u;
+      if (n < N && c < kw) w.load8(n, k0 + c, v);
+      *reinterpret_cast<uint4*>(&ws[r][c]) = pack_bf16(v);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < HK; kk += 16) {
-      uint32_t a[2][4], b[2][2];
+      uint32_t fa[2][4], fb[2][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
         const int r = wm + mi * 16 + g;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t4 * 2]);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + t4 * 2]);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t4 * 2 + 8]);
-        a[mi][3] =
+        fa[mi][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t4 * 2]);
+        fa[mi][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + t4 * 2]);
+        fa[mi][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t4 * 2 + 8]);
+        fa[mi][3] =
             *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + t4 * 2 + 8]);
       }
 #pragma unroll
       for (int ni = 0; ni < 2; ++ni) {
         const int n = wn + ni * 8 + g;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t4 * 2]);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t4 * 2 + 8]);
+        fb[ni][0] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t4 * 2]);
+        fb[ni][1] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t4 * 2 + 8]);
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+        for (int ni = 0; ni < 2; ++ni) mma_bf16(acc[mi][ni], fa[mi], fb[ni]);
     }
     __syncthreads();
   }
@@ -205,35 +380,54 @@ gemm_bf16(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int n = n0 + wn + ni * 8 + t4 * 2 + (e & 1);
-        if (m < M && n < N)
-          y[(long)m * N + n] = __float2bfloat16(acc[mi][ni][e]);
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + wm + mi * 16 + g + (q >= 2 ? 8 : 0);
+        const int n = n0 + wn + ni * 8 + t4 * 2 + (q & 1);
+        if (m < M && n < N) e(m, n, acc[mi][ni][q]);
       }
 }
 
+// ---- launchers -------------------------------------------------------------
+
+template <class A, class W, class E>
+int run_f32(const A& a, const W& w, const E& e, int M, int N, int K,
+            void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_f32<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a, w, e, M,
+                                                                 N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class A, class W, class E>
+int run_bf16(const A& a, const W& w, const E& e, int M, int N, int K,
+             void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  const dim3 grid((N + HN - 1) / HN, (M + HM - 1) / HM);
+  gemm_bf16<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(a, w, e, M,
+                                                                  N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B4 / B5: y = x . dequant(w)^T in x's type
 template <class Codes>
 int launch_f32(const void* x, const void* w, const void* scales, void* y,
                int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_f32<Codes><<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scales), static_cast<float*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return run_f32(PlainA<float>{static_cast<const float*>(x), K},
+                 QuantW<Codes>{static_cast<const uint8_t*>(w),
+                               static_cast<const float*>(scales), K},
+                 StoreY<float>{static_cast<float*>(y), N}, M, N, K, stream);
 }
 
 template <class Codes>
 int launch_bf16(const void* x, const void* w, const void* scales, void* y,
                 int M, int N, int K, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  const dim3 grid((N + HN - 1) / HN, (M + HM - 1) / HM);
-  gemm_bf16<Codes><<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scales), static_cast<__nv_bfloat16*>(y), M,
-      N, K);
-  return static_cast<int>(cudaGetLastError());
+  return run_bf16(
+      PlainA<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), K},
+      QuantW<Codes>{static_cast<const uint8_t*>(w),
+                    static_cast<const float*>(scales), K},
+      StoreY<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y), N}, M, N, K,
+      stream);
 }
 
 }  // namespace wq

@@ -63,6 +63,14 @@ _SIGNATURES = {
     "q8_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q4_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q4_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
+    # v_buf, out, k_new, v_new, qkv scratch, ctx scratch, batch, heads,
+    # s_buf, d_head, eps, scale, stream
+    "t1_attention_block_f32": [_P] * 18 + [_I, _I, _I, _I, _F, _F, _P],
+    "t1_attention_block_bf16": [_P] * 18 + [_I, _I, _I, _I, _F, _F, _P],
+    # the same with the int8 caches as k codes, k scales, v codes, v scales
+    "t1_attention_block_i8_f32": [_P] * 20 + [_I, _I, _I, _I, _F, _F, _P],
+    "t1_attention_block_i8_bf16": [_P] * 20 + [_I, _I, _I, _I, _F, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -189,7 +197,10 @@ Q8_MATMUL = Kernel(
 Q4_MATMUL = Kernel(
     "q4_matmul", "nemotron_tpu_torch/csrc/q4_matmul.cu",
     "nemotron_tpu/ops/quant.py:276")
-KERNELS = (T1_ATTENTION, MEL_FRAMES, Q8_MATMUL, Q4_MATMUL)
+T1_ATTENTION_BLOCK = Kernel(
+    "t1_attention_block", "nemotron_tpu_torch/csrc/t1_attention_block.cu",
+    "nemotron_tpu/ops/attn_block_pallas.py:139")
+KERNELS = (T1_ATTENTION, MEL_FRAMES, Q8_MATMUL, Q4_MATMUL, T1_ATTENTION_BLOCK)
 
 
 def reset_counts() -> None:

@@ -1,9 +1,14 @@
-"""The streaming serving tick (port of nemotron_tpu/models/asr.py, fused path).
+"""The streaming steps (port of nemotron_tpu/models/asr.py: the fused path
+and the all-active `stream_step`).
 
 `fused_serve_tick` advances a batch of streams by one chunk: int16 PCM ->
 mel frontend (the mel kernel on the card) -> causal subsampling -> 24
-cached conformer layers (the T=1 attention kernel on the card) -> greedy
-RNNT. The caches are updated in place (see models/encoder.py).
+cached conformer layers (the T=1 attention kernel B1 on the card, or the
+fused attention block B3 with `attn_block`) -> greedy RNNT. `stream_step`
+does the same from a mel chunk (the single-stream session computes its mel
+on the host side). The caches are updated in place (see models/encoder.py).
+`confidence` packs per-token confidences into the tokens
+(models/decoder.py).
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import torch
 from ..ops import mel as melops
 from ..shared.config import CacheConfig, Hparams
 from ..streaming.state import StreamState
-from .decoder import greedy_decode
+from .decoder import greedy_decode, unpack_tokens
 from .encoder import compact_cache, stream_encode_step
 
 
@@ -24,9 +29,46 @@ def _gate0(active, new, old):
     return torch.where(active.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
+def _prompt_onehot(params, prompt_idx, hp: Hparams):
+    if params.prompt is None or prompt_idx is None:
+        return None
+    return torch.nn.functional.one_hot(
+        prompt_idx.long(), hp.num_prompts).to(params.pos_emb.dtype)
+
+
+def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
+                prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
+                phase: int = 0, attn_block: bool = False,
+                confidence: bool = False):
+    """Advance a batch of streams by one chunk of mel frames, all active
+    (the phased fast path: the caller advances the phase and compacts at
+    the wrap). The frontend carries are not touched.
+
+    mel_chunk: [B, chunk_mel_frames, n_mels], cast to the activation type
+    as the fused tick casts its mel; n_valid: [B] encoder frames to decode
+    (fewer on the zero-padded final chunk). Returns (state', tokens [B,
+    chunk_len, S] int32, -1 = no emission).
+    """
+    if active is not None:
+        raise NotImplementedError(
+            "the phase-stationary gated stream step is not ported; call "
+            "stream_step with active=None (all streams advance)")
+    enc, k2, v2, c2, valid2 = stream_encode_step(
+        params, hp, cfg, mel_chunk.to(params.pos_emb.dtype), state.k_cache,
+        state.v_cache, state.conv_cache, state.cache_valid,
+        prompt_onehot=_prompt_onehot(params, prompt_idx, hp), phase=phase,
+        attn_block=attn_block)
+    dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
+                                      n_valid=n_valid.to(torch.int32),
+                                      confidence=confidence)
+    return dataclasses.replace(
+        state, k_cache=k2, v_cache=v2, conv_cache=c2, cache_valid=valid2,
+        decode=dec_state), tokens
+
+
 def fused_encode_tick(params, state: StreamState, audio_block, active,
                       prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
-                      phase: int = 0):
+                      phase: int = 0, attn_block: bool = False):
     """Frontend + encoder half of the tick: raw PCM blocks in, encoder frames
     out, the frontend carries and caches advanced (decode state untouched).
 
@@ -45,16 +87,12 @@ def fused_encode_tick(params, state: StreamState, audio_block, active,
     mel_chunk = torch.cat([state.mel_ov, mel_new], dim=1)
     new_ov = mel_chunk[:, cfg.shift_mel_frames:, :]
 
-    prompt_onehot = None
-    if params.prompt is not None and prompt_idx is not None:
-        prompt_onehot = torch.nn.functional.one_hot(
-            prompt_idx.long(), hp.num_prompts).to(params.pos_emb.dtype)
-
     act = None if active is None else active.to(torch.bool)
     enc, k2, v2, c2, valid2 = stream_encode_step(
         params, hp, cfg, mel_chunk.to(params.pos_emb.dtype),
         state.k_cache, state.v_cache, state.conv_cache, state.cache_valid,
-        prompt_onehot=prompt_onehot, phase=phase, active_mask=act)
+        prompt_onehot=_prompt_onehot(params, prompt_idx, hp), phase=phase,
+        active_mask=act, attn_block=attn_block)
     if act is not None:
         tail2 = _gate0(act, tail2, state.pp_tail)
         last2 = torch.where(act, last2, state.pp_last)
@@ -66,19 +104,20 @@ def fused_encode_tick(params, state: StreamState, audio_block, active,
 
 
 def decode_tick(params, state: StreamState, enc, n_valid, active=None, *,
-                hp: Hparams):
+                hp: Hparams, confidence: bool = False):
     """Greedy-RNNT half of the tick (inactive slots decode n_valid = 0)."""
     n_valid = n_valid.to(torch.int32)
     if active is not None:
         n_valid = torch.where(active.to(torch.bool), n_valid, 0)
     dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
-                                      n_valid=n_valid)
+                                      n_valid=n_valid, confidence=confidence)
     return dataclasses.replace(state, decode=dec_state), tokens
 
 
 def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
                      prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
-                     phase: int = 0):
+                     phase: int = 0, attn_block: bool = False,
+                     confidence: bool = False):
     """Whole serving step: raw PCM in -> tokens [B, chunk_len, S] out.
 
     Finalize: the host zero-pads the last partial block and passes the
@@ -87,13 +126,16 @@ def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
     output frame, so they never reach an emitted token.
     """
     state, enc = fused_encode_tick(params, state, audio_block, active,
-                                   prompt_idx, hp=hp, cfg=cfg, phase=phase)
-    return decode_tick(params, state, enc, n_valid, active, hp=hp)
+                                   prompt_idx, hp=hp, cfg=cfg, phase=phase,
+                                   attn_block=attn_block)
+    return decode_tick(params, state, enc, n_valid, active, hp=hp,
+                       confidence=confidence)
 
 
 def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
                           prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
-                          k: int, phase: int = 0):
+                          k: int, phase: int = 0, attn_block: bool = False,
+                          confidence: bool = False):
     """k all-active ticks in one call (backlog micro-batching), as a loop over
     chunks. Same contract as the JAX package: k | n_phases and phase % k == 0,
     so the slack-buffer wrap can only land after the last chunk.
@@ -109,7 +151,8 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
     for i in range(k):
         state, t = fused_serve_tick(
             params, state, audio_blocks[:, i * shift:(i + 1) * shift],
-            n_valid, None, prompt_idx, hp=hp, cfg=cfg, phase=phase + i)
+            n_valid, None, prompt_idx, hp=hp, cfg=cfg, phase=phase + i,
+            attn_block=attn_block, confidence=confidence)
         toks.append(t)
     if phase + k == cfg.n_phases:  # wrap: move the window back to phase 0
         k2, v2 = compact_cache(cfg, hp, state.k_cache, state.v_cache)
@@ -117,11 +160,19 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
     return state, torch.cat(toks, dim=1)
 
 
-def tokens_to_list(tokens, n_valid=None):
+def tokens_to_list(tokens, n_valid=None, vocab_size=None,
+                   with_conf: bool = False):
     """Emission tensor -> per-stream ordered [(token_id, frame_idx), ...]
-    (frame_idx relative to this chunk)."""
+    (frame_idx relative to this chunk).
+
+    vocab_size: the values carry packed confidences (a model built with
+    confidence=True) and are unpacked with it; with_conf=True returns
+    (token_id, frame_idx, conf | None) triples (None without vocab_size)."""
     arr = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
                      else tokens)
+    conf = None
+    if vocab_size is not None:
+        arr, conf = unpack_tokens(arr, vocab_size)
     out = []
     for b in range(arr.shape[0]):
         tmax = arr.shape[1] if n_valid is None else int(n_valid[b])
@@ -129,7 +180,12 @@ def tokens_to_list(tokens, n_valid=None):
         for t in range(min(tmax, arr.shape[1])):
             for s in range(arr.shape[2]):
                 tok = int(arr[b, t, s])
-                if tok >= 0:
+                if tok < 0:
+                    continue
+                if with_conf:
+                    seq.append((tok, t, None if conf is None
+                                else float(conf[b, t, s])))
+                else:
                     seq.append((tok, t))
         out.append(seq)
     return out

@@ -11,12 +11,20 @@ The JAX loop exits once every stream has passed its n_valid frames
 would be a host sync per iteration, so the port runs the loop's fixed bound
 t*(s_max+1)+1 instead: an iteration in which no stream is active changes
 nothing, so the tokens are the same.
+
+Per-token confidence: with `confidence=True` each emitted value carries a
+7-bit quantized softmax probability of the chosen token, packed as
+tok + vocab_size * q (q in 0..127), so the emission stays one int32 tensor;
+-1 stays the no-emission sentinel and `unpack_tokens` splits the two. The
+JAX package selects this with NEMOTRON_TPU_CONFIDENCE; the port takes the
+argument.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..ops.lstm import lstm2_step
@@ -43,6 +51,30 @@ def init_decode_state(batch: int, hp: Hparams, dtype=torch.float32,
     )
 
 
+def unpack_tokens(vals, vocab_size: int):
+    """Packed emission values (a numpy array of any shape) -> (token ids,
+    confidence in [0, 1]); the -1 sentinels pass through (confidence 0)."""
+    emitted = vals >= 0
+    ids = np.where(emitted, vals % vocab_size, vals)
+    conf = np.where(emitted, (vals // vocab_size) / 127.0, 0.0)
+    return ids, conf
+
+
+def _pack_conf(tok, logits, vocab_size: int):
+    """tok [B] int32 (the argmax of logits [B, V]) -> tok + V * q, q the
+    chosen token's softmax probability in 1/127 steps (half to even)."""
+    l32 = logits.float()
+    m = l32.amax(dim=-1)
+    p = 1.0 / torch.exp(l32 - m[:, None]).sum(-1)  # exp(m - logsumexp)
+    q = torch.clamp(torch.round(p * 127.0), 0, 127).to(torch.int32)
+    return tok + vocab_size * q
+
+
+def joint_step(jp, enc_t, dec_out):
+    """Single-frame joint: enc_t [B, D], dec_out [B, decoder_dim] -> [B, V]."""
+    return joint_from_proj(jp, enc_t @ jp.enc_w.T + jp.enc_b, dec_out)
+
+
 def joint_from_proj(jp, enc_proj, dec_out):
     """Joint with the encoder-side projection precomputed ([B, joint_dim])."""
     d = dec_out @ jp.dec_w.T + jp.dec_b
@@ -51,13 +83,14 @@ def joint_from_proj(jp, enc_proj, dec_out):
 
 
 def greedy_decode(params, hp: Hparams, enc_out, state: DecodeState,
-                  n_valid=None):
+                  n_valid=None, confidence: bool = False):
     """Loop-labels greedy RNNT decode.
 
     enc_out: [B, T, D]; n_valid: [B] int — frames >= n_valid are skipped
     (the zero-padded final chunk, inactive slots). Returns (state', tokens
     [B, T, S] int32 with -1 = no emission); a token at [b, t, s] was emitted
-    at absolute frame state.frame_offset[b] + t.
+    at absolute frame state.frame_offset[b] + t. confidence: the tokens
+    carry packed confidences (see unpack_tokens).
     """
     b, t, _ = enc_out.shape
     dev = enc_out.device
@@ -88,7 +121,8 @@ def greedy_decode(params, hp: Hparams, enc_out, state: DecodeState,
 
         cell = (frame_idx.clamp(max=t - 1) * s_max
                 + sym_idx.clamp(max=s_max - 1)).long()[:, None]
-        acc.scatter_(1, cell, torch.where(emit, tok + 1,
+        val = _pack_conf(tok, logits, hp.vocab_size) if confidence else tok
+        acc.scatter_(1, cell, torch.where(emit, val + 1,
                                           acc.gather(1, cell)[:, 0])[:, None])
         gate = emit[:, None, None]
         h = torch.where(gate, h2, h)

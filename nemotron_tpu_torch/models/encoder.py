@@ -14,6 +14,11 @@ the port writes them in place — `stream_encode_step` appends the new K/V
 frame into `k_cache`/`v_cache` and overwrites `conv_cache`;
 `compact_cache` and `realign_cache` rewrite the buffers they are given.
 A caller that needs the old state keeps its own copy.
+
+`attn_block` (chunk_len 1) runs each layer's attention sub-block (LN,
+projections, attention, out projection, residual) as one call of kernel B3
+(ops/attn_block.py) instead of LN + `rel_pos_mha_fullbuf` (kernel B1): the
+JAX package's NEMOTRON_TPU_PALLAS_ATTN_BLOCK path, taken as an argument.
 """
 
 from __future__ import annotations
@@ -24,32 +29,40 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.attn_block import t1_attention_block
 from ..ops.basic import ffn, glu, layer_norm, linear
 from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
 from ..ops.kvquant import (is_quant, kv_parts, kv_slice, kv_update_slice_,
                            kv_where, quantize_kv)
+from ..ops.quant import is_quantized
 from ..ops.rel_attention import rel_pos_mha_fullbuf
 from ..params import layer_slice
 from ..shared.config import CacheConfig, Hparams
 
 
 def conformer_layer(x, pos_emb, lp, hp: Hparams, k_buf, v_buf, conv_cache,
-                    attn_mask, pos_index):
+                    attn_mask, pos_index, attn_block=None):
     """One cached conformer layer (full-slack-buffer attention).
 
     x + .5*FFN1 -> +MHA -> +Conv -> +.5*FFN2 -> final LN. Returns
     (y, k_new, v_new [B, H, T, Dh], conv_cache' [B, K-1, D]).
+
+    attn_block: optional replacement of the whole attention sub-block (LN +
+    MHA + residual), a callable res -> (res', k_new, v_new).
     """
     res = x
     cur = layer_norm(res, lp.norm_ff1_w, lp.norm_ff1_b)
     res = res + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
 
-    cur = layer_norm(res, lp.norm_attn_w, lp.norm_attn_b)
-    cur, k_new, v_new = rel_pos_mha_fullbuf(
-        cur, pos_emb, lp.attn_q_w, lp.attn_k_w, lp.attn_v_w, lp.attn_pos_w,
-        lp.attn_out_w, lp.pos_bias_u, lp.pos_bias_v, hp.n_heads, hp.d_head,
-        k_buf, v_buf, pos_index, attn_mask)
-    res = res + cur
+    if attn_block is not None:
+        res, k_new, v_new = attn_block(res)
+    else:
+        cur = layer_norm(res, lp.norm_attn_w, lp.norm_attn_b)
+        cur, k_new, v_new = rel_pos_mha_fullbuf(
+            cur, pos_emb, lp.attn_q_w, lp.attn_k_w, lp.attn_v_w,
+            lp.attn_pos_w, lp.attn_out_w, lp.pos_bias_u, lp.pos_bias_v,
+            hp.n_heads, hp.d_head, k_buf, v_buf, pos_index, attn_mask)
+        res = res + cur
 
     # conv module: LN -> pw1 -> GLU -> causal dw conv -> LN -> SiLU -> pw2
     cur = layer_norm(res, lp.norm_conv_w, lp.norm_conv_b)
@@ -92,6 +105,43 @@ def _phase_tensors(lc, chunk_len, s_buf, phase, device):
             torch.tensor(pos_index[0], device=device))
 
 
+ATTN_BLOCK_WEIGHTS = ("attn_q_w", "attn_k_w", "attn_v_w", "attn_out_w")
+
+
+def check_attn_block_weights(layers) -> None:
+    """Kernel B3 takes the four attention matrices dense, as the JAX
+    package's Pallas block does; quantized ones are refused."""
+    bad = [n for n in ATTN_BLOCK_WEIGHTS if is_quantized(getattr(layers, n))]
+    if bad:
+        raise ValueError(
+            f"attn_block: the fused attention block (kernel B3) needs dense "
+            f"attention weights, but {', '.join(bad)} are quantized; run "
+            f"without attn_block (NEMOTRON_TPU_PALLAS_ATTN_BLOCK) or without "
+            f"quantized weights")
+
+
+def _block_call(lp, hp: Hparams, pos, pos_index, mask, k_buf, v_buf):
+    """Layer lp's attention sub-block as one B3 call: res -> (res', k_new,
+    v_new [B, H, 1, Dh]). pos [pos_len, D] is pos_emb . attn_pos_w^T; pp is
+    built here, outside the kernel as in the JAX package (encoder.py:345-350):
+    pp[h, d, s] = pos[pos_index[s], h, d] on live slots, 0 on dead ones (the
+    index form of its one-hot contraction)."""
+    live = (pos_index >= 0).to(torch.float32)
+    ph = pos.float().view(-1, hp.n_heads, hp.d_head)
+    pp = (ph[pos_index.clamp(min=0)] * live[:, None, None]).permute(
+        1, 2, 0).contiguous()
+
+    def call(res):
+        out, kn, vn = t1_attention_block(
+            res[:, 0], lp.norm_attn_w, lp.norm_attn_b, lp.attn_q_w,
+            lp.attn_k_w, lp.attn_v_w, lp.attn_out_w, lp.pos_bias_u,
+            lp.pos_bias_v, pp, mask, k_buf, v_buf, hp.n_heads,
+            hp.d_head)
+        return out[:, None], kn[:, :, None], vn[:, :, None]
+
+    return call
+
+
 def pos_emb_slice(pos_table, pos_len: int):
     """Centred slice of the precomputed table."""
     off = (pos_table.shape[0] - pos_len) // 2
@@ -109,7 +159,8 @@ def prompt_fusion(pk, enc, prompt_onehot):
 
 def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
                        k_cache, v_cache, conv_cache, cache_valid,
-                       prompt_onehot=None, phase: int = 0, active_mask=None):
+                       prompt_onehot=None, phase: int = 0, active_mask=None,
+                       attn_block: bool = False):
     """One streaming encoder chunk on the phased fast path.
 
     mel_chunk: [B, chunk_mel_frames, n_mels]; k_cache/v_cache: [L, B, H,
@@ -123,6 +174,10 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     keep their append slot (int8 codes and scales), conv cache and
     cache_valid bit for bit; their
     windows stay where they were and the engine realigns them on resume.
+
+    attn_block: at chunk_len 1, each layer's attention sub-block is one call
+    of kernel B3. It takes dense attention weights only; api.ASRModel
+    refuses quantized ones when it is built (check_attn_block_weights).
 
     Returns (enc_out [B, chunk_len, D], k_cache, v_cache, conv_cache,
     cache_valid').
@@ -141,12 +196,17 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     mask_full = torch.where(j_of_s[None, :] < offset[:, None], -1e9, 0.0
                             ).to(x.dtype)
     am = None if active_mask is None else active_mask.to(torch.bool)
+    use_block = attn_block and chunk_len == 1
 
     for layer in range(hp.n_layers):
         lp = layer_slice(params.layers, layer)
         kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
+        ab = None
+        if use_block:
+            ab = _block_call(lp, hp, linear(pe, lp.attn_pos_w), pos_index,
+                             mask_full, kl, vl)
         x, k_new, v_new, cc2 = conformer_layer(
-            x, pe, lp, hp, kl, vl, cl, mask_full, pos_index)
+            x, pe, lp, hp, kl, vl, cl, mask_full, pos_index, attn_block=ab)
         if is_quant(kl):
             k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
         if am is not None:

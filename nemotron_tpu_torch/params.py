@@ -21,8 +21,9 @@ import torch
 
 from .ops.quant import (QuantizedTensor, QuantizedTensor4, from_gguf_q4,
                         from_gguf_q8, is_quantized, quantize_q4, quantize_q8)
+from .shared import gguf_writer
 from .shared.config import Hparams
-from .shared.gguf import GGML_Q4_0, GGML_Q8_0, read_gguf
+from .shared.gguf import GGML_F16, GGML_Q4_0, GGML_Q8_0, read_gguf
 
 
 @dataclasses.dataclass
@@ -388,6 +389,57 @@ def load_model(path: str, dtype=torch.float32, device="cpu",
         prompt_dict = dict(zip(g.kv["nemo.prompt_langs"], g.kv["nemo.prompt_ids"]))
     meta = {"vocab": vocab or [], "prompt_dict": prompt_dict, "kv": g.kv}
     return hp, params, meta
+
+
+def save_gguf(path: str, hp: Hparams, params: ModelParams,
+              vocab: list[str], matrix_type: int = GGML_F16,
+              prompt_dict: dict[str, int] | None = None) -> None:
+    """Write dense params as a GGUF checkpoint that `load_model` reads back
+    (the converter's tensor names and layouts): tensors of two or more
+    dimensions as `matrix_type` (GGML_F16 or GGML_F32), vectors and the
+    frontend's filterbank and window as F32.
+    Used to make a synthetic checkpoint of a random model."""
+    lay = params.layers
+    if any(is_quantized(getattr(lay, f)) for f in _LAYER_MAP):
+        raise ValueError("save_gguf: writes dense params only")
+
+    def np32(t):
+        return t.detach().float().cpu().numpy()
+
+    t = {n: np32(getattr(params.subsampling, f)) for f, n in _SUB_MAP.items()}
+    for i in range(hp.n_layers):
+        for f, suffix in _LAYER_MAP.items():
+            t[f"encoder.layers.{i}.{suffix}"] = np32(getattr(lay, f)[i])
+    rnn = "decoder.prediction.dec_rnn.lstm"
+    dec = params.decoder
+    t["decoder.prediction.embed.weight"] = np32(dec.embedding)
+    for i in range(2):
+        for name in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            kind, part = name.split("_")
+            t[f"{rnn}.{'weight' if kind == 'w' else 'bias'}_{part}_l{i}"] = \
+                np32(getattr(dec, name)[i])
+    t.update({n: np32(getattr(params.joint, f)) for f, n in _JOINT_MAP.items()})
+    if params.prompt is not None:
+        pk = params.prompt
+        t.update({"prompt_kernel.0.weight": np32(pk.fc1_w),
+                  "prompt_kernel.0.bias": np32(pk.fc1_b),
+                  "prompt_kernel.2.weight": np32(pk.fc2_w),
+                  "prompt_kernel.2.bias": np32(pk.fc2_b)})
+    t["preprocessor.featurizer.fb"] = np32(params.preproc.filterbank)
+    t["preprocessor.featurizer.window"] = np32(params.preproc.window)
+
+    kv = {"general.architecture": "nemo", "tokenizer.vocab_list": list(vocab)}
+    for key in ("n_mels", "d_model", "n_heads", "d_head", "d_ff", "n_layers",
+                "kernel_size", "vocab_size", "decoder_dim", "joint_dim",
+                "subsampling_factor", "subsampling_channels",
+                "att_left_context", "num_prompts"):
+        kv[f"nemo.{key}"] = int(getattr(hp, key))
+    if prompt_dict:
+        kv["nemo.prompt_langs"] = list(prompt_dict)
+        kv["nemo.prompt_ids"] = [int(v) for v in prompt_dict.values()]
+    gguf_writer.write_gguf(path, kv, t, {
+        n: matrix_type for n, a in t.items()
+        if a.ndim >= 2 and not n.startswith("preprocessor.")})
 
 
 # The reference's default quantization set: the encoder layers' 2-D

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import sys
 import threading
 
@@ -344,13 +345,16 @@ def main(argv=None) -> int:
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     device = torch.device(args.device)
+    # the JAX package's switch of the fused attention block (kernel B3 here)
+    attn_block = os.environ.get("NEMOTRON_TPU_PALLAS_ATTN_BLOCK", "0") == "1"
     if args.model == "random":
         model = ASRModel.random(dtype=dtype, device=device,
-                                kv_int8=args.kv_int8)
+                                kv_int8=args.kv_int8, attn_block=attn_block)
     else:
         model = ASRModel.from_gguf(args.model, dtype=dtype, device=device,
                                    keep_quantized=args.quantized,
-                                   kv_int8=args.kv_int8)
+                                   kv_int8=args.kv_int8,
+                                   attn_block=attn_block)
     if args.blank_bias:
         model.params.joint.out_b[model.hp.blank_id] += args.blank_bias
 

@@ -7,11 +7,14 @@ by its path, under a name of its own (`nemotron_tpu_torch.shared.<name>`):
 importing the port imports neither jax nor `nemotron_tpu`, and the code is
 still one copy.
 
-    config     Hparams, CacheConfig, LatencyMode, MAX_SYMBOLS_PER_STEP
-    gguf       the GGUF reader (read_gguf, GGML_* type codes)
-    tokenizer  Tokenizer
-    protocol   the server's byte protocol
-    client     the asyncio client of that protocol
+    config       Hparams, CacheConfig, LatencyMode, MAX_SYMBOLS_PER_STEP
+    gguf         the GGUF reader (read_gguf, GGML_* type codes)
+    gguf_writer  the GGUF writer (write_gguf), for synthetic checkpoints
+    tokenizer    Tokenizer
+    protocol     the server's byte protocol
+    client       the asyncio client of that protocol
+    native       pcm_to_f32_preemph (the host frontend's pre-emphasis)
+    wavio        read_wav
 
 These classes are objects of their own: an `Hparams` of the JAX package is
 not an instance of `shared.config.Hparams`, though it has the same fields,
@@ -42,6 +45,10 @@ def _load(name: str, rel_path: str):
 
 config = _load("config", "config.py")
 gguf = _load("gguf", "gguf/reader.py")
+sys.modules[f"{__name__}.reader"] = gguf  # the writer's `from .reader import`
+gguf_writer = _load("gguf_writer", "gguf/writer.py")
 tokenizer = _load("tokenizer", "text/tokenizer.py")
 protocol = _load("protocol", "serving/protocol.py")
 client = _load("client", "serving/client.py")  # `from . import protocol`
+native = _load("native", "native.py")
+wavio = _load("wavio", "audio/wavio.py")

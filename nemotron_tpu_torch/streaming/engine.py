@@ -17,8 +17,9 @@ Ported: start, push, end and drop; the all-active tick; the masked fast
 tick with realign-on-resume; wrap compaction (masked when slots are paused
 mid-cycle); finalize with reduced n_valid; the k-chunk backlog tick; the
 readback FIFO; transcript and stats. Not ported yet: live-stream migration
-and snapshots, native ingest, phase timers and the legacy
-phase-stationary gated tick.
+and snapshots, native ingest, phase timers, the legacy phase-stationary
+gated tick, and per-token confidences in events (a model built with
+confidence=True is refused).
 """
 
 from __future__ import annotations
@@ -505,6 +506,10 @@ class BatchedEngine:
     """Multi-latency-mode engine; owns one EngineGroup per right_context."""
 
     def __init__(self, model, batch_per_group: int = 32):
+        if model.confidence:
+            raise ValueError(
+                "BatchedEngine: engine events do not unpack per-token "
+                "confidences yet; build the model with confidence=False")
         self.model = model
         self.batch = batch_per_group
         self.groups: dict[int, EngineGroup] = {}

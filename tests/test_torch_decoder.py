@@ -93,3 +93,39 @@ def test_argmax_ties_take_the_first_maximum():
     assert torch.argmax(logits, dim=-1).tolist() == [1, 0]
     assert np.asarray(jnp.argmax(jnp.asarray(logits.numpy()), -1)).tolist() \
         == [1, 0]
+
+
+def test_joint_step_and_packed_confidences_match(monkeypatch):
+    """joint_step; the decode with packed confidences (tok + V * q) against
+    JAX's under NEMOTRON_TPU_CONFIDENCE=1, equal values; unpack_tokens and
+    tokens_to_list(vocab_size, with_conf) against JAX's."""
+    from nemotron_tpu.models.asr import tokens_to_list as j_list
+    from nemotron_tpu_torch.models.asr import tokens_to_list as t_list
+
+    hp = tiny_hparams()
+    jp, tp = j_random(hp, seed=5), t_random(hp, seed=5)
+    e, d = rand(3, hp.d_model, seed=2), rand(3, hp.decoder_dim, seed=3)
+    np.testing.assert_allclose(
+        td.joint_step(tp.joint, torch.tensor(e), torch.tensor(d)).numpy(),
+        np.asarray(jd.joint_step(jp.joint, e, d)), atol=5e-5, rtol=0)
+
+    monkeypatch.setenv("NEMOTRON_TPU_CONFIDENCE", "1")
+    enc = rand(3, 4, hp.d_model, seed=6)
+    nv = np.array([4, 2, 3], np.int32)
+    js2, jt = jd.greedy_decode(jp, hp, jnp.asarray(enc),
+                               jd.init_decode_state(3, hp), jnp.asarray(nv))
+    ts2, tt = td.greedy_decode(tp, hp, torch.tensor(enc),
+                               td.init_decode_state(3, hp), torch.tensor(nv),
+                               confidence=True)
+    jt = np.asarray(jt)
+    np.testing.assert_array_equal(tt.numpy(), jt)
+    assert (jt >= hp.vocab_size).any()  # confidences were packed
+    for g, w in zip(td.unpack_tokens(tt.numpy(), hp.vocab_size),
+                    jd.unpack_tokens(jt, hp.vocab_size)):
+        np.testing.assert_array_equal(g, w)
+    assert t_list(tt, nv, vocab_size=hp.vocab_size, with_conf=True) \
+        == j_list(jt, nv, vocab_size=hp.vocab_size, with_conf=True)
+    plain = td.greedy_decode(tp, hp, torch.tensor(enc),
+                             td.init_decode_state(3, hp), torch.tensor(nv))[1]
+    assert t_list(plain, nv) == [[(tok % hp.vocab_size, t) for tok, t in seq]
+                                 for seq in t_list(tt, nv)]

@@ -15,6 +15,8 @@ import torch
 from nemotron_tpu_torch import Hparams, kernels
 from nemotron_tpu_torch.api import ASRModel
 from nemotron_tpu_torch.ops import quant
+from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
+                                               t1_attention_block_ref)
 from nemotron_tpu_torch.ops.attn_kernel import (t1_attention_core,
                                                 t1_attention_core_ref)
 from nemotron_tpu_torch.ops.kvquant import QuantKV, quantize_kv
@@ -172,18 +174,85 @@ def test_mel_kernel_matches_plain(cuda):
                                atol=1e-3, rtol=0)
 
 
+def _block_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0):
+    """Kernel B3's inputs at the main path's shape: random validity windows
+    (dead slots at -1e9 in the mask, 0 in pp), the new frame live."""
+    rng = np.random.default_rng(seed)
+    D = H * Dh
+
+    def t(*shape, scale=1.0, dt=dtype):
+        return torch.tensor((rng.standard_normal(shape) * scale).astype(
+            np.float32), device=dev).to(dt)
+
+    live = np.zeros((B, S + 1), bool)
+    for b in range(B):
+        lo = (b * 7) % S
+        live[b, lo:S] = True
+    live[:, S] = True
+    mask = torch.tensor(np.where(live, 0.0, -1e9).astype(np.float32),
+                        device=dev).to(dtype)
+    pp = t(H, Dh, S + 1, scale=0.5, dt=torch.float32)
+    w = [t(D, D, scale=D ** -0.5) for _ in range(4)]
+    return dict(x=t(B, D), ln_w=1 + t(D, scale=0.1), ln_b=t(D, scale=0.1),
+                q_w=w[0], k_w=w[1], v_w=w[2], out_w=w[3],
+                bias_u=t(H, Dh, scale=0.1), bias_v=t(H, Dh, scale=0.1),
+                pp=pp, mask=mask, k_buf=t(B, H, S, Dh), v_buf=t(B, H, S, Dh),
+                n_heads=H, d_head=Dh)
+
+
+@pytest.mark.parametrize("b", [32, 256, 7])
 @pytest.mark.parametrize("int8", [False, True])
-def test_tiny_tick_on_card_matches_cpu(cuda, int8):
-    """Dense, or Q8_0 weights with int8 K/V caches (codes within +-1)."""
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_t1_attention_block_kernel_matches_plain(cuda, dtype, rel, int8, b):
+    """B3 against its plain version, dense and int8 caches (garbage codes
+    and scales in the dead slots); f32 within 1e-5 x max|out|, bf16 within
+    1e-2 x max|out| (the bf16 rule of B4/B5)."""
+    a = _block_inputs(cuda, dtype, B=b)
+    if int8:
+        a["k_buf"], a["v_buf"] = _int8_caches(a["k_buf"], a["v_buf"])
+    before = kernels.T1_ATTENTION_BLOCK.launches
+    got = t1_attention_block(**a)
+    torch.cuda.synchronize()
+    assert kernels.T1_ATTENTION_BLOCK.launches == before + 1
+    want = t1_attention_block_ref(**a)
+    for name, g, w in zip(("out", "k_new", "v_new"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), (name, err)
+    if int8:  # other garbage in stream 3's dead slots changes nothing
+        a["v_buf"].q[3, :, :21] = -5
+        a["k_buf"].s[3, :, :21] = -7.0
+        for g, w in zip(t1_attention_block(**a), got):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def test_t1_attention_block_wrapper_refuses(cuda):
+    a = _block_inputs(cuda, torch.float32, B=4)
+    with pytest.raises(ValueError):  # pp must be f32
+        t1_attention_block(**{**a, "pp": a["pp"].double()})
+    with pytest.raises(ValueError):  # weights in another type than x
+        t1_attention_block(**{**a, "q_w": a["q_w"].bfloat16()})
+    with pytest.raises(ValueError):  # d_model != n_heads * d_head
+        t1_attention_block(**{**a, "n_heads": 4})
+
+
+@pytest.mark.parametrize("block", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_tiny_tick_on_card_matches_cpu(cuda, int8, block):
+    """Dense, or int8 K/V caches (codes within +-1) with Q8_0 weights
+    (dense ones with the attention block, which takes them dense); through
+    B1, or through B3 with `block`."""
     hp = Hparams(n_mels=32, d_model=64, n_heads=4, d_head=16, d_ff=96,
                  n_layers=2, kernel_size=5, vocab_size=33, decoder_dim=32,
                  joint_dim=32, subsampling_channels=16, att_left_context=8,
                  max_pos_len=64)
-    cpu = ASRModel.random(hp, seed=1, kv_int8=int8)
-    if int8:
+    q8 = int8 and not block
+    cpu = ASRModel.random(hp, seed=1, kv_int8=int8, attn_block=block)
+    if q8:
         cpu.params = quantize_encoder_layers(cpu.params)
     gpu = ASRModel(hp, params_to(cpu.params, cuda), cpu.tokenizer.vocab,
-                   device=cuda, kv_int8=int8)
+                   device=cuda, kv_int8=int8, attn_block=block)
     cfg = cpu.cache_config(0)
     rng = np.random.default_rng(2)
     states = [m.init_stream_state(3, cfg) for m in (cpu, gpu)]
@@ -201,9 +270,10 @@ def test_tiny_tick_on_card_matches_cpu(cuda, int8):
                 states[j] = m.compact_state(cfg, states[j])
             toks.append(t.cpu())
         torch.testing.assert_close(toks[1], toks[0], atol=0, rtol=0)
-    assert kernels.T1_ATTENTION.launches == hp.n_layers * (i + 1)
-    assert kernels.Q8_MATMUL.launches == (11 * hp.n_layers * (i + 1) if int8
-                                          else 0)
+    n = hp.n_layers * (i + 1)
+    assert kernels.T1_ATTENTION.launches == (0 if block else n)
+    assert kernels.T1_ATTENTION_BLOCK.launches == (n if block else 0)
+    assert kernels.Q8_MATMUL.launches == (11 * n if q8 else 0)
     for name in ("k_cache", "v_cache", "conv_cache", "pp_tail", "mel_ov"):
         got, want = getattr(states[1], name), getattr(states[0], name)
         if isinstance(want, QuantKV):

@@ -3,7 +3,8 @@ module of nemotron_tpu_torch and chip_smoke import in a process in which
 `import jax` fails, and, where jax is installed, leave neither jax nor
 `nemotron_tpu` in sys.modules; no source file of the port names jax; the
 kernel wrappers given CPU tensors take their plain versions without
-building or launching."""
+building or launching. The walk covers every module of the port, the
+session, frontend and CLI modules included."""
 
 import importlib.util
 
@@ -19,6 +20,7 @@ PKG = ROOT / "nemotron_tpu_torch"
 
 CHILD = textwrap.dedent("""
     import importlib, pkgutil, sys
+    import numpy as np
     if "--block-jax" in sys.argv:
         sys.modules["jax"] = None  # any `import jax` now raises ImportError
     import torch
@@ -33,6 +35,9 @@ CHILD = textwrap.dedent("""
                 ("jax", "jaxlib", "nemotron_tpu")], loaded
 
     from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.audio.frontend import mel_full
+    from nemotron_tpu_torch.cli.transcribe_stream import parse_args
+    from nemotron_tpu_torch.ops.attn_block import t1_attention_block
     from nemotron_tpu_torch.ops.attn_kernel import t1_attention_core
     from nemotron_tpu_torch.ops.kvquant import quantize_kv
     from nemotron_tpu_torch.ops.mel_kernel import mel_frames
@@ -50,7 +55,21 @@ CHILD = textwrap.dedent("""
     w = torch.randn(6, 64).numpy()
     assert linear_q8(torch.randn(3, 64), quantize_q8(w)).shape == (3, 6)
     assert linear_q4(torch.randn(3, 64), quantize_q4(w)).shape == (3, 6)
-    assert [k.launches for k in kernels.KERNELS] == [0] * 4
+    x, w = torch.randn(2, 16), torch.randn(16, 16)
+    out, kn, vn = t1_attention_block(
+        x, torch.ones(16), torch.zeros(16), w, w, w, w, torch.zeros(2, 8),
+        torch.zeros(2, 8), torch.zeros(2, 8, 6), torch.zeros(2, 6), kb, kb,
+        2, 8)
+    assert out.shape == (2, 16) and kn.shape == vn.shape == (2, 2, 8)
+    assert t1_attention_block(
+        x, torch.ones(16), torch.zeros(16), w, w, w, w, torch.zeros(2, 8),
+        torch.zeros(2, 8), torch.zeros(2, 8, 6), torch.zeros(2, 6), kq, kq,
+        2, 8)[0].shape == (2, 16)
+    assert mel_full(np.zeros(1600, np.int16), np.ones((4, 257), np.float32),
+                    np.ones(400, np.float32)).shape == (9, 4)
+    assert parse_args(["m.gguf", "-"])["device"] == "cuda"
+    assert len(kernels.KERNELS) == 5
+    assert [k.launches for k in kernels.KERNELS] == [0] * 5
     assert kernels._lib is None  # nothing was built or loaded
     print("ok", len(names))
 """)
@@ -62,7 +81,7 @@ def run_child(*args):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[-1])
-    assert n_modules >= 15
+    assert n_modules >= 20
 
 
 def test_port_and_smoke_import_without_jax():

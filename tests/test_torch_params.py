@@ -14,7 +14,7 @@ from helpers import tiny_hparams
 from scripts_support import export_random_checkpoint
 
 from nemotron_tpu import params as jparams
-from nemotron_tpu.gguf.reader import GGML_F16
+from nemotron_tpu.gguf.reader import GGML_F16, GGML_F32
 from nemotron_tpu_torch import params as tparams
 
 torch.set_num_threads(1)
@@ -101,3 +101,31 @@ def test_layer_slice_is_a_view():
     tp = tparams.random_params(tiny_hparams(), seed=0)
     lp = tparams.layer_slice(tp.layers, 1)
     assert lp.attn_q_w.data_ptr() == tp.layers.attn_q_w[1].data_ptr()
+
+
+@pytest.mark.parametrize("f16", [False, True])
+def test_save_gguf_round_trips_through_both_loaders(tmp_path, f16):
+    """The port's GGUF writer: what it writes loads back leaf for leaf in
+    the port and in the JAX package (F16 matrices rounded once). The file
+    holds no max_pos_len, so the loaders' own default builds pos_emb."""
+    hp = tiny_hparams(num_prompts=4)
+    tp = tparams.random_params(hp, seed=5)
+    vocab = [f"▁v{i}" for i in range(hp.vocab_size - 1)]
+    path = str(tmp_path / "saved.gguf")
+    tparams.save_gguf(path, hp, tp, vocab,
+                      GGML_F16 if f16 else GGML_F32,
+                      prompt_dict={"en-US": 0, "de-DE": 1})
+    thp, back, meta = tparams.load_model(path)
+    jhp, jp, jmeta = jparams.load_model(path)
+    assert dataclasses.asdict(thp) == dataclasses.asdict(
+        dataclasses.replace(hp, max_pos_len=thp.max_pos_len))
+    assert meta["vocab"] == vocab == jmeta["vocab"]
+    assert meta["prompt_dict"] == {"en-US": 0, "de-DE": 1}
+    assert_trees_equal(jp, back)
+    want, got = flat(tp), flat(back)
+    del want["pos_emb"]
+    for k in want:
+        w = want[k]
+        if f16 and w.ndim >= 2 and not k.startswith("preproc"):
+            w = w.astype(np.float16).astype(np.float32)
+        np.testing.assert_array_equal(got[k], w, err_msg=k)

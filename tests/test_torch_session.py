@@ -1,0 +1,199 @@
+"""The port's StreamSession against the JAX package's on one tiny GGUF and one
+PCM, with and without the fused attention block (kernel B3; the JAX
+package's Pallas block in interpret mode): delta texts, tokens, token frames
+and transcripts equal for regular and irregular pushes, a language switch,
+a second finalize and a reset; timed words; save/restore mid-stream equal
+to an uninterrupted run; and the packed per-token confidences.
+
+The JAX package compiles one step function per phase and model, so each
+JAX configuration runs all its scenarios once (a module fixture) and the
+tests compare the port against those results, and every session runs at
+right context 0 with N_PHASES slack-buffer phases (a wrap every N_PHASES
+chunks) in place of the default 8."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from helpers import tiny_hparams
+from scripts_support import export_random_checkpoint
+
+from nemotron_tpu.api import ASRModel as JaxModel
+from nemotron_tpu.models import encoder as ENC
+from nemotron_tpu.streaming.session import StreamSession as JaxSession
+from nemotron_tpu_torch.api import ASRModel as TorchModel
+from nemotron_tpu_torch.streaming.session import StreamSession
+
+torch.set_num_threads(1)
+
+PROMPTS = {"en-US": 0, "ru-RU": 2, "auto": 3}
+N_PHASES = 2
+
+
+def make_audio(n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 16000.0
+    sig = 0.4 * np.sin(2 * np.pi * 330 * t) + 0.2 * rng.standard_normal(n)
+    return (np.clip(sig, -1, 1) * 32767).astype(np.int16)
+
+
+AUDIO = make_audio(16000, seed=11)
+IRREGULAR = np.cumsum(np.random.default_rng(5).integers(37, 3000, 40))
+
+
+def feed(sess, cuts):
+    deltas, prev = [], 0
+    for c in [*cuts[cuts < len(AUDIO)], len(AUDIO)]:
+        deltas.append(sess.process_incremental(AUDIO[prev:c]))
+        prev = c
+    return deltas + [sess.finalize()]
+
+
+def summary(sess, deltas):
+    return dict(deltas=deltas, tokens=sess.get_tokens(),
+                frames=list(sess.token_frames),
+                transcript=sess.get_transcript(), words=sess.timed_words())
+
+
+def cfg_of(model):
+    """Right context 0 with N_PHASES phases, in the model's package."""
+    return dataclasses.replace(model.cache_config(0), n_phases=N_PHASES)
+
+
+def scenarios(Session, model) -> dict:
+    """Every scenario of this file on one model of either package."""
+    out = {}
+    cfg = cfg_of(model)
+    s = Session(model, cfg, lang="en-US")
+    out["regular"] = summary(s, feed(s, np.arange(1280, len(AUDIO), 1280)))
+    s = Session(model, cfg, lang="en-US")
+    out["irregular"] = summary(s, feed(s, IRREGULAR))
+    s = Session(model, cfg, lang="en-US", timestamp_words=True)
+    out["timestamps"] = summary(s, feed(s, np.array([7000])))
+    s = Session(model, cfg, lang="en-US")
+    deltas = [s.process_incremental(AUDIO[:4800])]
+    assert s.set_language("ru-RU") and not s.set_language("xx-XX")
+    deltas += [s.process_incremental(AUDIO[4800:]), s.finalize(),
+               s.finalize()]
+    out["switch"] = summary(s, deltas)
+    s.reset()  # keeps the language
+    out["after_reset"] = summary(s, feed(s, np.array([3000, 9000])))
+    return out
+
+
+@pytest.fixture(scope="module")
+def gguf(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("session") / "tiny.gguf")
+    export_random_checkpoint(tiny_hparams(num_prompts=4), path, seed=3)
+    return path
+
+
+def jax_model(path):
+    model = JaxModel.from_gguf(path)
+    model.prompt_dict = dict(PROMPTS)
+    return model
+
+
+def torch_model(path, **kw):
+    model = TorchModel.from_gguf(path, **kw)
+    model.prompt_dict = dict(PROMPTS)
+    return model
+
+
+@pytest.fixture(scope="module")
+def jax_runs(gguf):
+    """block -> the JAX package's results, its block flag set while its
+    step functions trace and run."""
+    cache = {}
+
+    def get(block):
+        if block not in cache:
+            old = ENC.PALLAS_ATTN_BLOCK
+            ENC.PALLAS_ATTN_BLOCK = block
+            try:
+                cache[block] = scenarios(JaxSession, jax_model(gguf))
+            finally:
+                ENC.PALLAS_ATTN_BLOCK = old
+        return cache[block]
+
+    return get
+
+
+@pytest.mark.parametrize("block", [False, True], ids=["default", "block"])
+def test_session_matches_jax(gguf, jax_runs, block):
+    want = jax_runs(block)
+    got = scenarios(StreamSession, torch_model(gguf, attn_block=block))
+    assert want["regular"]["tokens"], "the test audio emitted no tokens"
+    assert want["switch"]["tokens"] != want["regular"]["tokens"]
+    for name in want:
+        assert got[name] == want[name], name
+    # pushes and chunking never change the result
+    for name in ("irregular", "timestamps"):
+        assert got[name]["tokens"] == got["regular"]["tokens"]
+
+
+def test_save_restore_mid_stream_matches_an_uninterrupted_run(gguf, jax_runs,
+                                                              tmp_path):
+    model = torch_model(gguf)
+    s1 = StreamSession(model, cfg_of(model), lang="en-US")
+    s1.process_incremental(AUDIO[:7000])
+    path = str(tmp_path / "stream_state.npz")
+    s1.save_state(path)
+    s2 = StreamSession(model, cfg_of(model))
+    s2.restore_state(path)
+    tail = s2.process_incremental(AUDIO[7000:]) + s2.finalize()
+    want = jax_runs(False)["timestamps"]  # pushed as 7000 + the rest
+    assert s2.get_tokens() == want["tokens"]
+    assert s2.token_frames == want["frames"]
+    assert s2.get_transcript() == s1.get_transcript() + tail
+    assert s2.prompt_index == PROMPTS["en-US"] and s2.rtf() > 0.0
+
+
+def test_packed_confidences_match_jax(gguf):
+    old = os.environ.get("NEMOTRON_TPU_CONFIDENCE")
+    os.environ["NEMOTRON_TPU_CONFIDENCE"] = "1"
+    try:
+        jm = jax_model(gguf)
+        js = JaxSession(jm, cfg_of(jm), lang="en-US")
+        js.process_incremental(AUDIO)
+        js.finalize()
+        want_words = js.timed_words_conf()
+    finally:
+        if old is None:
+            del os.environ["NEMOTRON_TPU_CONFIDENCE"]
+        else:
+            os.environ["NEMOTRON_TPU_CONFIDENCE"] = old
+    tm = torch_model(gguf, confidence=True)
+    ts = StreamSession(tm, cfg_of(tm), lang="en-US")
+    ts.process_incremental(AUDIO)
+    ts.finalize()
+    assert js.token_confs and ts.token_confs == js.token_confs
+    assert ts.get_tokens() == js.get_tokens()
+    assert ts.get_transcript() == js.get_transcript()
+    assert ts.timed_words_conf() == want_words
+    tm = torch_model(gguf)
+    plain = StreamSession(tm, cfg_of(tm), lang="en-US")
+    plain.process_incremental(AUDIO)
+    plain.finalize()
+    assert plain.get_tokens() == ts.get_tokens()
+    with pytest.raises(RuntimeError, match="confidence"):
+        plain.timed_words_conf()
+
+
+def test_gated_stream_step_and_engine_confidence_are_refused(gguf):
+    """Not ported yet: the phase-stationary gated stream step, and engine
+    events with packed confidences."""
+    from nemotron_tpu_torch.streaming.engine import BatchedEngine
+
+    model = torch_model(gguf)
+    cfg = cfg_of(model)
+    state = model.init_stream_state(2, cfg)
+    mel = torch.zeros(2, cfg.chunk_mel_frames, model.hp.n_mels)
+    with pytest.raises(NotImplementedError, match="gated"):
+        model.stream_step(cfg, state, mel, torch.ones(2, dtype=torch.int32),
+                          torch.tensor([True, False]))
+    with pytest.raises(ValueError, match="confidence"):
+        BatchedEngine(torch_model(gguf, confidence=True))

@@ -91,19 +91,20 @@ class Lockstep:
     bookkeeping (slot phases, realign on resume, masked wrap compaction)."""
 
     def __init__(self, audio, bf16=False, quant_bits=None, kv_int8=False,
-                 phase=0):
+                 phase=0, attn_block=False):
         """quant_bits: Q8_0 (8) or Q4_0 (4) encoder matrices in both
         packages. kv_int8: int8 K/V caches; the JAX package reads its
         NEMOTRON_TPU_KV_INT8 at state allocation, so the caller sets it.
         phase: the group's starting phase (a fresh state is aligned at any
-        phase)."""
+        phase). attn_block: the port's fused attention block (kernel B3);
+        the JAX package's is its module flag, which the caller patches."""
         hp = tiny_hparams()
         self.bf16 = bf16
         self.jm = JaxModel.random(
             hp, seed=1, dtype=jnp.bfloat16 if bf16 else jnp.float32)
         self.tm = TorchModel.random(
             hp, seed=1, dtype=torch.bfloat16 if bf16 else torch.float32,
-            kv_int8=kv_int8)
+            kv_int8=kv_int8, attn_block=attn_block)
         if quant_bits:
             self.jm.params = j_quantize(self.jm.params, bits=quant_bits)
             self.tm.params = quantize_encoder_layers(self.tm.params,
