@@ -10,10 +10,15 @@ Phases, one line each, any failure exits non-zero:
   1 device   nvidia-smi name / power limit, torch's device name
   2 build    nvcc of nemotron_tpu_torch/csrc/*.cu, one process per file
   3 kernels  each kernel vs its plain version at the main path's shapes
-             (max |err|, device ms per call of both): B1 over dense and
-             int8 caches, B3 (the fused attention block) at B in {32, 256}
-             in f32 and bf16 over dense and int8 caches, B2, B4 (Q8_0) and
-             B5 (Q4_0) at M in {256, 141}
+             (max |err|, device ms per call of both, the bound and which
+             term binds, library_ms where one PyTorch call computes the
+             same function): B1 over dense and int8 caches (SDPA beside
+             the dense ones), B3 (the fused attention block) at B in {32,
+             256} in f32 and bf16 over dense and int8 caches, B2, B4 (Q8_0)
+             and B5 (Q4_0) in bf16 at M in {32, 141, 256} for the four
+             (N, K) of the encoder's matrices (dense_ms: cuBLAS on the
+             weight dequantized beforehand; B5's library_ms:
+             torch._weight_int4pack_mm) and in f32 at M in {256, 141}
   4 tick     full-width random model (Hparams() defaults), 4 streams x 10
              fused ticks (through the slack-buffer wrap) on the card vs the
              same ticks on the CPU: f32 and bf16 dense; the same with the
@@ -152,8 +157,55 @@ def _block_case(torch, rng, dev, dtype, int8, B):
         k_buf=kb, v_buf=vb, n_heads=H, d_head=Dh)
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+
+
+def tensor_bytes(*ts) -> int:
+    """Bytes of tensors (an int8 cache counted as its codes and scales)."""
+    from nemotron_tpu_torch.ops.kvquant import is_quant
+
+    total = 0
+    for t in ts:
+        parts = (t.q, t.s) if is_quant(t) else (t,)
+        total += sum(x.numel() * x.element_size() for x in parts)
+    return total
+
+
+def bound(nbytes: int, ops: float, dname: str) -> tuple[float, str]:
+    """The least ms the card could take: bytes over HBM's rate or operations
+    over the type's peak, the larger, and which of the two binds."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _int4pack_mm(torch, qt, n, k):
+    """torch._weight_int4pack_mm over a Q4_0 weight: group size 32, bf16
+    scales, zero points 0, so it computes (q - 8) * s as B5 does (with
+    bf16 scales); None where this PyTorch build does not run it."""
+    try:
+        w32 = qt.w_packed.to(torch.int32)
+        q = torch.cat([w32 & 15, w32 >> 4], dim=-1)  # [N, K], 0..15
+        packed = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8)
+        wp = torch._convert_weight_to_int4pack(packed, 8)
+        sz = torch.stack([qt.scales.T, torch.zeros_like(qt.scales.T)],
+                         dim=-1).to(torch.bfloat16).contiguous()
+        fn = lambda x: torch._weight_int4pack_mm(x, wp, 32, sz)  # noqa: E731
+        fn(torch.zeros((1, k), dtype=torch.bfloat16, device=qt.scales.device))
+        torch.cuda.synchronize()
+        return fn
+    except Exception as e:  # noqa: BLE001 - reported, and timed as null
+        log(f"[3 kernels] torch._weight_int4pack_mm does not run here: "
+            f"{type(e).__name__}: {str(e)[:160]}")
+        return None
+
+
 def phase_kernels(torch, report):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main path's shapes, with
+    its bound and, where one PyTorch call computes the same function, that
+    call's time (library_ms); B4/B5 also beside cuBLAS's dense product of
+    the weight dequantized beforehand (dense_ms, not the same function)."""
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.ops import quant
     from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
@@ -163,35 +215,63 @@ def phase_kernels(torch, report):
     from nemotron_tpu_torch.ops.mel import padded_window
     from nemotron_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_ref
 
+    F = torch.nn.functional
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     ok = True
 
-    def check(kname, case, got, want, bound, fn, plain):
+    def check(kname, case, got, want, tol, fn, plain, nbytes, ops, dname,
+              library=None, **extra_fns):
         nonlocal ok
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        good = bool(torch.isfinite(got).all()) and err <= bound
+        good = bool(torch.isfinite(got).all()) and err <= tol
         ok &= good
-        ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
+        b_ms, b_by = bound(nbytes, ops, dname)
+        res = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None if library is None else cuda_ms(library))
+        res.update({k: cuda_ms(f) for k, f in extra_fns.items()})
         log(f"[3 kernels] {kname} {case}: max|err| {err:.3e} (bound "
-            f"{bound:.3g}) {'ok' if good else 'FAIL'}; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        report[kname].setdefault("cases", {})[case] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            f"{tol:.3g}) {'ok' if good else 'FAIL'}; kernel {res['ms']:.4f} "
+            f"ms, plain {res['plain_ms']:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}, share {b_ms / res['ms']:.2f})"
+            + "".join(f", {k} {v:.4f} ms" for k, v in res.items()
+                      if k.endswith("_ms") and k not in
+                      ("ms", "plain_ms", "bound_ms") and v is not None))
+        report[kname].setdefault("cases", {})[case] = res
+        return res
 
     for int8 in (False, True):
         for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             args = _attn_case(torch, rng, dev, dtype, int8)
-            case = (f"{'int8' if int8 else 'dense'} caches, "
-                    f"{'f32' if dtype == torch.float32 else 'bf16'} B=32 "
-                    f"H=8 S_buf=78 Dh=128")
-            res = check("t1_attention", case, t1_attention_core(*args),
-                        t1_attention_core_ref(*args), atol,
-                        lambda: t1_attention_core(*args),
-                        lambda: t1_attention_core_ref(*args))
-            if int8 and dtype == torch.bfloat16:  # the serving form
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            q, kn, vn, pm, kb, vb = args
+            B, H, Dh = q.shape
+            S = pm.shape[-1] - 1
+            library = None
+            if not int8:  # SDPA over [K_buf; k_new], pos_mask additive
+                kc = torch.cat([kb, kn[:, :, None]], dim=2)
+                vc = torch.cat([vb, vn[:, :, None]], dim=2)
+                mc = pm[:, :, None, :].to(dtype)
+
+                def library(q=q, kc=kc, vc=vc, mc=mc):
+                    return F.scaled_dot_product_attention(
+                        q[:, :, None], kc, vc, attn_mask=mc)[:, :, 0]
+                lib_err = float((library().float()
+                                 - t1_attention_core_ref(*args).float()
+                                 ).abs().max())
+                log(f"[3 kernels] t1_attention {dname} dense: SDPA max|diff| "
+                    f"to the plain version {lib_err:.3e}")
+            res = check(
+                "t1_attention", f"{'int8' if int8 else 'dense'} caches, "
+                f"{dname} B=32 H=8 S_buf=78 Dh=128",
+                t1_attention_core(*args), t1_attention_core_ref(*args), atol,
+                lambda: t1_attention_core(*args),
+                lambda: t1_attention_core_ref(*args),
+                tensor_bytes(*args) + tensor_bytes(q),
+                4.0 * B * H * (S + 1) * Dh, dname, library)
+            if not int8 and dtype == torch.bfloat16:  # with SDPA beside it
                 report["t1_attention"].update(res)
 
     def flat(outs):  # (out, k_new, v_new) as one vector
@@ -202,35 +282,57 @@ def phase_kernels(torch, report):
             for dname, dtype in (("f32", torch.float32),
                                  ("bf16", torch.bfloat16)):
                 a = _block_case(torch, rng, dev, dtype, int8, b)
-                want = flat(t1_attention_block_ref(**a))
+                want = t1_attention_block_ref(**a)
+                H, Dh = a["n_heads"], a["d_head"]
+                D, S = H * Dh, a["mask"].shape[-1] - 1
+                ins = [v for v in a.values() if not isinstance(v, int)]
                 res = check(
                     "t1_attention_block",
                     f"{'int8' if int8 else 'dense'} caches, {dname} B={b} "
                     f"D=1024 H=8 S_buf=78 Dh=128",
-                    flat(t1_attention_block(**a)), want,
-                    GEMM_REL[dname] * float(want.abs().max()),
+                    flat(t1_attention_block(**a)), flat(want),
+                    GEMM_REL[dname] * float(flat(want).abs().max()),
                     lambda: t1_attention_block(**a),
-                    lambda: t1_attention_block_ref(**a))
+                    lambda: t1_attention_block_ref(**a),
+                    tensor_bytes(*ins, *want),
+                    2.0 * b * D * 4 * D + 6.0 * b * H * (S + 1) * Dh, dname)
                 if (b, int8, dname) == (256, True, "bf16"):  # serving form
                     report["t1_attention_block"].update(res)
 
     for bits, kname in ((8, "q8_matmul"), (4, "q4_matmul")):
         qz = quant.quantize_q8 if bits == 8 else quant.quantize_q4
-        fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
-                   else (quant.linear_q4, quant.linear_q4_ref))
-        for n, k in ((4096, 1024), (1024, 4096), (1024, 1024)):
+        fn, ref, deq = ((quant.linear_q8, quant.linear_q8_ref,
+                         quant.dequantize) if bits == 8 else
+                        (quant.linear_q4, quant.linear_q4_ref,
+                         quant.dequantize_q4))
+        for n, k in ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024)):
             qt = qz((rng.standard_normal((n, k)) / np.sqrt(k)).astype(
                 np.float32)).to(dev)
-            for m in (256, 141):
-                for dname, dtype in (("f32", torch.float32),
-                                     ("bf16", torch.bfloat16)):
+            codes = qt.w_i8 if bits == 8 else qt.w_packed
+            lib = _int4pack_mm(torch, qt, n, k) if bits == 4 else None
+            for dname, dtype, batches in (
+                    ("bf16", torch.bfloat16, (32, 141, 256)),
+                    ("f32", torch.float32,
+                     (256, 141) if (n, k) != (2048, 1024) else ())):
+                w_dense = deq(qt, dtype)  # cuBLAS's operand, made once
+                for m in batches:
                     x = torch.tensor(rng.standard_normal((m, k)).astype(
                         np.float32), device=dev).to(dtype)
                     want = ref(x, qt)
-                    res = check(kname, f"{dname} M={m} N={n} K={k}",
-                                fn(x, qt), want,
-                                GEMM_REL[dname] * float(want.abs().max()),
-                                lambda: fn(x, qt), lambda: ref(x, qt))
+                    library = None
+                    if lib is not None and dtype == torch.bfloat16:
+                        library = lambda x=x: lib(x)  # noqa: E731
+                        log(f"[3 kernels] {kname} bf16 M={m} N={n} K={k}: "
+                            f"_weight_int4pack_mm max|diff| to the plain "
+                            f"version {float((lib(x).float() - want.float()).abs().max()):.3e} "
+                            f"(max|y| {float(want.float().abs().max()):.3g})")
+                    res = check(
+                        kname, f"{dname} M={m} N={n} K={k}", fn(x, qt), want,
+                        GEMM_REL[dname] * float(want.abs().max()),
+                        lambda x=x: fn(x, qt), lambda x=x: ref(x, qt),
+                        tensor_bytes(codes, qt.scales, x, want),
+                        2.0 * m * n * k, dname, library,
+                        dense_ms=lambda x=x, w=w_dense: torch.matmul(x, w.T))
                     if (m, n, k, dname) == (256, 4096, 1024, "bf16"):
                         report[kname].update(res)
 
@@ -242,12 +344,19 @@ def phase_kernels(torch, report):
                       device=dev)
     win = padded_window(torch.tensor(np.hanning(400).astype(np.float32),
                                      device=dev))
+    want = mel_frames_ref(buf, win, fb, n_frames)
+    # the least work of the function, not of the kernel's direct DFT: per
+    # frame the window, a 512-point FFT (2.5 N log2 N), the power, the
+    # filterbank product and the log; the bytes of its inputs and output
+    n_fft = 512
+    frame_ops = (n_fft + 2.5 * n_fft * np.log2(n_fft) + 3.0 * 257
+                 + 2.0 * 257 * n_mels + n_mels)
     report["mel_frames"].update(check(
         "mel_frames", f"B={B} frames={n_frames} mels={n_mels}",
-        mel_frames(buf, win, fb, n_frames),
-        mel_frames_ref(buf, win, fb, n_frames), 1e-3,
+        mel_frames(buf, win, fb, n_frames), want, 1e-3,
         lambda: mel_frames(buf, win, fb, n_frames),
-        lambda: mel_frames_ref(buf, win, fb, n_frames)))
+        lambda: mel_frames_ref(buf, win, fb, n_frames),
+        tensor_bytes(buf, win, fb, want), B * n_frames * frame_ops, "f32"))
     if not ok:
         raise SystemExit("phase 3: a kernel disagrees with its plain version")
     kernels.reset_counts()
@@ -406,7 +515,7 @@ def fmt(errs: dict) -> str:
 
 
 async def _serve_clients(model, audios, batch):
-    from nemotron_tpu_torch.shared.client import transcribe_file
+    from nemotron_tpu_torch.serving.client import transcribe_file
     from nemotron_tpu_torch.serving.server import StreamServer
 
     srv = StreamServer(model, batch_per_group=batch)
@@ -542,7 +651,7 @@ def phase_cli(torch, hp, dense, vocab):
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.api import ASRModel
     from nemotron_tpu_torch.params import save_gguf
-    from nemotron_tpu_torch.shared.config import CacheConfig
+    from nemotron_tpu_torch.config import CacheConfig
     from nemotron_tpu_torch.streaming.session import StreamSession
 
     root = Path(__file__).resolve().parent
@@ -698,7 +807,7 @@ def main() -> int:
     phase_kernels(torch, report)
 
     t0 = time.perf_counter()
-    cpu_model = ASRModel.random(Hparams(), seed=SEED)
+    cpu_model = ASRModel.random(Hparams(), seed=SEED, device="cpu")
     cpu_model.params.joint.out_b[cpu_model.hp.blank_id] += BLANK_BIAS
     hp, vocab = cpu_model.hp, cpu_model.tokenizer.vocab
     dense = cpu_model.params

@@ -2,7 +2,9 @@
 (port of the serving surface and `stream_step` of
 nemotron_tpu/api.py:ASRModel).
 
-The model lives on an explicit `device`. Its encoder matrices may be
+The model lives on `device`, the card unless the caller asks for the CPU
+(`device="cpu"`); where no card is found, a model on "cuda" raises, and
+nothing falls back to the CPU. Its encoder matrices may be
 weight-only quantized (Q8_0 / Q4_0, `from_gguf(keep_quantized=True)` or
 `params.quantize_encoder_layers`), and `kv_int8` gives its streams int8 K/V
 caches. Two more explicit arguments stand in for the JAX package's
@@ -27,9 +29,9 @@ import torch
 from .models import asr
 from .models.encoder import (check_attn_block_weights, compact_cache,
                              realign_cache)
-from .params import ModelParams, load_model, random_params
-from .shared.config import CacheConfig, Hparams, LatencyMode
-from .shared.tokenizer import Tokenizer
+from .params import ModelParams, device_of, load_model, random_params
+from .config import CacheConfig, Hparams, LatencyMode
+from .text.tokenizer import Tokenizer
 from .streaming import state as state_mod
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -43,11 +45,11 @@ class ASRModel:
     def __init__(self, hp: Hparams, params: ModelParams,
                  vocab: list[str] | None = None,
                  prompt_dict: dict[str, int] | None = None,
-                 device="cpu", kv_int8: bool = False,
+                 device="cuda", kv_int8: bool = False,
                  attn_block: bool = False, confidence: bool = False):
         self.hp = hp
         self.params = params
-        self.device = torch.device(device)
+        self.device = device_of(device)
         self.kv_int8 = kv_int8  # int8 QuantKV attention caches
         self.attn_block = attn_block  # kernel B3 for the attention sub-block
         self.confidence = confidence  # packed per-token confidences
@@ -61,7 +63,7 @@ class ASRModel:
             self.default_prompt_index = 0
 
     @classmethod
-    def from_gguf(cls, path: str, dtype=torch.float32, device="cpu",
+    def from_gguf(cls, path: str, dtype=torch.float32, device="cuda",
                   keep_quantized: bool = False, kv_int8: bool = False,
                   attn_block: bool = False, confidence: bool = False):
         hp, params, meta = load_model(path, dtype=dtype, device=device,
@@ -72,7 +74,7 @@ class ASRModel:
 
     @classmethod
     def random(cls, hp: Hparams | None = None, seed: int = 0,
-               dtype=torch.float32, device="cpu", kv_int8: bool = False,
+               dtype=torch.float32, device="cuda", kv_int8: bool = False,
                attn_block: bool = False, confidence: bool = False):
         hp = hp or Hparams()
         vocab = [("▁w%d" % i) if i % 2 == 0 else ("p%d" % i)

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import mel as melops
-from ..shared import native
+from .. import native
 
 
 def _bucket(n_frames: int) -> int:

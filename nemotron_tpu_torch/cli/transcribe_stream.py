@@ -85,7 +85,7 @@ def _open_audio(path: str, sample_rate: int):
     if path == "-":
         return sys.stdin.buffer
     if path.endswith(".wav"):
-        from ..shared.wavio import read_wav
+        from ..audio.wavio import read_wav
 
         samples, rate = read_wav(path)
         if rate != sample_rate:
@@ -101,7 +101,7 @@ def main(argv=None) -> int:
     import torch
 
     from ..api import ASRModel
-    from ..shared.config import CacheConfig
+    from ..config import CacheConfig
     from ..streaming.session import StreamSession
 
     if opts["device"] == "cuda" and not torch.cuda.is_available():

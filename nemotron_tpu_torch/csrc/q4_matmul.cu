@@ -7,10 +7,18 @@
 // [N, K/2] uint8, original column k < K/2 in the low nibble of packed
 // column k, column k >= K/2 in the high nibble of packed column k - K/2.
 // With K % 64 == 0 a 32-wide quantization block never straddles the
-// halves: its codes are one nibble of 32 packed bytes of one row. The
-// weight bytes read per call halve against B4; the design and what bounds
-// it are in wq_matmul.cuh.
+// halves: its codes are one nibble of 32 packed bytes of one row.
+//
+// What bounds it on the H100, bf16 x at the main path's shapes: at M = 256
+// the flops (2*M*N*K on the bf16 tensor cores, 2.2 us for 4M weights),
+// below M ~ 100 the bytes, which halve against B4 (N*K/2 packed codes +
+// N*K/8 bytes of scales). The bf16 export runs wq_gemm_sm90.cuh: each
+// pipeline step loads 64 packed columns and the two x tiles they pair with
+// (columns j.. and K/2 + j..), so a packed byte is read once per batch
+// tile of 64-128 rows; its header has the design. The f32 export stays on wq_matmul.cuh's
+// FFMA body.
 
+#include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
 
 namespace {
@@ -43,8 +51,12 @@ extern "C" int q4_matmul_f32(const void* x, const void* w, const void* scales,
   return wq::launch_f32<Q4Codes>(x, w, scales, y, M, N, K, stream);
 }
 
+// x, w_packed, scales, y, workspace, M, N, K (unpacked), then the plan
+// (ops/quant.py:gemm_plan): m_tile, splits, steps per split; stream
 extern "C" int q4_matmul_bf16(const void* x, const void* w,
-                              const void* scales, void* y, int M, int N, int K,
-                              void* stream) {
-  return wq::launch_bf16<Q4Codes>(x, w, scales, y, M, N, K, stream);
+                              const void* scales, void* y, void* ws, int M,
+                              int N, int K, int m_tile, int splits,
+                              int steps_per, void* stream) {
+  return wq::launch_sm90<true>(x, w, scales, y, ws, M, N, K, m_tile, splits,
+                               steps_per, stream);
 }

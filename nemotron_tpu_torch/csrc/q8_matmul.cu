@@ -5,10 +5,18 @@
 // Same function, not the same grid: y = x . (w_i8 * per-32-input scale)^T,
 // w_i8 [N, K] int8, scales [N, K/32] f32. The Pallas kernel dequantizes a
 // whole [TN, K] weight strip in VMEM for a 256-row x tile (rows padded to
-// 256); here an output tile walks K in steps of whole 32-wide blocks, one
-// scale per (row, quantization block), and ragged M and N are masked
-// instead of padded. The design and what bounds it are in wq_matmul.cuh.
+// 256).
+//
+// What bounds it on the H100, bf16 x at the main path's shapes: at M = 256
+// the flops (2*M*N*K on the bf16 tensor cores, 2.2 us for N*K = 4M
+// weights), below M ~ 100 the bytes (N*K codes + N*K/8 bytes of scales, 1.4
+// us for 4M weights at 3.35 TB/s). The bf16 export runs wq_gemm_sm90.cuh:
+// wgmma with the streams as its N, a TMA ring, every code dequantized once
+// per batch tile of 64-128 rows, split-K for narrow N; its header has the
+// design. The f32 export (f32 activations, bound by the CUDA cores' 67
+// TFLOP/s) stays on wq_matmul.cuh's FFMA body.
 
+#include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
 
 namespace {
@@ -35,8 +43,12 @@ extern "C" int q8_matmul_f32(const void* x, const void* w, const void* scales,
   return wq::launch_f32<Q8Codes>(x, w, scales, y, M, N, K, stream);
 }
 
+// x, w_i8, scales, y, workspace, M, N, K, then the plan (ops/quant.py:
+// gemm_plan): m_tile, splits, steps per split; stream
 extern "C" int q8_matmul_bf16(const void* x, const void* w,
-                              const void* scales, void* y, int M, int N, int K,
-                              void* stream) {
-  return wq::launch_bf16<Q8Codes>(x, w, scales, y, M, N, K, stream);
+                              const void* scales, void* y, void* ws, int M,
+                              int N, int K, int m_tile, int splits,
+                              int steps_per, void* stream) {
+  return wq::launch_sm90<false>(x, w, scales, y, ws, M, N, K, m_tile, splits,
+                                steps_per, stream);
 }

@@ -1,6 +1,7 @@
-// GEMM body for Hopper, sm_90a, shared by kernels B4 (q8_matmul.cu, Q8_0),
-// B5 (q4_matmul.cu, Q4_0) and the projections of B3
-// (t1_attention_block.cu):
+// GEMM body for Hopper, sm_90a, shared by kernels B4 (q8_matmul.cu, Q8_0)
+// and B5 (q4_matmul.cu, Q4_0) with f32 activations, and by the projections
+// of B3 (t1_attention_block.cu) in f32 and bf16. B4 and B5 with bf16
+// activations, the serving form, run on wq_gemm_sm90.cuh instead.
 //
 //     y[m, n] = epilogue(m, n, sum_k a(m, k) * w(n, k))
 //
@@ -18,24 +19,17 @@
 //
 // What bounds it on the H100: at the serving shapes (M = B <= 256 streams,
 // N, K in 1024..4096) one call reads the weight once and does 2*M*N*K
-// flops; M = 256 sits right at the bf16 tensor cores' ridge, so small
-// batches are bound by the weight bytes and larger ones by the MMA rate.
-// Design, a first version that is simple and right (no TMA, no wgmma, no
-// multi-stage pipeline):
+// flops; f32 activations run on the CUDA cores (67 TFLOP/s, no TF32), so
+// the flops bind from M ~ 16 up. Design, a first version that is simple
+// and right (no TMA, no wgmma, no multi-stage pipeline):
 //   * one block per output tile, a K loop over steps of whole Q8_0 / Q4_0
 //     blocks (32 inputs each, one scale per (row n, block));
 //   * the step's x tile and weight tile go to shared memory, the weight
 //     dequantized there (code * scale in f32) into the operand type;
 //   * f32 activations: FFMA with f32 sums, no TF32; 64x64 tiles, K steps
 //     of 32, 256 threads with 4x4 outputs each;
-//   * bf16 activations: the weight rounded to bf16 as the plain version
-//     rounds it, mma.sync m16n8k16 on the tensor cores with f32
-//     accumulators; 64x32 tiles (twice the blocks of a 64x64 tile for
-//     N = 1024, so 128 blocks fill the 132 SMs at M = 256) and K steps of
-//     128, four quantization blocks: each thread has 8 x loads and 4
-//     weight loads in flight per step, where a step of 32 exposed the
-//     load latency on every one of K/32 steps (measured: 0.17 ms for
-//     M=256, N=1024, K=4096 at 32);
+//   * bf16 activations (B3's projections): mma.sync m16n8k16 on the tensor
+//     cores with f32 accumulators, 64x32 tiles, K steps of 128;
 //   * ragged M and N are masked in the loads and the stores: the wrapper
 //     never pads, and rows past M or N read as zero.
 // The wrappers check K % 32 == 0 (K % 64 == 0 for Q4), 16-byte aligned
@@ -409,7 +403,7 @@ int run_bf16(const A& a, const W& w, const E& e, int M, int N, int K,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B4 / B5: y = x . dequant(w)^T in x's type
+// B4 / B5 with f32 x: y = x . dequant(w)^T in f32
 template <class Codes>
 int launch_f32(const void* x, const void* w, const void* scales, void* y,
                int M, int N, int K, void* stream) {
@@ -417,17 +411,6 @@ int launch_f32(const void* x, const void* w, const void* scales, void* y,
                  QuantW<Codes>{static_cast<const uint8_t*>(w),
                                static_cast<const float*>(scales), K},
                  StoreY<float>{static_cast<float*>(y), N}, M, N, K, stream);
-}
-
-template <class Codes>
-int launch_bf16(const void* x, const void* w, const void* scales, void* y,
-                int M, int N, int K, void* stream) {
-  return run_bf16(
-      PlainA<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), K},
-      QuantW<Codes>{static_cast<const uint8_t*>(w),
-                    static_cast<const float*>(scales), K},
-      StoreY<__nv_bfloat16>{static_cast<__nv_bfloat16*>(y), N}, M, N, K,
-      stream);
 }
 
 }  // namespace wq

@@ -60,9 +60,11 @@ _SIGNATURES = {
     "t1_attention_i8_bf16": [_P] * 9 + [_I, _I, _I, _F, _P],
     # x, weight codes, scales, y, M, N, K, stream
     "q8_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "q8_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
     "q4_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "q4_matmul_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, weight codes, scales, y, workspace, M, N, K, then the plan
+    # (ops/quant.py:gemm_plan): m_tile, splits, steps per split; stream
+    "q8_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    "q4_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
     # x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
     # v_buf, out, k_new, v_new, qkv scratch, ctx scratch, batch, heads,
     # s_buf, d_head, eps, scale, stream

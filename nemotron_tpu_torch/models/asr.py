@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..ops import mel as melops
-from ..shared.config import CacheConfig, Hparams
+from ..config import CacheConfig, Hparams
 from ..streaming.state import StreamState
 from .decoder import greedy_decode, unpack_tokens
 from .encoder import compact_cache, stream_encode_step

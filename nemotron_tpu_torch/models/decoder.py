@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.lstm import lstm2_step
-from ..shared.config import MAX_SYMBOLS_PER_STEP, Hparams
+from ..config import MAX_SYMBOLS_PER_STEP, Hparams
 
 
 @dataclasses.dataclass
@@ -39,8 +39,8 @@ class DecodeState:
     frame_offset: torch.Tensor  # [B] int32
 
 
-def init_decode_state(batch: int, hp: Hparams, dtype=torch.float32,
-                      device="cpu") -> DecodeState:
+def init_decode_state(batch: int, hp: Hparams, dtype=torch.float32, *,
+                      device) -> DecodeState:
     shape = (batch, hp.decoder_layers, hp.decoder_dim)
     return DecodeState(
         h=torch.zeros(shape, dtype=dtype, device=device),

@@ -37,7 +37,7 @@ from ..ops.kvquant import (is_quant, kv_parts, kv_slice, kv_update_slice_,
 from ..ops.quant import is_quantized
 from ..ops.rel_attention import rel_pos_mha_fullbuf
 from ..params import layer_slice
-from ..shared.config import CacheConfig, Hparams
+from ..config import CacheConfig, Hparams
 
 
 def conformer_layer(x, pos_emb, lp, hp: Hparams, k_buf, v_buf, conv_cache,

@@ -55,7 +55,7 @@ def dequantize_kv(buf: QuantKV, dtype=torch.float32):
     return (buf.q.float() * buf.s[..., None]).to(dtype)
 
 
-def kv_zeros(shape, device="cpu") -> QuantKV:
+def kv_zeros(shape, device) -> QuantKV:
     """Zero quantized buffer for a [..., S, Dh] `shape`."""
     return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
                    torch.zeros(shape[:-1], dtype=torch.float32, device=device))

@@ -1,6 +1,9 @@
 """Weight-only Q8_0 / Q4_0 linears: the CUDA kernels `csrc/q8_matmul.cu`
 (B4) and `csrc/q4_matmul.cu` (B5) and their plain PyTorch versions (port of
-nemotron_tpu/ops/quant.py).
+nemotron_tpu/ops/quant.py). With bf16 activations the kernels run the
+Hopper body `csrc/wq_gemm_sm90.cuh` on the plan of `gemm_plan` (batch
+tiles, split-K), which sizes the f32 workspace of the splits; with f32
+activations they run `csrc/wq_matmul.cuh`.
 
 A Q8_0 weight is (w_i8 [..., out, in] int8, scales [..., out, in/32] f32):
 element (n, k) is w_i8[n, k] * scales[n, k // 32]. A Q4_0 weight keeps the
@@ -139,9 +142,74 @@ def linear_q4_ref(x, qt: QuantizedTensor4):
 
 _SYMBOL = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+# The bf16 body of B4 / B5 (csrc/wq_gemm_sm90.cuh): blocks of GEMM_ROWS
+# weight rows (two warpgroups of 64), pipeline steps of GEMM_STEP code
+# columns (Q4_0: packed columns, two K ranges each), the wgmma widths a
+# block's batch rows are padded to (at most 128 rows per block). The ring's
+# stages are the launcher's choice, from the card's shared memory.
+GEMM_ROWS = 128
+GEMM_STEP = 64
+GEMM_M_TILES = (16, 32, 48, 64, 80, 96, 112, 128)
+GEMM_MIN_ROWS = 64  # the batch is cut no finer to fill the SMs
+GEMM_MIN_STEPS = 2  # least steps per split (fewer: partials outweigh codes)
 
-def _launch(kernel, prefix, x, w, scales, n, k, k_multiple):
-    """Shared wrapper of B4 / B5: checks, then one launch over x [M, K]."""
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How the bf16 body covers one call: batch rows padded to m_tile per
+    block (tiles_m blocks along M), `steps` pipeline steps of GEMM_STEP
+    code columns cut into `splits` runs of steps_per (the last may be
+    shorter; none is empty)."""
+    m_tile: int
+    tiles_m: int
+    splits: int
+    steps: int
+    steps_per: int
+
+    def split_columns(self, k: int, bits: int) -> list[np.ndarray]:
+        """The original K columns that each split sums, in split order."""
+        kc = k if bits == 8 else k // 2
+        out = []
+        for z in range(self.splits):
+            lo = z * self.steps_per * GEMM_STEP
+            cols = np.arange(lo, min(kc, lo + self.steps_per * GEMM_STEP))
+            out.append(cols if bits == 8 else np.concatenate([cols,
+                                                              cols + kc]))
+        return out
+
+
+def gemm_plan(m: int, n: int, k: int, bits: int, sms: int) -> GemmPlan:
+    """The plan of one bf16 B4 (bits 8) / B5 (bits 4) call on a card with
+    `sms` SMs, toward one block per SM: the batch is cut into tiles of at
+    most 128 rows, and into more tiles of at least 64 rows while the
+    blocks still fit the SMs (a second read of a code tile comes from L2;
+    f32 partials of split-K cost more); then K is split where SMs are
+    still idle, at least GEMM_MIN_STEPS steps per split."""
+    blocks_n = -(-n // GEMM_ROWS)
+    tiles_m = -(-m // GEMM_M_TILES[-1])
+    while tiles_m < m // GEMM_MIN_ROWS and blocks_n * (tiles_m + 1) <= sms:
+        tiles_m += 1
+    m_tile = min(t for t in GEMM_M_TILES if t >= -(-m // tiles_m))
+    tiles_m = -(-m // m_tile)
+    steps = -(-(k if bits == 8 else k // 2) // GEMM_STEP)
+    want = max(1, sms // (blocks_n * tiles_m))
+    steps_per = min(steps, max(GEMM_MIN_STEPS, -(-steps // want)))
+    return GemmPlan(m_tile, tiles_m, -(-steps // steps_per), steps, steps_per)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def _launch(kernel, prefix, x, w, scales, n, k, k_multiple, bits):
+    """Shared wrapper of B4 / B5: checks, then one launch over x [M, K]
+    (bf16: on the plan of gemm_plan, with its f32 workspace)."""
     name = kernel.name
     if x.dtype not in _SYMBOL:
         raise ValueError(f"{name}: unsupported activation dtype {x.dtype}")
@@ -159,15 +227,26 @@ def _launch(kernel, prefix, x, w, scales, n, k, k_multiple):
             raise ValueError(f"{name}: operands on {t.device} and {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: weights must be contiguous")
+    if w.data_ptr() % 16:  # the bf16 body reads the codes through TMA
+        raise ValueError(f"{name}: weight codes are not 16-byte aligned")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     if x2.data_ptr() % 16:  # the kernel reads x in 16-byte vectors
         x2 = x2.clone()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if m:
-        kernel.launch(f"{prefix}_{_SYMBOL[x.dtype]}", x2.data_ptr(),
-                      w.data_ptr(), scales.data_ptr(), out.data_ptr(), m, n, k)
+    if not m:
+        return out.reshape(*lead, n)
+    ptrs = (x2.data_ptr(), w.data_ptr(), scales.data_ptr(), out.data_ptr())
+    if x.dtype == torch.float32:
+        kernel.launch(f"{prefix}_f32", *ptrs, m, n, k)
+    else:
+        plan = gemm_plan(m, n, k, bits, _sm_count(x.device))
+        ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
+                          device=x.device) if plan.splits > 1 else None)
+        kernel.launch(f"{prefix}_bf16", *ptrs,
+                      0 if ws is None else ws.data_ptr(), m, n, k,
+                      plan.m_tile, plan.splits, plan.steps_per)
     return out.reshape(*lead, n)
 
 
@@ -181,7 +260,7 @@ def linear_q8(x, qt: QuantizedTensor):
         raise ValueError(f"linear_q8: weights are {qt.w_i8.dtype}, want int8")
     n, k = qt.w_i8.shape[-2:]
     return _launch(kernels.Q8_MATMUL, "q8_matmul", x, qt.w_i8, qt.scales,
-                   n, k, QBLOCK)
+                   n, k, QBLOCK, 8)
 
 
 def linear_q4(x, qt: QuantizedTensor4):
@@ -195,4 +274,4 @@ def linear_q4(x, qt: QuantizedTensor4):
             f"linear_q4: weights are {qt.w_packed.dtype}, want uint8")
     n, k = qt.w_packed.shape[-2], qt.w_packed.shape[-1] * 2
     return _launch(kernels.Q4_MATMUL, "q4_matmul", x, qt.w_packed, qt.scales,
-                   n, k, 2 * QBLOCK)
+                   n, k, 2 * QBLOCK, 4)

@@ -21,9 +21,9 @@ import torch
 
 from .ops.quant import (QuantizedTensor, QuantizedTensor4, from_gguf_q4,
                         from_gguf_q8, is_quantized, quantize_q4, quantize_q8)
-from .shared import gguf_writer
-from .shared.config import Hparams
-from .shared.gguf import GGML_F16, GGML_Q4_0, GGML_Q8_0, read_gguf
+from .gguf import writer as gguf_writer
+from .config import Hparams
+from .gguf.reader import GGML_F16, GGML_Q4_0, GGML_Q8_0, read_gguf
 
 
 @dataclasses.dataclass
@@ -128,6 +128,16 @@ def layer_slice(layers: ConformerLayerParams, i: int) -> ConformerLayerParams:
            for f in dataclasses.fields(layers)})
 
 
+def device_of(device) -> torch.device:
+    """`device` as a torch.device. A CUDA device on a machine without one
+    raises: the port never falls back to the CPU."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: CUDA is not available; "
+                           "pass device='cpu' to run on the CPU")
+    return d
+
+
 def params_to(params: ModelParams, device=None, dtype=None) -> ModelParams:
     """Move every tensor to `device`; cast floating tensors other than the
     f32 frontend tables (filterbank, window) to `dtype`. Quantized weights
@@ -152,12 +162,13 @@ def params_to(params: ModelParams, device=None, dtype=None) -> ModelParams:
     return conv(params)
 
 
-def params_from_numpy(tree, device="cpu", dtype=torch.float32) -> ModelParams:
+def params_from_numpy(tree, device="cuda", dtype=torch.float32) -> ModelParams:
     """Bridge from the JAX package: `tree` is its ModelParams (or any object
     with the same field names) whose leaves convert with np.asarray. Every
     leaf is copied, so in-place updates never reach the source. A quantized
     leaf (JAX QuantizedTensor / QuantizedTensor4) keeps its int8 / uint8
     codes exactly and its scales in f32."""
+    device = device_of(device)
 
     def leaf(x, dt):
         if hasattr(x, "w_i8"):
@@ -300,7 +311,7 @@ def norm_featurizer_fb(arr) -> np.ndarray:
     return arr
 
 
-def load_model(path: str, dtype=torch.float32, device="cpu",
+def load_model(path: str, dtype=torch.float32, device="cuda",
                keep_quantized: bool = False
                ) -> tuple[Hparams, ModelParams, dict]:
     """Load a GGUF checkpoint into stacked tensors.
@@ -311,6 +322,7 @@ def load_model(path: str, dtype=torch.float32, device="cpu",
     stays quantized: a QuantizedTensor (QuantizedTensor4) read from the raw
     payload, dequantized inside kernel B4 (B5) on the card.
     """
+    device = device_of(device)
     g = read_gguf(path)
     hp = hparams_from_kv(g.kv)
     raw = g.load_all()
@@ -472,9 +484,10 @@ def quantize_encoder_layers(params: ModelParams, bits: int = 8
 
 
 def random_params(hp: Hparams, seed: int = 0, dtype=torch.float32,
-                  device="cpu") -> ModelParams:
+                  device="cuda") -> ModelParams:
     """Random weights drawing the same numpy stream, in the same order, as
     nemotron_tpu/params.py:random_params (identical values in f32)."""
+    device = device_of(device)
     rng = np.random.default_rng(seed)
 
     def r(*shape, scale=None):

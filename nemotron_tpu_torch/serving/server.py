@@ -24,7 +24,7 @@ import threading
 
 import numpy as np
 
-from ..shared import protocol as P
+from . import protocol as P
 from ..streaming.engine import BatchedEngine
 
 SUPPORTED_RIGHT_CONTEXTS = (0,)

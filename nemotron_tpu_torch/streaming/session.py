@@ -26,7 +26,7 @@ import torch
 
 from ..audio.frontend import StreamPreprocessor
 from ..models.asr import tokens_to_list
-from ..shared.config import CacheConfig, LatencyMode
+from ..config import CacheConfig, LatencyMode
 
 
 def _leaves(obj, prefix=""):

@@ -10,7 +10,7 @@ import torch
 
 from ..models.decoder import DecodeState, init_decode_state
 from ..ops.kvquant import kv_parts, kv_zeros
-from ..shared.config import CacheConfig, Hparams
+from ..config import CacheConfig, Hparams
 
 # Steady-state preprocessor tail: with the carry primed as [256 centre-pad
 # zeros || first 96 pre-emphasized samples], every shift_samples block
@@ -31,7 +31,7 @@ class StreamState:
 
 
 def init_stream_state(batch: int, hp: Hparams, cfg: CacheConfig,
-                      dtype=torch.float32, device="cpu",
+                      dtype=torch.float32, *, device,
                       kv_int8: bool = False) -> StreamState:
     """Zero state; kv_int8 allocates int8 QuantKV K/V caches."""
     L, D = hp.n_layers, hp.d_model

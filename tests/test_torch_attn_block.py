@@ -33,7 +33,7 @@ from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
 from nemotron_tpu_torch.ops.kvquant import QuantKV
 from nemotron_tpu_torch.params import quantize_encoder_layers
 from nemotron_tpu_torch.params import random_params as t_random
-from nemotron_tpu_torch.shared.config import CacheConfig
+from nemotron_tpu_torch.config import CacheConfig
 from nemotron_tpu_torch.streaming.engine import PRIME_SAMPLES
 
 torch.set_num_threads(1)
@@ -127,7 +127,7 @@ def test_wrapper_takes_the_plain_version_on_cpu():
 @pytest.fixture(scope="module")
 def enc_setup():
     hp = tiny_hparams()
-    return hp, tiny_cfg(hp), j_random(hp, seed=7), t_random(hp, seed=7)
+    return hp, tiny_cfg(hp), j_random(hp, seed=7), t_random(hp, seed=7, device="cpu")
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -201,10 +201,11 @@ def test_fused_tick_with_block_over_int8_caches_matches_jax(monkeypatch,
 
 def test_quantized_attention_weights_are_refused():
     hp = tiny_hparams()
-    model = TorchModel.random(hp, seed=1)
+    model = TorchModel.random(hp, seed=1, device="cpu")
     q8 = quantize_encoder_layers(model.params, bits=8)
     with pytest.raises(ValueError,
                        match="dense attention weights.*attn_q_w"):
-        TorchModel(hp, q8, model.tokenizer.vocab, attn_block=True)
+        TorchModel(hp, q8, model.tokenizer.vocab, device="cpu",
+                   attn_block=True)
     # the refusal is the block's alone: without it the weights serve
-    TorchModel(hp, q8, model.tokenizer.vocab)
+    TorchModel(hp, q8, model.tokenizer.vocab, device="cpu")

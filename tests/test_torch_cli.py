@@ -26,7 +26,7 @@ from nemotron_tpu.api import ASRModel as JaxModel
 from nemotron_tpu.cli import transcribe_stream as jcli
 from nemotron_tpu.config import CacheConfig as JaxCacheConfig
 from nemotron_tpu_torch.cli import transcribe_stream as tcli
-from nemotron_tpu_torch.shared.config import CacheConfig
+from nemotron_tpu_torch.config import CacheConfig
 
 torch.set_num_threads(1)
 

@@ -31,7 +31,8 @@ def check_decode(t, blank_bias, n_valid, bf16=False, atol=5e-5):
     hp = tiny_hparams()
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
                 else (jnp.float32, torch.float32))
-    jp, tp = j_random(hp, seed=5, dtype=jdt), t_random(hp, seed=5, dtype=tdt)
+    jp, tp = j_random(hp, seed=5, dtype=jdt), t_random(hp, seed=5, dtype=tdt,
+                                                     device="cpu")
     jp.joint.out_b = jp.joint.out_b.at[hp.blank_id].add(blank_bias)
     tp.joint.out_b[hp.blank_id] += blank_bias
     b = len(n_valid)
@@ -77,11 +78,11 @@ def test_greedy_decode_bf16_tokens_equal(t, blank_bias, n_valid):
 
 def test_init_state_and_joint_match():
     hp = tiny_hparams()
-    js, ts = jd.init_decode_state(3, hp), td.init_decode_state(3, hp)
+    js, ts = jd.init_decode_state(3, hp), td.init_decode_state(3, hp, device="cpu")
     for name in ("h", "c", "prev_token", "frame_offset"):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)))
-    jp, tp = j_random(hp, seed=1), t_random(hp, seed=1)
+    jp, tp = j_random(hp, seed=1), t_random(hp, seed=1, device="cpu")
     e, d = rand(3, hp.joint_dim, seed=2), rand(3, hp.decoder_dim, seed=3)
     np.testing.assert_allclose(
         td.joint_from_proj(tp.joint, torch.tensor(e), torch.tensor(d)).numpy(),
@@ -103,7 +104,7 @@ def test_joint_step_and_packed_confidences_match(monkeypatch):
     from nemotron_tpu_torch.models.asr import tokens_to_list as t_list
 
     hp = tiny_hparams()
-    jp, tp = j_random(hp, seed=5), t_random(hp, seed=5)
+    jp, tp = j_random(hp, seed=5), t_random(hp, seed=5, device="cpu")
     e, d = rand(3, hp.d_model, seed=2), rand(3, hp.decoder_dim, seed=3)
     np.testing.assert_allclose(
         td.joint_step(tp.joint, torch.tensor(e), torch.tensor(d)).numpy(),
@@ -115,7 +116,7 @@ def test_joint_step_and_packed_confidences_match(monkeypatch):
     js2, jt = jd.greedy_decode(jp, hp, jnp.asarray(enc),
                                jd.init_decode_state(3, hp), jnp.asarray(nv))
     ts2, tt = td.greedy_decode(tp, hp, torch.tensor(enc),
-                               td.init_decode_state(3, hp), torch.tensor(nv),
+                               td.init_decode_state(3, hp, device="cpu"), torch.tensor(nv),
                                confidence=True)
     jt = np.asarray(jt)
     np.testing.assert_array_equal(tt.numpy(), jt)
@@ -126,6 +127,6 @@ def test_joint_step_and_packed_confidences_match(monkeypatch):
     assert t_list(tt, nv, vocab_size=hp.vocab_size, with_conf=True) \
         == j_list(jt, nv, vocab_size=hp.vocab_size, with_conf=True)
     plain = td.greedy_decode(tp, hp, torch.tensor(enc),
-                             td.init_decode_state(3, hp), torch.tensor(nv))[1]
+                             td.init_decode_state(3, hp, device="cpu"), torch.tensor(nv))[1]
     assert t_list(plain, nv) == [[(tok % hp.vocab_size, t) for tok, t in seq]
                                  for seq in t_list(tt, nv)]

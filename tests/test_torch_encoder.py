@@ -26,7 +26,7 @@ B = 3
 def setup():
     hp = tiny_hparams()
     cfg = tiny_cfg(hp)
-    return hp, cfg, j_random(hp, seed=2), t_random(hp, seed=2)
+    return hp, cfg, j_random(hp, seed=2), t_random(hp, seed=2, device="cpu")
 
 
 def caches(hp, cfg, seed):
@@ -125,7 +125,7 @@ def test_pos_emb_slice_matches(setup):
 def test_stream_encode_with_language_prompt_fusion():
     hp = tiny_hparams(num_prompts=8)
     cfg = tiny_cfg(hp)
-    jp, tp = j_random(hp, seed=6), t_random(hp, seed=6)
+    jp, tp = j_random(hp, seed=6), t_random(hp, seed=6, device="cpu")
     k, v, c = caches(hp, cfg, seed=50)
     valid = np.array([8, 1, 4], np.int32)
     mel = rand(B, cfg.chunk_mel_frames, hp.n_mels, seed=51)

@@ -143,6 +143,35 @@ def test_quantized_linear_kernels_match_plain(cuda, bits, dtype, rel, m, n,
     assert err <= rel * float(want.abs().max()), err
 
 
+@pytest.mark.parametrize("k", [64, 1024, 4096])
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_hopper_quantized_linears_bf16(cuda, bits, n, k):
+    """B4 / B5 with bf16 activations (the wgmma body, its split-K plans)
+    against the plain versions within 1e-2 x max|y| at every batch the
+    path sees and beyond 256 rows; two calls give identical bits (the
+    splits are reduced in a fixed order); one launch counted per call."""
+    rng = np.random.default_rng(n + k + bits)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w).to(cuda)
+    kern = kernels.Q8_MATMUL if bits == 8 else kernels.Q4_MATMUL
+    fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
+               else (quant.linear_q4, quant.linear_q4_ref))
+    for m in (1, 8, 32, 141, 256, 300):
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                         device=cuda).to(torch.bfloat16)
+        before = kern.launches
+        got = fn(x, qt)
+        again = fn(x, qt)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert torch.equal(got, again), m
+        want = ref(x, qt).float()
+        err = float((got.float() - want).abs().max())
+        assert err <= 1e-2 * float(want.abs().max()), (m, err)
+
+
 def test_quantized_linear_wrappers_refuse(cuda):
     qt = quant.quantize_q8(np.ones((64, 64), np.float32)).to(cuda)
     x = torch.ones(4, 64, device=cuda)
@@ -248,7 +277,8 @@ def test_tiny_tick_on_card_matches_cpu(cuda, int8, block):
                  joint_dim=32, subsampling_channels=16, att_left_context=8,
                  max_pos_len=64)
     q8 = int8 and not block
-    cpu = ASRModel.random(hp, seed=1, kv_int8=int8, attn_block=block)
+    cpu = ASRModel.random(hp, seed=1, device="cpu", kv_int8=int8,
+                          attn_block=block)
     if q8:
         cpu.params = quantize_encoder_layers(cpu.params)
     gpu = ASRModel(hp, params_to(cpu.params, cuda), cpu.tokenizer.vocab,

@@ -33,7 +33,7 @@ from nemotron_tpu_torch.ops import kvquant as tkv
 from nemotron_tpu_torch.ops.attn_kernel import (t1_attention_core,
                                                 t1_attention_core_ref)
 from nemotron_tpu_torch.ops.rel_attention import rel_pos_mha_fullbuf as t_mha
-from nemotron_tpu_torch.shared.config import CacheConfig
+from nemotron_tpu_torch.config import CacheConfig
 from nemotron_tpu_torch.streaming import state as tstate
 
 torch.set_num_threads(1)
@@ -118,7 +118,8 @@ def test_state_and_cache_moves_equal_jax(monkeypatch):
     cfg = CacheConfig.for_mode(0, hp)
     B = 4
     js = jstate.init_stream_state(B, hp, cfg)
-    ts = tstate.init_stream_state(B, hp, cfg, kv_int8=True)
+    ts = tstate.init_stream_state(B, hp, cfg, device="cpu",
+                                 kv_int8=True)
     assert jkv.is_quant(js.k_cache) and tkv.is_quant(ts.k_cache)
     assert_same(js.k_cache, ts.k_cache)
     rng = np.random.default_rng(4)

@@ -4,8 +4,13 @@ module of nemotron_tpu_torch and chip_smoke import in a process in which
 `nemotron_tpu` in sys.modules; no source file of the port names jax; the
 kernel wrappers given CPU tensors take their plain versions without
 building or launching. The walk covers every module of the port, the
-session, frontend and CLI modules included."""
+session, frontend and CLI modules included. No file of the port or
+chip_smoke.py names a path into `nemotron_tpu/` or `native/` (the port
+keeps its own copies of the modules it shares with the JAX package), and
+the port's entry points default to the card: without one, a model that
+asks for no device raises instead of falling back to the CPU."""
 
+import ast
 import importlib.util
 
 import os
@@ -14,6 +19,11 @@ import re
 import subprocess
 import sys
 import textwrap
+
+import pytest
+import torch
+
+from helpers import tiny_hparams
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "nemotron_tpu_torch"
@@ -100,3 +110,73 @@ def test_no_source_file_names_jax():
     assert len(files) >= 15
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders
+
+
+# calls that load, open, build or run a file or module by its name
+_LOADERS = {"spec_from_file_location", "SourceFileLoader", "run_path",
+            "import_module", "__import__", "exec", "open", "Path", "join",
+            "CDLL", "fromfile", "run", "Popen", "check_output", "load"}
+_JAX_ROOTS = ("nemotron_tpu", "native")
+
+
+def _names_jax_path(value) -> bool:
+    if not isinstance(value, str):
+        return False
+    head = re.split(r"[/.]", value.lstrip("./"), maxsplit=1)[0]
+    return head in _JAX_ROOTS and not value.startswith("nemotron_tpu_torch")
+
+
+def _path_offences(tree) -> list[str]:
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in ("spec_from_file_location", "SourceFileLoader",
+                        "run_path"):
+                out.append(f"{name}()")
+            elif name in _LOADERS:
+                out += [f"{name}({c.value!r})"
+                        for arg in [*node.args, *(k.value for k in
+                                                   node.keywords)]
+                        for c in ast.walk(arg)
+                        if isinstance(c, ast.Constant)
+                        and _names_jax_path(c.value)]
+        elif isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div):
+            out += [f"/ {c.value!r}" for c in (node.left, node.right)
+                    if isinstance(c, ast.Constant) and _names_jax_path(c.value)]
+        elif isinstance(node, ast.Constant) and node.value in _JAX_ROOTS:
+            out.append(repr(node.value))  # a bare path component
+    return out
+
+
+def test_no_file_names_a_path_into_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert not (PKG / "shared.py").exists()
+    offenders = {str(f.relative_to(ROOT)): bad for f in files
+                 if (bad := _path_offences(ast.parse(f.read_text())))}
+    assert not offenders
+    # the check itself sees the forms a path into the JAX package takes
+    for probe in ('spec = importlib.util.spec_from_file_location("m", p)',
+                  'ref = Path(__file__).parent.parent / "nemotron_tpu"',
+                  'src = os.path.join(root, "native", "nemotron_host.cpp")',
+                  'lib = ctypes.CDLL("native/libnemotron_host.so")',
+                  'cfg = open("nemotron_tpu/config.py").read()',
+                  'mod = importlib.import_module("nemotron_tpu.config")'):
+        assert _path_offences(ast.parse(probe)), probe
+
+
+def test_default_device_is_the_card():
+    """ASRModel.random with no device: on the card where there is one, and
+    an error where there is none (no fallback to the CPU)."""
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import random_params
+
+    if torch.cuda.is_available():
+        assert ASRModel.random(tiny_hparams()).device.type == "cuda"
+        return
+    for make in (lambda: ASRModel.random(tiny_hparams()),
+                 lambda: random_params(tiny_hparams())):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()

@@ -78,7 +78,7 @@ def test_causal_conv2d(depthwise):
 
 def test_conv_subsampling_matches_including_flatten_order():
     hp = tiny_hparams()
-    jp, tp = j_random(hp, seed=2), t_random(hp, seed=2)
+    jp, tp = j_random(hp, seed=2), t_random(hp, seed=2, device="cpu")
     mel = rand(3, 17, hp.n_mels, seed=4)
     want = jc.conv_subsampling(jp.subsampling, jnp.asarray(mel))
     got = tc.conv_subsampling(tp.subsampling, T(mel))

@@ -1,7 +1,7 @@
 """Parameters: the port's random_params and GGUF loader against the JAX
 package's, leaf for leaf (exact: both draw or decode the same f32 values).
 The two packages' Hparams are distinct classes with the same fields (the
-port loads config.py on its own, see nemotron_tpu_torch/shared.py), so they
+port keeps its own copy of config.py, nemotron_tpu_torch/config.py), so they
 are compared field by field."""
 
 import dataclasses
@@ -47,13 +47,13 @@ def assert_trees_equal(jtree, ttree):
 def test_random_params_equal_leaf_for_leaf(overrides):
     hp = tiny_hparams(**overrides)
     assert_trees_equal(jparams.random_params(hp, seed=3),
-                       tparams.random_params(hp, seed=3))
+                       tparams.random_params(hp, seed=3, device="cpu"))
 
 
 def test_params_from_numpy_bridge_copies():
     hp = tiny_hparams()
     jp = jparams.random_params(hp, seed=4)
-    tp = tparams.params_from_numpy(jp)
+    tp = tparams.params_from_numpy(jp, device="cpu")
     assert_trees_equal(jp, tp)
     tp.layers.attn_q_w.zero_()  # in-place on the port's copy only
     assert np.abs(np.asarray(jp.layers.attn_q_w)).sum() > 0
@@ -72,7 +72,7 @@ def test_gguf_loads_identically(tmp_path, f16):
     if types:
         export_random_checkpoint(hp, path, seed=7, tensor_types=types)
     jhp, jp, jmeta = jparams.load_model(path)
-    thp, tp, tmeta = tparams.load_model(path)
+    thp, tp, tmeta = tparams.load_model(path, device="cpu")
     assert dataclasses.asdict(jhp) == dataclasses.asdict(thp)
     assert jmeta["vocab"] == tmeta["vocab"] and len(tmeta["vocab"]) == 32
     assert_trees_equal(jp, tp)
@@ -98,7 +98,7 @@ def test_hparams_and_conv_normalization_match():
 
 
 def test_layer_slice_is_a_view():
-    tp = tparams.random_params(tiny_hparams(), seed=0)
+    tp = tparams.random_params(tiny_hparams(), seed=0, device="cpu")
     lp = tparams.layer_slice(tp.layers, 1)
     assert lp.attn_q_w.data_ptr() == tp.layers.attn_q_w[1].data_ptr()
 
@@ -109,13 +109,13 @@ def test_save_gguf_round_trips_through_both_loaders(tmp_path, f16):
     the port and in the JAX package (F16 matrices rounded once). The file
     holds no max_pos_len, so the loaders' own default builds pos_emb."""
     hp = tiny_hparams(num_prompts=4)
-    tp = tparams.random_params(hp, seed=5)
+    tp = tparams.random_params(hp, seed=5, device="cpu")
     vocab = [f"▁v{i}" for i in range(hp.vocab_size - 1)]
     path = str(tmp_path / "saved.gguf")
     tparams.save_gguf(path, hp, tp, vocab,
                       GGML_F16 if f16 else GGML_F32,
                       prompt_dict={"en-US": 0, "de-DE": 1})
-    thp, back, meta = tparams.load_model(path)
+    thp, back, meta = tparams.load_model(path, device="cpu")
     jhp, jp, jmeta = jparams.load_model(path)
     assert dataclasses.asdict(thp) == dataclasses.asdict(
         dataclasses.replace(hp, max_pos_len=thp.max_pos_len))

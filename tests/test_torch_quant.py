@@ -130,8 +130,8 @@ def test_quantize_encoder_layers_equals_jax(bits):
     hp = tiny_hparams()
     jp = jparams.quantize_encoder_layers(jparams.random_params(hp, seed=3),
                                          bits=bits)
-    tp = tparams.quantize_encoder_layers(tparams.random_params(hp, seed=3),
-                                         bits=bits)
+    tp = tparams.quantize_encoder_layers(
+        tparams.random_params(hp, seed=3, device="cpu"), bits=bits)
     assert_trees_equal(jp, tp)  # codes, scales and dense leaves, exactly
     quantized = {f for f in tparams.QUANT_LAYER_FIELDS
                  if tq.is_quantized(getattr(tp.layers, f))}
@@ -164,7 +164,8 @@ def _quantized_checkpoint(tmp_path, ggml_type):
 def test_load_quantized_gguf_equals_jax(tmp_path, ggml_type, keep):
     path = _quantized_checkpoint(tmp_path, ggml_type)
     _, jp, _ = jparams.load_model(path, keep_quantized=keep)
-    _, tp, _ = tparams.load_model(path, keep_quantized=keep)
+    _, tp, _ = tparams.load_model(path, keep_quantized=keep,
+                                 device="cpu")
     assert_trees_equal(jp, tp)
     quantized = {f for f in tparams._LAYER_MAP
                  if tq.is_quantized(getattr(tp.layers, f))}
@@ -174,7 +175,7 @@ def test_load_quantized_gguf_equals_jax(tmp_path, ggml_type, keep):
     assert quantized == (want[ggml_type] if keep else set())
     # bf16: dense leaves cast, quantized leaves keep their bits
     _, tb, _ = tparams.load_model(path, dtype=torch.bfloat16,
-                                  keep_quantized=keep)
+                                  keep_quantized=keep, device="cpu")
     assert tb.layers.norm_ff1_w.dtype == torch.bfloat16
     for f in quantized:
         assert_same_bits(getattr(tp.layers, f), getattr(tb.layers, f))
@@ -183,7 +184,7 @@ def test_load_quantized_gguf_equals_jax(tmp_path, ggml_type, keep):
 def test_params_to_and_from_numpy_carry_quantized_leaves():
     hp = tiny_hparams()
     jp = jparams.quantize_encoder_layers(jparams.random_params(hp, seed=2))
-    tp = tparams.params_from_numpy(jp)
+    tp = tparams.params_from_numpy(jp, device="cpu")
     assert_trees_equal(jp, tp)
     bf = tparams.params_to(tp, dtype=torch.bfloat16)
     assert bf.layers.ffn1_w1.w_i8.dtype == torch.int8
@@ -191,7 +192,7 @@ def test_params_to_and_from_numpy_carry_quantized_leaves():
     assert bf.layers.conv_dw_w.dtype == torch.bfloat16
     j4 = jparams.quantize_encoder_layers(jparams.random_params(hp, seed=2),
                                          bits=4)
-    t4 = tparams.params_to(tparams.params_from_numpy(j4),
+    t4 = tparams.params_to(tparams.params_from_numpy(j4, device="cpu"),
                            dtype=torch.bfloat16)
     assert t4.layers.attn_q_w.w_packed.dtype == torch.uint8
     assert_same_bits(j4.layers.attn_q_w, t4.layers.attn_q_w)
@@ -204,3 +205,68 @@ def test_params_to_and_from_numpy_carry_quantized_leaves():
 def test_quantized_tick_matches_jax(bits, segment):
     run = run_segment(segment, quant_bits=bits)
     assert tq.is_quantized(run.tm.params.layers.attn_q_w)
+
+
+# The main path's (N, K): ffn*_w1, ffn*_w2, conv_pw1_w, attention / conv_pw2_w
+MAIN_SHAPES = [(4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024)]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gemm_plan_covers_every_column_once(bits):
+    """Every plan of the bf16 body (batch tiles, split-K) for the main
+    path's shapes, ragged ones, and cards of other SM counts: each K column
+    lies in exactly one split, no split is empty, the batch fits the
+    tiles."""
+    shapes = MAIN_SHAPES + [(200, 128), (96, 64)] + (
+        [(64, 96)] if bits == 8 else [])
+    for n, k in shapes:
+        for m in (1, 7, 8, 32, 141, 256, 300, 513):
+            for sms in (132, 114, 78):
+                p = tq.gemm_plan(m, n, k, bits, sms)
+                cols = p.split_columns(k, bits)
+                assert len(cols) == p.splits and all(len(c) for c in cols)
+                flat = np.concatenate(cols)
+                np.testing.assert_array_equal(np.sort(flat), np.arange(k))
+                assert (p.splits - 1) * p.steps_per < p.steps \
+                    <= p.splits * p.steps_per
+                assert p.m_tile in tq.GEMM_M_TILES
+                assert p.m_tile * p.tiles_m >= m > p.m_tile * (p.tiles_m - 1)
+                # more than one batch tile only of at least 64 rows each
+                assert p.tiles_m == 1 or -(-m // p.tiles_m) >= tq.GEMM_MIN_ROWS
+                blocks = -(-n // tq.GEMM_ROWS) * p.tiles_m
+                if blocks * 2 <= sms and p.steps >= 2 * tq.GEMM_MIN_STEPS:
+                    assert p.splits > 1  # idle SMs take a share of K
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("n, k", MAIN_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_split_k_emulation_matches_plain_and_xla(bits, n, k):
+    """A plain emulation of the bf16 body's partition: per split, the f32
+    product of x and the weights (rounded as the plain version rounds
+    them) over that split's K columns; the partials summed in split order,
+    rounded once. Held against the port's plain linear and the JAX
+    package's XLA linear within one bf16 ulp of max|y|, in bf16 and f32."""
+    jquant, tquant, _, tdeq, jxla, _, tref = KINDS[bits][:7]
+    w = rand(n, k, seed=n + k, scale=k ** -0.5)
+    jqt, tqt = jquant(w), tquant(w)
+    for dtype, jdt in ((torch.bfloat16, jnp.bfloat16),
+                       (torch.float32, jnp.float32)):
+        wd = tdeq(tqt, dtype).float()
+        for m in (1, 8, 141, 256):
+            x = torch.from_numpy(rand(m, k, seed=m)).to(dtype)
+            plan = tq.gemm_plan(m, n, k, bits, 132)
+            acc = torch.zeros(m, n)
+            for cols in plan.split_columns(k, bits):
+                idx = torch.from_numpy(cols)
+                acc += x.float()[:, idx] @ wd[:, idx].T
+            got = acc.to(dtype).float()
+            want = tref(x, tqt).float()
+            tol = _bf16_ulp(float(want.abs().max()))
+            assert float((got - want).abs().max()) <= tol, (dtype, m)
+            jx = jnp.asarray(x.float().numpy()).astype(jdt)
+            xla = np.asarray(jxla(jx, jqt).astype(jnp.float32))
+            assert float(np.abs(got.numpy() - xla).max()) <= tol, (dtype, m)

@@ -37,7 +37,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def int8_model():
-    model = ASRModel.random(tiny_hparams(), seed=1, kv_int8=True)
+    model = ASRModel.random(tiny_hparams(), seed=1, device="cpu",
+                            kv_int8=True)
     model.params = quantize_encoder_layers(model.params)
     return model
 
@@ -63,7 +64,8 @@ def q8_checkpoint(path):
 def test_server_main_serves_quantized_kv_int8(tmp_path):
     gguf, sock = tmp_path / "q8.gguf", tmp_path / "srv.sock"
     q8_checkpoint(gguf)
-    model = ASRModel.from_gguf(str(gguf), keep_quantized=True, kv_int8=True)
+    model = ASRModel.from_gguf(str(gguf), device="cpu",
+                               keep_quantized=True, kv_int8=True)
     assert model.kv_int8
     assert all(is_quantized(getattr(model.params.layers, f))
                for f in QUANT_LAYER_FIELDS)

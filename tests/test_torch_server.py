@@ -29,7 +29,7 @@ def make_audio(n, seed):
 
 def build_model():
     # seed 1: this random tiny model emits a varied token stream
-    return ASRModel.random(tiny_hparams(), seed=1)
+    return ASRModel.random(tiny_hparams(), seed=1, device="cpu")
 
 
 def direct_transcript(model, audio, batch=4):

@@ -98,7 +98,7 @@ def jax_model(path):
 
 
 def torch_model(path, **kw):
-    model = TorchModel.from_gguf(path, **kw)
+    model = TorchModel.from_gguf(path, device="cpu", **kw)
     model.prompt_dict = dict(PROMPTS)
     return model
 

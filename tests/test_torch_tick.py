@@ -41,7 +41,7 @@ from nemotron_tpu.params import quantize_encoder_layers as j_quantize
 from nemotron_tpu_torch.api import ASRModel as TorchModel
 from nemotron_tpu_torch.models.asr import tokens_to_list
 from nemotron_tpu_torch.params import quantize_encoder_layers
-from nemotron_tpu_torch.shared.config import CacheConfig
+from nemotron_tpu_torch.config import CacheConfig
 from nemotron_tpu_torch.streaming.engine import PRIME_SAMPLES, prime_carry
 
 torch.set_num_threads(1)
@@ -104,7 +104,7 @@ class Lockstep:
             hp, seed=1, dtype=jnp.bfloat16 if bf16 else jnp.float32)
         self.tm = TorchModel.random(
             hp, seed=1, dtype=torch.bfloat16 if bf16 else torch.float32,
-            kv_int8=kv_int8, attn_block=attn_block)
+            device="cpu", kv_int8=kv_int8, attn_block=attn_block)
         if quant_bits:
             self.jm.params = j_quantize(self.jm.params, bits=quant_bits)
             self.tm.params = quantize_encoder_layers(self.tm.params,
