@@ -12,9 +12,11 @@ Phases, one line each, any failure exits non-zero:
   3 kernels  each kernel vs its plain version at the main path's shapes
              (max |err|, device ms per call of both, the bound and which
              term binds, library_ms where one PyTorch call computes the
-             same function): B1 over dense and int8 caches (SDPA beside
-             the dense ones), B3 (the fused attention block) at B in {32,
-             256} in f32 and bf16 over dense and int8 caches, B2, B4 (Q8_0)
+             same function): B1 at B in {32, 256} over dense and int8
+             caches in f32 and bf16 (SDPA beside the dense ones), B3 (the
+             fused attention block) at B in {32, 256} in f32 and bf16 over
+             dense and int8 caches (unfused_ms: the port's sub-block
+             without B3, LN + torch.matmul + B1, beside it), B2, B4 (Q8_0)
              and B5 (Q4_0) in bf16 at M in {32, 141, 256} for the four
              (N, K) of the encoder's matrices (dense_ms: cuBLAS on the
              weight dequantized beforehand; B5's library_ms:
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -88,12 +91,13 @@ def cuda_ms(fn, launches: int = 50, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def _attn_case(torch, rng, dev, dtype, int8):
-    """B1 inputs at the main path's shape (B=32): random validity windows,
-    dead slots at -1e9; int8 caches carry garbage codes and scales there."""
+def _attn_case(torch, rng, dev, dtype, int8, B):
+    """B1 inputs at the main path's shape (B streams, H=8, S_buf=78,
+    Dh=128): random validity windows, dead slots at -1e9; int8 caches
+    carry garbage codes and scales there."""
     from nemotron_tpu_torch.ops.kvquant import quantize_kv
 
-    B, H, Dh, S = 32, 8, 128, 78
+    H, Dh, S = 8, 128, 78
 
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape).astype(np.float32),
@@ -157,6 +161,32 @@ def _block_case(torch, rng, dev, dtype, int8, B):
         k_buf=kb, v_buf=vb, n_heads=H, d_head=Dh)
 
 
+def _unfused_block(torch, a):
+    """The port's attention sub-block without B3, as ASRModel(attn_block=
+    False) runs it (models/encoder.py, ops/rel_attention.py), on B3's
+    inputs: LN, the three projections by torch.matmul, the position term
+    from pp, B1, the out projection and the residual. A yardstick for B3
+    (`unfused_ms`), not the same kernel."""
+    import math
+
+    from nemotron_tpu_torch.ops.attn_kernel import t1_attention_core
+    from nemotron_tpu_torch.ops.basic import layer_norm
+
+    x, H, Dh = a["x"], a["n_heads"], a["d_head"]
+    B = x.shape[0]
+
+    def run():
+        y = layer_norm(x, a["ln_w"], a["ln_b"])
+        q, kn, vn = (torch.matmul(y, a[w].T).view(B, H, Dh)
+                     for w in ("q_w", "k_w", "v_w"))
+        pos = torch.einsum("bhd,hds->bhs", (q + a["bias_v"]).float(), a["pp"])
+        pm = pos * (1.0 / math.sqrt(Dh)) + a["mask"].float()[:, None, :]
+        ctx = t1_attention_core(q + a["bias_u"], kn, vn, pm, a["k_buf"],
+                                a["v_buf"])
+        return x + torch.matmul(ctx.reshape(B, H * Dh), a["out_w"].T), kn, vn
+    return run
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12}  # f32 CUDA cores; bf16 tensor cores
 
@@ -208,9 +238,12 @@ def phase_kernels(torch, report):
     the weight dequantized beforehand (dense_ms, not the same function)."""
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.ops import quant
-    from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
+    from nemotron_tpu_torch.ops.attn_block import (attn_group,
+                                                   block_gemm_plans,
+                                                   t1_attention_block,
                                                    t1_attention_block_ref)
-    from nemotron_tpu_torch.ops.attn_kernel import (t1_attention_core,
+    from nemotron_tpu_torch.ops.attn_kernel import (attn_plan, sm_count,
+                                                    t1_attention_core,
                                                     t1_attention_core_ref)
     from nemotron_tpu_torch.ops.mel import padded_window
     from nemotron_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_ref
@@ -242,37 +275,43 @@ def phase_kernels(torch, report):
         report[kname].setdefault("cases", {})[case] = res
         return res
 
-    for int8 in (False, True):
-        for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            args = _attn_case(torch, rng, dev, dtype, int8)
-            dname = "f32" if dtype == torch.float32 else "bf16"
-            q, kn, vn, pm, kb, vb = args
-            B, H, Dh = q.shape
-            S = pm.shape[-1] - 1
-            library = None
-            if not int8:  # SDPA over [K_buf; k_new], pos_mask additive
-                kc = torch.cat([kb, kn[:, :, None]], dim=2)
-                vc = torch.cat([vb, vn[:, :, None]], dim=2)
-                mc = pm[:, :, None, :].to(dtype)
+    sms = sm_count(dev)
+    for B, int8, (dtype, atol) in itertools.product(
+            (32, 256), (False, True),
+            ((torch.float32, 2e-5), (torch.bfloat16, 2e-2))):
+        args = _attn_case(torch, rng, dev, dtype, int8, B)
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        q, kn, vn, pm, kb, vb = args
+        H, Dh = q.shape[1:]
+        S = pm.shape[-1] - 1
+        plan = attn_plan(B * H, S, Dh, 1 if int8 else dtype.itemsize,
+                         dtype.itemsize, sms)
+        log(f"[3 kernels] t1_attention {dname} "
+            f"{'int8' if int8 else 'dense'} B={B}: plan {plan}")
+        library = None
+        if not int8:  # SDPA over [K_buf; k_new], pos_mask additive
+            kc = torch.cat([kb, kn[:, :, None]], dim=2)
+            vc = torch.cat([vb, vn[:, :, None]], dim=2)
+            mc = pm[:, :, None, :].to(dtype)
 
-                def library(q=q, kc=kc, vc=vc, mc=mc):
-                    return F.scaled_dot_product_attention(
-                        q[:, :, None], kc, vc, attn_mask=mc)[:, :, 0]
-                lib_err = float((library().float()
-                                 - t1_attention_core_ref(*args).float()
-                                 ).abs().max())
-                log(f"[3 kernels] t1_attention {dname} dense: SDPA max|diff| "
-                    f"to the plain version {lib_err:.3e}")
-            res = check(
-                "t1_attention", f"{'int8' if int8 else 'dense'} caches, "
-                f"{dname} B=32 H=8 S_buf=78 Dh=128",
-                t1_attention_core(*args), t1_attention_core_ref(*args), atol,
-                lambda: t1_attention_core(*args),
-                lambda: t1_attention_core_ref(*args),
-                tensor_bytes(*args) + tensor_bytes(q),
-                4.0 * B * H * (S + 1) * Dh, dname, library)
-            if not int8 and dtype == torch.bfloat16:  # with SDPA beside it
-                report["t1_attention"].update(res)
+            def library(q=q, kc=kc, vc=vc, mc=mc):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kc, vc, attn_mask=mc)[:, :, 0]
+            lib_err = float((library().float()
+                             - t1_attention_core_ref(*args).float()
+                             ).abs().max())
+            log(f"[3 kernels] t1_attention {dname} dense B={B}: SDPA "
+                f"max|diff| to the plain version {lib_err:.3e}")
+        res = check(
+            "t1_attention", f"{'int8' if int8 else 'dense'} caches, "
+            f"{dname} B={B} H=8 S_buf=78 Dh=128",
+            t1_attention_core(*args), t1_attention_core_ref(*args), atol,
+            lambda: t1_attention_core(*args),
+            lambda: t1_attention_core_ref(*args),
+            tensor_bytes(*args) + tensor_bytes(q),
+            4.0 * B * H * (S + 1) * Dh, dname, library)
+        if (B, int8, dname) == (256, False, "bf16"):  # SDPA beside it
+            report["t1_attention"].update(res)
 
     def flat(outs):  # (out, k_new, v_new) as one vector
         return torch.cat([o.float().flatten() for o in outs])
@@ -286,6 +325,20 @@ def phase_kernels(torch, report):
                 H, Dh = a["n_heads"], a["d_head"]
                 D, S = H * Dh, a["mask"].shape[-1] - 1
                 ins = [v for v in a.values() if not isinstance(v, int)]
+                elem = 1 if int8 else dtype.itemsize
+                plans = block_gemm_plans(b, D, sms)
+                splits = plans[0].splits if dname == "bf16" else 1
+                log(f"[3 kernels] t1_attention_block {dname} "
+                    f"{'int8' if int8 else 'dense'} B={b}: projections "
+                    + (f"{plans}" if dname == "bf16"
+                       else "FFMA (wq_matmul.cuh)")
+                    + f", attention "
+                    f"{attn_group(b, H, S, Dh, elem, splits, sms)}")
+                unfused = _unfused_block(torch, a)
+                u_err = float((flat(unfused()) - flat(want)).abs().max())
+                log(f"[3 kernels] t1_attention_block {dname} B={b}: the "
+                    f"unfused sub-block's max|diff| to the plain version "
+                    f"{u_err:.3e}")
                 res = check(
                     "t1_attention_block",
                     f"{'int8' if int8 else 'dense'} caches, {dname} B={b} "
@@ -295,7 +348,8 @@ def phase_kernels(torch, report):
                     lambda: t1_attention_block(**a),
                     lambda: t1_attention_block_ref(**a),
                     tensor_bytes(*ins, *want),
-                    2.0 * b * D * 4 * D + 6.0 * b * H * (S + 1) * Dh, dname)
+                    2.0 * b * D * 4 * D + 6.0 * b * H * (S + 1) * Dh, dname,
+                    unfused_ms=unfused)
                 if (b, int8, dname) == (256, True, "bf16"):  # serving form
                     report["t1_attention_block"].update(res)
 
@@ -759,6 +813,7 @@ def phase_tick_times(torch, models, card: str):
                 f"{kv_bytes / per_launch / 1e6:.0f} GB/s of K/V "
                 f"({kv_bytes / 1e6:.1f} MB per layer) ({card})")
         block = [r for r in rows if "DenseW" in r[0]
+                 or "gemm_dense_sm90" in r[0]
                  or "block_attention_kernel" in r[0]]
         if block:  # B3: its two GEMMs and its attention launch
             log(f"[5 profile] {name} B={b}: attention block (B3) "

@@ -24,25 +24,35 @@
 // What bounds it on the H100: the projections read the four [D, D]
 // weights (16 MB in f32, 8 MB in bf16 at D = 1024) and do 8*B*D^2 flops;
 // the attention reads the caches once (as B1). At B = 256 the f32 GEMMs are
-// FFMA-bound (no TF32, by contract), bf16 sits near the tensor cores' ridge.
+// FFMA-bound (no TF32, by contract); in bf16 the bytes bind.
 //
-// Design, a first version that is simple and right: one entry call, three
-// launches on the caller's stream, intermediates in two scratch buffers the
-// wrapper allocates:
-//   (a) QKV: the GEMM body of wq_matmul.cuh over N = 3D (the three weights
-//       stacked along N by the loader, no copy), its A loader computing the
-//       block's LN row statistics first and normalising on load; FFMA for
-//       f32, mma.sync with f32 sums for bf16; q, k, v to scratch in f32;
-//   (b) one block per (stream, head): q + bias_u, q + bias_v, the position
-//       contraction over Dh for every slot (thread s reads pp[h, :, s], so
-//       a warp's loads are coalesced), k_new / v_new out, then the T=1
-//       attention body shared with B1 (t1_attention.cuh); ctx to scratch in
-//       x's type;
-//   (c) out: the same GEMM body over ctx, the residual added in the
-//       epilogue.
+// Design: one entry call, three launches on the caller's stream,
+// intermediates in two scratch buffers the wrapper allocates:
+//   (a) QKV. bf16: gemm_dense_sm90<kLn> (wq_gemm_sm90.cuh): the weights
+//       through a TMA ring straight into wgmma, the block's LN(x) rows
+//       normalised once into a resident operand; with split-K (the plan's,
+//       ops/attn_block.py:block_gemm_plans) each split writes its f32 sums
+//       to its own slice of the qkv scratch [splits, B, 3D]. f32: the FFMA
+//       body of wq_matmul.cuh (LN on load), one split.
+//   (b) attention: a block takes one head and a group of streams
+//       (per_block, from the plan). It copies pp[h] (40 KB f32) into shared
+//       memory once with a bulk copy, so pp is read once per head group,
+//       not once per (stream, head). 2-4 groups of 128 threads (the plan's)
+//       share it and take alternate streams, each walking its own ring of 1 or 2
+//       stages: a stage holds the stream's K and V rows, its q, k, v sums
+//       of every split and (int8) its scales, all by bulk copies or
+//       cp.async issued a stream ahead. Per stream: q, k, v as the splits'
+//       sum in split order, q + bias_u, q + bias_v, k_new / v_new out, the
+//       position contraction over Dh from shared memory (a warp per
+//       quarter of Dh, the four partial rows summed in order), then B1's
+//       body (t1_attention.cuh); ctx to scratch in x's type. Several
+//       groups, not one, so that one's math overlaps the others' waits.
+//   (c) out. bf16: gemm_dense_sm90<!kLn> over ctx, the residual added in
+//       the epilogue, one split; f32: the FFMA body.
 // No library GEMM runs inside: all four projections are computed here.
 
 #include "t1_attention.cuh"
+#include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
 
 namespace {
@@ -50,137 +60,343 @@ namespace {
 using t1::kThreads;
 using t1::kWarps;
 
-template <typename T, bool I8>
-__global__ void __launch_bounds__(kThreads)
-block_attention_kernel(const float* __restrict__ qkv,
+__host__ __device__ inline int r16(int x) { return (x + 15) / 16 * 16; }
+
+constexpr int kMaxGroups = 4;  // thread groups of kThreads per block, at most
+// measurement only (tools/gemm_turns.py --probe): groups per attention
+// block in place of the plan's (with 2 stages where they fit, else 1, else
+// the plan's groups); 0 in every build of the kernels
+#ifndef T1_BLOCK_GROUPS
+#define T1_BLOCK_GROUPS 0
+#endif
+
+// shared memory of one attention block, in bytes from the base: pp[h],
+// bias_u and bias_v, pp's barrier; then per group `stages` stages of [K
+// tile, V tile, the stream's q, k, v sums of every split, int8: ks, vs],
+// q_s, qv_s, kn_s, vn_s, pm_s, w_s, the position and context partials,
+// the group's softmax partials, the stages' barriers (ops/attn_block.py:
+// attn_smem computes the same)
+struct Layout {
+  int tile, qkv, ks, vs, stage, vecs, pm, w, pos, part, red, bars, group,
+      shared, total;
+  __host__ __device__ Layout(int s_buf, int d_head, int elem, int stages,
+                             int splits, int groups) {
+    const int s1 = r16((s_buf + 1) * 4);
+    tile = t1::tile_bytes(s_buf, d_head, elem);
+    qkv = 2 * tile;
+    ks = qkv + 3 * splits * r16(d_head * 4);
+    vs = ks + (elem == 1 ? r16(s_buf * 4) : 0);
+    stage = vs + (elem == 1 ? r16(s_buf * 4) : 0);
+    vecs = stages * stage;  // offsets below are within a group's region
+    pm = vecs + 4 * r16(d_head * 4);
+    w = pm + s1;
+    pos = w + s1;
+    part = pos + kWarps * s1;
+    red = part + 8192 / elem;
+    bars = red + r16(kWarps * 4);
+    group = bars + 16 * stages;
+    shared = (d_head * (s_buf + 1) * 4 + 127) / 128 * 128 +
+             2 * r16(d_head * 4) + 16;
+    total = shared + groups * group;
+  }
+};
+
+template <typename T, typename TC, int kDh>
+__global__ void __launch_bounds__(kMaxGroups * kThreads)
+block_attention_kernel(const float* __restrict__ qkv, int splits,
                        const T* __restrict__ bias_u,
-                       const T* __restrict__ bias_v,
-                       const float* __restrict__ pp,
-                       const T* __restrict__ mask, const void* kc,
-                       const float* __restrict__ k_s, const void* vc,
-                       const float* __restrict__ v_s, T* __restrict__ ctx,
-                       T* __restrict__ k_new, T* __restrict__ v_new, int H,
-                       int s_buf, int d_head, float scale) {
-  extern __shared__ float smem[];
-  float* q_s = smem;               // [d_head] q + bias_u
-  float* qv_s = q_s + d_head;      // [d_head] q + bias_v
-  float* pm_s = qv_s + d_head;     // [s_buf + 1] pos * scale + mask
-  float* w_s = pm_s + s_buf + 1;   // [s_buf + 1] scores, then weights
-  float* part = w_s + s_buf + 1;   // int8: [kWarps][d_head]
-  __shared__ float red[kWarps];
+                       const T* __restrict__ bias_v, const float* pp,
+                       const T* __restrict__ mask, const TC* kc,
+                       const float* __restrict__ ks, const TC* vc,
+                       const float* __restrict__ vs, T* __restrict__ ctx,
+                       T* __restrict__ k_new, T* __restrict__ v_new, int B,
+                       int H, int s_buf, float scale, int per_block,
+                       int stages) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr bool kI8 = sizeof(TC) == 1;
+  const int groups = blockDim.x / kThreads;
+  const Layout lay(s_buf, kDh, (int)sizeof(TC), stages, splits, groups);
+  const int pp_b = (kDh * (s_buf + 1) * 4 + 127) / 128 * 128;
+  const float* pp_s = reinterpret_cast<const float*>(smem);  // [Dh][S_buf+1]
+  float* bu_s = reinterpret_cast<float*>(smem + pp_b);
+  float* bv_s = bu_s + kDh;
+  uint64_t* pp_bar = reinterpret_cast<uint64_t*>(bv_s + kDh);
 
-  const long bh = blockIdx.x;  // stream * H + head
-  const long b = bh / H;
-  const int h = (int)(bh % H);
-  const int D = H * d_head;
-  const float* q = qkv + b * 3 * D + h * d_head;
-  const float* kn = q + D;
-  const float* vn = q + 2 * D;
+  const int g = threadIdx.x / kThreads, tid = threadIdx.x % kThreads;
+  const int lane = tid & 31, warp = tid >> 5, bar = 1 + g;
+  uint8_t* gs = smem + lay.shared + g * lay.group;  // this group's region
+  float* q_s = reinterpret_cast<float*>(gs + lay.vecs);  // q + bias_u
+  float* qv_s = q_s + kDh;                                // q + bias_v
+  float* kn_s = qv_s + kDh;
+  float* vn_s = kn_s + kDh;
+  float* pm_s = reinterpret_cast<float*>(gs + lay.pm);  // pos*scale + mask
+  float* pos = reinterpret_cast<float*>(gs + lay.pos);  // [kWarps][S1p]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gs + lay.bars);
 
-  for (int d = threadIdx.x; d < d_head; d += kThreads) {
-    const float qd = q[d];
-    q_s[d] = qd + t1::to_f32(bias_u[h * d_head + d]);
-    qv_s[d] = qd + t1::to_f32(bias_v[h * d_head + d]);
-    k_new[bh * d_head + d] = t1::from_f32<T>(kn[d]);
-    v_new[bh * d_head + d] = t1::from_f32<T>(vn[d]);
+  const int h = blockIdx.y, b0 = blockIdx.x * per_block;
+  // group g takes the block's streams g, g + groups, ...
+  const int count = (min(per_block, B - b0) - g + groups - 1) / groups;
+  const int D = H * kDh, S1 = s_buf + 1, S1p = r16(S1 * 4) / 4;
+  const long row_b = (long)kDh * sizeof(TC);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < groups; ++i) {
+      uint64_t* gb = reinterpret_cast<uint64_t*>(smem + lay.shared +
+                                                 i * lay.group + lay.bars);
+      for (int st = 0; st < stages; ++st) {
+        hopper::bar_init(&gb[2 * st], 1 + 32);  // bulk copies + cp.async
+        hopper::bar_init(&gb[2 * st + 1], 1);
+      }
+    }
+    hopper::bar_init(pp_bar, 1);
+    hopper::bar_init_fence();
+  }
+  if (threadIdx.x < kDh) {
+    bu_s[threadIdx.x] = t1::to_f32(bias_u[h * kDh + threadIdx.x]);
+    bv_s[threadIdx.x] = t1::to_f32(bias_v[h * kDh + threadIdx.x]);
   }
   __syncthreads();
 
-  const float* pph = pp + (long)h * d_head * (s_buf + 1);
-  const T* mb = mask + b * (s_buf + 1);
-  for (int s = threadIdx.x; s <= s_buf; s += kThreads) {
-    float acc = 0.f;
-    for (int d = 0; d < d_head; ++d)
-      acc = fmaf(qv_s[d], pph[(long)d * (s_buf + 1) + s], acc);
-    pm_s[s] = acc * scale + t1::to_f32(mb[s]);
+  // the group's warp 0: its stream p into stage p % stages. K's barrier: the
+  // K rows and the splits' q, k, v slices of the head by bulk copies, int8
+  // scales by 4-byte cp.async (their rows are not 16-byte aligned); V's
+  // barrier: the V rows
+  auto issue = [&](int p) {
+    const long b = b0 + g + groups * p, bh = b * H + h;
+    uint8_t* sb = gs + (p % stages) * lay.stage;
+    uint64_t* bk = &bars[2 * (p % stages)];
+    const uint32_t bytes = (uint32_t)(s_buf * row_b);
+    const long off = bh * s_buf * row_b;
+    if (lane == 0) {
+      hopper::bar_expect(bk, bytes + 3 * splits * kDh * 4);
+      hopper::bar_expect(bk + 1, bytes);
+      hopper::bulk_copy(sb, reinterpret_cast<const uint8_t*>(kc) + off, bytes,
+                        bk);
+      hopper::bulk_copy(sb + lay.tile, reinterpret_cast<const uint8_t*>(vc) + off,
+                        bytes, bk + 1);
+    }
+    __syncwarp();
+    for (int l = lane; l < 3 * splits; l += 32)  // split l / 3, q / k / v
+      hopper::bulk_copy(
+          sb + lay.qkv + l * kDh * 4,
+          qkv + ((long)(l / 3) * B + b) * 3 * D + (l % 3) * D + h * kDh,
+          kDh * 4, bk);
+    if (kI8)
+      for (int i = lane; i < s_buf; i += 32) {
+        hopper::cp_async4(reinterpret_cast<float*>(sb + lay.ks) + i,
+                          ks + bh * s_buf + i, true);
+        hopper::cp_async4(reinterpret_cast<float*>(sb + lay.vs) + i,
+                          vs + bh * s_buf + i, true);
+      }
+    hopper::cp_async_arrive(bk);
+  };
+  if (tid < 32) {
+    if (threadIdx.x == 0) {
+      const uint32_t pp_bytes = (uint32_t)(kDh * S1 * 4);
+      hopper::bar_expect(pp_bar, pp_bytes);
+      hopper::bulk_copy(smem, pp + (long)h * kDh * S1, pp_bytes, pp_bar);
+    }
+    for (int p = 0; p < min(count, stages); ++p) issue(p);
   }
-  __syncthreads();
 
-  if constexpr (I8) {
-    t1::attend_i8(q_s, kn, vn, pm_s,
-                  static_cast<const int8_t*>(kc) + bh * s_buf * d_head,
-                  k_s + bh * s_buf,
-                  static_cast<const int8_t*>(vc) + bh * s_buf * d_head,
-                  v_s + bh * s_buf, ctx + bh * d_head, s_buf, d_head, scale,
-                  w_s, red, part);
-  } else {
-    t1::attend_dense(q_s, kn, vn, pm_s,
-                     static_cast<const T*>(kc) + bh * s_buf * d_head,
-                     static_cast<const T*>(vc) + bh * s_buf * d_head,
-                     ctx + bh * d_head, s_buf, d_head, scale, w_s, red);
+  constexpr int kDq = kDh / kWarps;  // Dh per warp in the position term
+  for (int p = 0; p < count; ++p) {
+    const long b = b0 + g + groups * p, bh = b * H + h;
+    const uint8_t* sb = gs + (p % stages) * lay.stage;
+    uint64_t* bk = &bars[2 * (p % stages)];
+    const uint32_t parity = (uint32_t)((p / stages) & 1);
+    const float* qkv_s = reinterpret_cast<const float*>(sb + lay.qkv);
+    // this thread's mask terms, loaded while the stage lands
+    float mk[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      mk[i] = tid + i * kThreads < S1
+                  ? t1::to_f32(mask[b * S1 + tid + i * kThreads]) : 0.f;
+    hopper::bar_wait(bk, parity);
+    if (tid < kDh) {
+      // q, k, v: the splits' f32 sums, added in split order
+      float qd = qkv_s[tid], kd = qkv_s[kDh + tid], vd = qkv_s[2 * kDh + tid];
+      for (int z = 1; z < splits; ++z) {
+        qd += qkv_s[3 * z * kDh + tid];
+        kd += qkv_s[(3 * z + 1) * kDh + tid];
+        vd += qkv_s[(3 * z + 2) * kDh + tid];
+      }
+      q_s[tid] = qd + bu_s[tid];
+      qv_s[tid] = qd + bv_s[tid];
+      kn_s[tid] = kd;
+      vn_s[tid] = vd;
+      k_new[bh * kDh + tid] = t1::from_f32<T>(kd);
+      v_new[bh * kDh + tid] = t1::from_f32<T>(vd);
+    }
+    t1::group_sync(bar);
+    if (p == 0) hopper::bar_wait(pp_bar, 0);
+
+    // position term: warp w sums d in [w * kDq, (w + 1) * kDq) for 3 slots
+    // per lane at a time (coalesced rows of pp_s)
+    for (int s0 = lane; s0 < S1; s0 += 96) {
+      float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int d = warp * kDq; d < (warp + 1) * kDq; ++d) {
+        const float qd = qv_s[d];
+        const float* row = pp_s + d * S1;
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+          if (s0 + 32 * u < S1) acc[u] = fmaf(qd, row[s0 + 32 * u], acc[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+        if (s0 + 32 * u < S1) pos[warp * S1p + s0 + 32 * u] = acc[u];
+    }
+    t1::group_sync(bar);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int s = tid + i * kThreads;
+      if (s < S1) {
+        float v = pos[s];
+        for (int w = 1; w < kWarps; ++w) v += pos[w * S1p + s];
+        pm_s[s] = v * scale + mk[i];
+      }
+    }
+    t1::group_sync(bar);
+
+    const t1::Partial r = t1::attend<TC, kDh>(
+        tid, bar, q_s, kn_s, vn_s, pm_s, sb, sb + lay.tile,
+        kI8 ? reinterpret_cast<const float*>(sb + lay.ks) : nullptr,
+        kI8 ? reinterpret_cast<const float*>(sb + lay.vs) : nullptr, s_buf,
+        true, scale, bk, bk + 1, parity,
+        reinterpret_cast<float*>(gs + lay.w),
+        reinterpret_cast<float*>(gs + lay.red),
+        reinterpret_cast<float*>(gs + lay.part));
+    if (tid < kDh) ctx[bh * kDh + tid] = t1::from_f32<T>(r.o * (1.f / r.l));
+    t1::group_sync(bar);  // the stage and the group's arrays are free again
+    if (tid < 32 && p + stages < count) {
+      hopper::fence_proxy_async();
+      issue(p + stages);
+    }
   }
 }
 
-template <typename T>
-int gemm(const T* a_x, const T* ln_w, const T* ln_b, float eps,
-         const wq::DenseW<T>& w, int M, int N, int K, float* y_f32,
-         T* y_res, const T* res, void* stream) {
-  // (a) with ln_w: LN on load, f32 out; (c) without: residual epilogue
-  if constexpr (sizeof(T) == 4) {
-    if (ln_w != nullptr)
-      return wq::run_f32(wq::LnA<T>{a_x, ln_w, ln_b, eps, K}, w,
-                         wq::StoreY<float>{y_f32, N}, M, N, K, stream);
-    return wq::run_f32(wq::PlainA<T>{a_x, K}, w,
-                       wq::AddResidual<T>{y_res, res, N}, M, N, K, stream);
-  } else {
-    if (ln_w != nullptr)
-      return wq::run_bf16(wq::LnA<T>{a_x, ln_w, ln_b, eps, K}, w,
-                          wq::StoreY<float>{y_f32, N}, M, N, K, stream);
-    return wq::run_bf16(wq::PlainA<T>{a_x, K}, w,
-                        wq::AddResidual<T>{y_res, res, N}, M, N, K, stream);
+template <typename T, typename TC>
+int attention(const float* qkv, int splits, const void* bias_u,
+              const void* bias_v, const void* pp, const void* mask,
+              const void* kc, const void* ks, const void* vc, const void* vs,
+              void* ctx, void* k_new, void* v_new, int B, int H, int s_buf,
+              int d_head, float scale, int per_block, int groups,
+              int stages, cudaStream_t stream) {
+  if (T1_BLOCK_GROUPS > 0) {  // where it fits, else the plan's
+    int limit = 0, dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    for (int st = 2; st >= 1; --st)
+      if (Layout(s_buf, d_head, (int)sizeof(TC), st, splits, T1_BLOCK_GROUPS)
+              .total <= limit) {
+        groups = T1_BLOCK_GROUPS;
+        stages = st;
+        break;
+      }
   }
+  if (per_block < 1 || stages < 1 || stages > 2 || groups < 1 ||
+      groups > kMaxGroups || s_buf + 1 > 2 * kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout lay(s_buf, d_head, (int)sizeof(TC), stages, splits, groups);
+  return t1::with_d_head(d_head, [&](auto dh) {
+    auto kernel = block_attention_kernel<T, TC, decltype(dh)::value>;
+    static int allowed = 48 * 1024;  // the largest smem this kernel was given
+    if (lay.total > allowed) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      allowed = lay.total;
+    }
+    const dim3 grid((B + per_block - 1) / per_block, H);
+    kernel<<<grid, groups * kThreads, lay.total, stream>>>(
+        qkv, splits, static_cast<const T*>(bias_u),
+        static_cast<const T*>(bias_v), static_cast<const float*>(pp),
+        static_cast<const T*>(mask), static_cast<const TC*>(kc),
+        static_cast<const float*>(ks), static_cast<const TC*>(vc),
+        static_cast<const float*>(vs), static_cast<T*>(ctx),
+        static_cast<T*>(k_new), static_cast<T*>(v_new), B, H, s_buf, scale,
+        per_block, stages);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
-template <typename T, bool I8>
-int launch(const void* x_, const void* ln_w_, const void* ln_b_,
+// the plan of ops/attn_block.py:block_gemm_plans / attn_group
+struct Plan {
+  int qkv_nt, qkv_splits, qkv_steps_per, out_nt, attn_per_block, attn_groups,
+      attn_stages;
+};
+
+template <typename T, typename TC>
+int launch(const void* x_, const void* ln_w, const void* ln_b,
            const void* q_w, const void* k_w, const void* v_w,
            const void* out_w, const void* bias_u, const void* bias_v,
            const void* pp, const void* mask, const void* kc, const void* k_s,
            const void* vc, const void* v_s, void* out, void* k_new,
            void* v_new, void* qkv, void* ctx, int B, int H, int s_buf,
-           int d_head, float eps, float scale, void* stream) {
+           int d_head, float eps, float scale, const Plan& plan,
+           void* stream) {
   if (B <= 0) return 0;
   const int D = H * d_head;
-  const T* x = static_cast<const T*>(x_);
-  const wq::DenseW<T> w_qkv{{static_cast<const T*>(q_w),
-                             static_cast<const T*>(k_w),
-                             static_cast<const T*>(v_w)}, D, D};
-  int err = gemm<T>(x, static_cast<const T*>(ln_w_),
-                    static_cast<const T*>(ln_b_), eps, w_qkv, B, 3 * D, D,
-                    static_cast<float*>(qkv), nullptr, nullptr, stream);
+  auto* st = static_cast<cudaStream_t>(stream);
+  int err;
+  if constexpr (sizeof(T) == 4) {  // f32: the FFMA body, one split
+    if (plan.qkv_splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    const float* x = static_cast<const float*>(x_);
+    const wq::DenseW<float> w_qkv{{static_cast<const float*>(q_w),
+                                   static_cast<const float*>(k_w),
+                                   static_cast<const float*>(v_w)}, D, D};
+    err = wq::run_f32(wq::LnA<float>{x, static_cast<const float*>(ln_w),
+                                     static_cast<const float*>(ln_b), eps, D},
+                      w_qkv, wq::StoreY<float>{static_cast<float*>(qkv), 3 * D},
+                      B, 3 * D, D, stream);
+  } else {
+    const void* w[3] = {q_w, k_w, v_w};
+    err = wq::launch_dense<true>(x_, ln_w, ln_b, eps, w, 3, qkv, nullptr,
+                                 nullptr, B, D, D, plan.qkv_nt,
+                                 plan.qkv_splits, plan.qkv_steps_per, stream);
+  }
   if (err) return err;
 
-  const size_t smem = sizeof(float) *
-      (size_t)(2 * d_head + 2 * (s_buf + 1) + (I8 ? kWarps * d_head : 0));
-  block_attention_kernel<T, I8><<<B * H, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qkv), static_cast<const T*>(bias_u),
-      static_cast<const T*>(bias_v), static_cast<const float*>(pp),
-      static_cast<const T*>(mask), kc, static_cast<const float*>(k_s), vc,
-      static_cast<const float*>(v_s), static_cast<T*>(ctx),
-      static_cast<T*>(k_new), static_cast<T*>(v_new), H, s_buf, d_head,
-      scale);
-  err = static_cast<int>(cudaGetLastError());
+  err = attention<T, TC>(static_cast<const float*>(qkv), plan.qkv_splits,
+                         bias_u, bias_v, pp, mask, kc, k_s, vc, v_s, ctx,
+                         k_new, v_new, B, H, s_buf, d_head, scale,
+                         plan.attn_per_block, plan.attn_groups,
+                         plan.attn_stages, st);
   if (err) return err;
 
-  const T* wo = static_cast<const T*>(out_w);
-  const wq::DenseW<T> w_out{{wo, wo, wo}, D, D};
-  return gemm<T>(static_cast<const T*>(ctx), nullptr, nullptr, 0.f, w_out,
-                 B, D, D, nullptr, static_cast<T*>(out), x, stream);
+  if constexpr (sizeof(T) == 4) {
+    const float* wo = static_cast<const float*>(out_w);
+    return wq::run_f32(wq::PlainA<float>{static_cast<const float*>(ctx), D},
+                       wq::DenseW<float>{{wo, wo, wo}, D, D},
+                       wq::AddResidual<float>{static_cast<float*>(out),
+                                              static_cast<const float*>(x_), D},
+                       B, D, D, stream);
+  } else {
+    const void* wo[1] = {out_w};
+    return wq::launch_dense<false>(ctx, nullptr, nullptr, 0.f, wo, 1, nullptr,
+                                   out, x_, B, D, D, plan.out_nt, 1,
+                                   (D + wq::sm90::kStep - 1) / wq::sm90::kStep,
+                                   stream);
+  }
 }
 
 }  // namespace
 
 // x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
-// v_buf, out, k_new, v_new, qkv scratch [B, 3D] f32, ctx scratch [B, D],
-// B, H, S_buf, Dh, eps, scale, stream
+// v_buf, out, k_new, v_new, qkv scratch [splits, B, 3D] f32, ctx scratch
+// [B, D], B, H, S_buf, Dh, eps, scale, the plan (QKV batch tile, splits,
+// steps per split; out batch tile; streams per attention block, its
+// thread groups and their rings' stages), stream
 #define DENSE_ARGS                                                           \
   const void *x, const void *ln_w, const void *ln_b, const void *q_w,        \
       const void *k_w, const void *v_w, const void *out_w,                   \
       const void *bias_u, const void *bias_v, const void *pp,                \
       const void *mask, const void *k_buf, const void *v_buf, void *out,     \
       void *k_new, void *v_new, void *qkv, void *ctx, int B, int H,          \
-      int s_buf, int d_head, float eps, float scale, void *stream
+      int s_buf, int d_head, float eps, float scale, int qkv_nt,             \
+      int qkv_splits, int qkv_steps_per, int out_nt, int attn_per_block,     \
+      int attn_groups, int attn_stages, void *stream
 // the same with the int8 caches as codes and scales: k_q, k_s, v_q, v_s
 #define I8_ARGS                                                              \
   const void *x, const void *ln_w, const void *ln_b, const void *q_w,        \
@@ -189,32 +405,37 @@ int launch(const void* x_, const void* ln_w_, const void* ln_b_,
       const void *mask, const void *k_q, const void *k_s, const void *v_q,   \
       const void *v_s, void *out, void *k_new, void *v_new, void *qkv,       \
       void *ctx, int B, int H, int s_buf, int d_head, float eps,             \
-      float scale, void *stream
+      float scale, int qkv_nt, int qkv_splits, int qkv_steps_per,            \
+      int out_nt, int attn_per_block, int attn_groups, int attn_stages,      \
+      void *stream
+#define PLAN                                                         \
+  Plan{qkv_nt, qkv_splits, qkv_steps_per, out_nt, attn_per_block,    \
+       attn_groups, attn_stages}
 
 extern "C" int t1_attention_block_f32(DENSE_ARGS) {
-  return launch<float, false>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
+  return launch<float, float>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
                               bias_v, pp, mask, k_buf, nullptr, v_buf,
                               nullptr, out, k_new, v_new, qkv, ctx, B, H,
-                              s_buf, d_head, eps, scale, stream);
+                              s_buf, d_head, eps, scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_bf16(DENSE_ARGS) {
-  return launch<__nv_bfloat16, false>(
+  return launch<__nv_bfloat16, __nv_bfloat16>(
       x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
       nullptr, v_buf, nullptr, out, k_new, v_new, qkv, ctx, B, H, s_buf,
-      d_head, eps, scale, stream);
+      d_head, eps, scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_i8_f32(I8_ARGS) {
-  return launch<float, true>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
-                             bias_v, pp, mask, k_q, k_s, v_q, v_s, out, k_new,
-                             v_new, qkv, ctx, B, H, s_buf, d_head, eps, scale,
-                             stream);
+  return launch<float, int8_t>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
+                               bias_v, pp, mask, k_q, k_s, v_q, v_s, out,
+                               k_new, v_new, qkv, ctx, B, H, s_buf, d_head,
+                               eps, scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_i8_bf16(I8_ARGS) {
-  return launch<__nv_bfloat16, true>(
+  return launch<__nv_bfloat16, int8_t>(
       x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_q,
       k_s, v_q, v_s, out, k_new, v_new, qkv, ctx, B, H, s_buf, d_head, eps,
-      scale, stream);
+      scale, PLAN, stream);
 }

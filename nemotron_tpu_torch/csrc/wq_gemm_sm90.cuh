@@ -1,5 +1,6 @@
-// The Hopper body of kernels B4 (q8_matmul.cu, Q8_0) and B5 (q4_matmul.cu,
-// Q4_0) with bf16 activations, sm_90a:
+// The Hopper GEMM body of kernels B4 (q8_matmul.cu, Q8_0) and B5
+// (q4_matmul.cu, Q4_0) with bf16 activations, sm_90a, and (gemm_dense_sm90
+// at the end) of B3's bf16 projections (t1_attention_block.cu):
 //
 //     y[m, n] = bf16( sum_k x[m, k] * bf16(code(n, k) * scale[n, k / 32]) )
 //
@@ -70,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_async.cuh"
 
 namespace wq {
 namespace sm90 {
@@ -298,83 +301,9 @@ struct Mma<128> {
   }
 };
 
-// ---- shared memory, mbarriers, TMA ------------------------------------------
+// ---- shared memory, mbarriers, TMA: hopper_async.cuh ------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-// waits for the completion of the barrier's phase of this parity; a wait
-// past ~10 s of clock (a pipeline that can never complete) traps, so a
-// fault in the ring ends the launch with an error instead of hanging it
-__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred P;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b))
-               : "memory");
-}
-
-// a 4-byte copy global -> shared that reads nothing and stores 0 when
-// !valid, and the arrival on `b` once this thread's copies have landed
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_arrive(uint64_t* b) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-// one 2-D box of a tensor map into shared memory; c0 is the column
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
+using namespace hopper;
 
 // descriptor of a K-major tile of 128-byte rows, 128-byte swizzle: 8-row
 // groups 1024 bytes apart (SBO); the k16 slices advance the start address
@@ -446,7 +375,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       bar_init(&full[s], 1 + 32);  // the TMA issuer + the warp's scales
       bar_init(&empty[s], 256);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -566,7 +495,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       }
     }
     // the A tile, written through the generic proxy, is read by wgmma
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     named_sync(1 + wg, 128);
     if constexpr (!(kProbe & 2)) {
       fence_acc<NT / 2>(acc);
@@ -771,6 +700,363 @@ int launch_sm90(const void* x, const void* w, const void* scales, void* y,
     WQ_CASE(128)
   }
 #undef WQ_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---- B3's bf16 projections: dense weights ------------------------------------
+// y^T = W . b^T with W one of up to three [rows, K] bf16 matrices (B3's q,
+// k and v weights: three tensor maps, so no tile straddles two of them; or
+// its out weight), read through TMA with the 128-byte swizzle straight into
+// wgmma's A slot: nothing is dequantized and the consumers write no A tile
+// (the serialized transform-then-wgmma step of B4/B5 above is gone). The
+// B operand, the streams:
+//   kLn  (the QKV GEMM): the block's NT rows of x, all K columns, come in
+//        through TMA once, as 64-column swizzled atoms, into a resident
+//        operand; the consumers take each row's mean and 1/sqrt(var + eps)
+//        from there (two passes, population variance) and normalise the
+//        split's atoms in place, rounded to bf16 (the reference's rounding
+//        point y = LN(x) in x's type): LN once per block, and only the
+//        weights stream through the ring. Out: the f32 sums into ws[split][m][part * rows + n] (the
+//        attention launch adds the splits in split order: no atomics, no
+//        extra launch, results repeat bit for bit);
+//   !kLn (the out GEMM): x tiles [NT, 64] through the ring beside the
+//        weight tiles; out: y = bf16(res + sum), summed in f32, rounded once.
+// grid (parts * tiles_per_part, ceil(M / NT), splits), 288 threads: lane 0
+// of the producer warp issues the TMA copies, two consumer warpgroups of 64
+// weight rows each run SS wgmma with f32 sums (fenced as in gemm_sm90).
+// Rows past the weight's or the batch's edge read as zero through TMA and
+// are masked in the stores.
+
+struct DenseArgs {
+  const __nv_bfloat16* x;     // [M, K]: LN's input (kLn) or the B operand
+  const __nv_bfloat16* ln_w;  // [K] (kLn)
+  const __nv_bfloat16* ln_b;  // [K] (kLn)
+  float eps;
+  float* ws;                  // kLn: [splits, M, parts * rows] f32
+  __nv_bfloat16* y;           // !kLn: [M, rows]
+  const __nv_bfloat16* res;   // !kLn: [M, rows]
+  int M, rows, K, tiles_per_part, steps, steps_per;
+};
+
+namespace sm90 {
+
+constexpr int kWTile = kRows * 128;  // bytes of a [128, 64] bf16 weight tile
+// measurement only (tools/gemm_turns.py --probe): 1 releases a stage one
+// step later, with that step's wgmma still in flight; 0 in every build
+#ifndef WQ_DENSE_LAG
+#define WQ_DENSE_LAG 0
+#endif
+constexpr int kDenseLag = WQ_DENSE_LAG;
+
+// the ring (or the epilogue's staging, the larger), rounded to 1 KB
+__host__ __device__ inline int dense_region(bool ln, int nt, int stages) {
+  const int ring = stages * (kWTile + (ln ? 0 : nt * 128));
+  const int staging = nt * kLd * 4;
+  return ((ring > staging ? ring : staging) + 1023) / 1024 * 1024;
+}
+
+// alignment slack + region + (kLn: resident operand of all `steps` atoms
+// + row statistics + its barrier) + the ring's barriers
+// (ops/attn_block.py:dense_smem computes the same)
+__host__ __device__ inline int dense_smem(bool ln, int nt, int steps,
+                                          int stages) {
+  return 1024 + dense_region(ln, nt, stages) +
+         (ln ? nt * 128 * steps + nt * 8 + 8 : 0) + 16 * stages;
+}
+
+inline int dense_stages(bool ln, int nt, int steps) {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  int stages = kMaxStages;
+  while (stages >= 2 && dense_smem(ln, nt, steps, stages) > limit) --stages;
+  return stages >= 2 ? stages : 0;
+}
+
+// 8 bf16 values from global memory as f32
+__device__ __forceinline__ void ld8_bf16(const __nv_bfloat16* p, float* v) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace sm90
+
+template <bool kLn, int NT>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    gemm_dense_sm90(const __grid_constant__ CUtensorMap tw0,
+                    const __grid_constant__ CUtensorMap tw1,
+                    const __grid_constant__ CUtensorMap tw2,
+                    const __grid_constant__ CUtensorMap tx, const DenseArgs a,
+                    int stages) {
+  using namespace sm90;
+  constexpr int kStage = kWTile + (kLn ? 0 : NT * 128);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // kLn: the resident operand, [steps][NT rows][128 bytes] swizzled
+  uint8_t* resident = base + dense_region(kLn, NT, stages);
+  float2* stats = reinterpret_cast<float2*>(
+      resident + (kLn ? NT * 128 * a.steps : 0));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(stats) + (kLn ? NT * 8 : 0));
+  uint64_t* empty = full + stages;
+  uint64_t* xbar = empty + stages;  // kLn: the resident x rows
+
+  const int part = blockIdx.x / a.tiles_per_part;
+  const int n0 = (blockIdx.x % a.tiles_per_part) * kRows;  // row in the part
+  const int m0 = blockIdx.y * NT, z = blockIdx.z;
+  const int it0 = z * a.steps_per, it1 = min(a.steps, it0 + a.steps_per);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 256);
+    }
+    if (kLn) bar_init(xbar, 1);
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // the producer: weight tiles (and x tiles) into the ring
+    if (tid == 256) {
+      const CUtensorMap* tw = part == 0 ? &tw0 : part == 1 ? &tw1 : &tw2;
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(tw))
+                   : "memory");
+      if constexpr (kLn) {  // the block's x rows, every column, once
+        bar_expect(xbar, NT * 128 * a.steps);
+        for (int c = 0; c < a.steps; ++c)
+          tma_2d(resident + c * (NT * 128), &tx, c * kStep, m0, xbar);
+      }
+      for (int it = it0; it < it1; ++it) {
+        const int i = it - it0, s = i % stages;
+        if (i >= stages) bar_wait(&empty[s], ((i / stages) - 1) & 1);
+        uint8_t* st = base + s * kStage;
+        bar_expect(&full[s], kStage);
+        tma_2d(st, tw, it * kStep, n0, &full[s]);
+        if constexpr (!kLn) tma_2d(st + kWTile, &tx, it * kStep, m0, &full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid >> 7;
+  if constexpr (kLn) {
+    // chunk ch (8 values) of row r of the resident x rows
+    auto chunk = [&](int r, int ch) {
+      return reinterpret_cast<uint4*>(resident + (ch >> 3) * (NT * 128) +
+                                      r * 128 + (((ch & 7) ^ (r & 7)) << 4));
+    };
+    auto get8 = [](uint4 u, float* v) {
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    };
+    bar_wait(xbar, 0);
+    // the statistics of the block's rows over the whole row: warp w of the
+    // eight consumer warps takes rows w, w + 8, ... (rows past M are zero)
+    const int lane = tid & 31, warp = tid >> 5, chunks = a.K / 8;
+    for (int r = warp; r < NT; r += 8) {
+      float sum = 0.f, sq = 0.f, v[8];
+      for (int ch = lane; ch < chunks; ch += 32) {
+        get8(*chunk(r, ch), v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) sum += v[j];
+      }
+      const float mu = warp_sum(sum) / a.K;
+      for (int ch = lane; ch < chunks; ch += 32) {
+        get8(*chunk(r, ch), v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float d = v[j] - mu;
+          sq = fmaf(d, d, sq);
+        }
+      }
+      const float rstd = 1.f / sqrtf(warp_sum(sq) / a.K + a.eps);
+      if (lane == 0) stats[r] = make_float2(mu, rstd);
+    }
+    named_sync(1, 256);
+    // this split's atoms normalised in place, rounded to bf16; columns past
+    // K stay zero
+    const int c0 = it0 * 8, n_ch = min(a.K / 8, it1 * 8) - c0;
+    for (int idx = tid; idx < NT * n_ch; idx += 256) {
+      const int r = idx / n_ch, ch = c0 + idx % n_ch, k = 8 * ch;
+      float v[8], w[8], b[8];
+      get8(*chunk(r, ch), v);
+      ld8_bf16(a.ln_w + k, w);
+      ld8_bf16(a.ln_b + k, b);
+      const float2 st = stats[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = (v[j] - st.x) * st.y * w[j] + b[j];
+      put8(resident + (ch >> 3) * (NT * 128), r, ch & 7, v);
+    }
+    // the operand, written through the generic proxy, is read by wgmma
+    fence_proxy_async();
+    named_sync(1, 256);
+  }
+
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  fence_acc<NT / 2>(acc);
+  for (int it = it0; it < it1; ++it) {
+    const int i = it - it0, s = i % stages;
+    bar_wait(&full[s], (i / stages) & 1);
+    const uint8_t* st = base + s * kStage;
+    const uint8_t* bt = kLn ? resident + it * (NT * 128) : st + kWTile;
+    fence_acc<NT / 2>(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Mma<NT>::run(acc, desc_sw128(st + wg * (kWTile / 2) + kk * 32),
+                   desc_sw128(bt + kk * 32));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    fence_acc<NT / 2>(acc);
+    if constexpr (kDenseLag) {  // keep one step's wgmma in flight
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fence_acc<NT / 2>(acc);
+      if (it > it0) bar_arrive(&empty[(i + stages - 1) % stages]);
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc<NT / 2>(acc);
+      bar_arrive(&empty[s]);  // the stage goes back to the producer
+    }
+  }
+  if constexpr (kDenseLag) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc<NT / 2>(acc);
+  }
+
+  // epilogue, as gemm_sm90's: the transposed accumulator staged as [m][n]
+  named_sync(3, 256);
+  float* stg = reinterpret_cast<float*>(base);
+  {
+    const int t = tid & 127, w = t >> 5, g = (t & 31) >> 2, q = t & 3;
+    const int nl = wg * 64 + 16 * w + g;
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const int m = 8 * j + 2 * q;
+      stg[m * kLd + nl] = acc[4 * j];
+      stg[(m + 1) * kLd + nl] = acc[4 * j + 1];
+      stg[m * kLd + nl + 8] = acc[4 * j + 2];
+      stg[(m + 1) * kLd + nl + 8] = acc[4 * j + 3];
+    }
+  }
+  named_sync(3, 256);
+  const int parts = gridDim.x / a.tiles_per_part;
+  for (int idx = tid; idx < NT * kRows; idx += 256) {
+    const int m = idx / kRows, nl = idx % kRows;
+    const int gm = m0 + m, gn = n0 + nl;
+    if (gm < a.M && gn < a.rows) {
+      const float v = stg[m * kLd + nl];
+      if constexpr (kLn) {
+        a.ws[((long)z * a.M + gm) * parts * a.rows + part * a.rows + gn] = v;
+      } else {
+        const long o = (long)gm * a.rows + gn;
+        a.y[o] = __float2bfloat16(__bfloat162float(a.res[o]) + v);
+      }
+    }
+  }
+}
+
+namespace sm90 {
+
+template <bool kLn, int NT>
+int run_dense(const CUtensorMap* tw, const CUtensorMap& tx,
+              const DenseArgs& a, dim3 grid, cudaStream_t stream) {
+  auto kernel = gemm_dense_sm90<kLn, NT>;
+  const int stages = dense_stages(kLn, NT, a.steps);
+  if (stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int smem = dense_smem(kLn, NT, a.steps, stages);
+  static int allowed = 0;  // the largest smem this instantiation was given
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    allowed = smem;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(tw[0], tw[1], tw[2], tx, a,
+                                           stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sm90
+
+// B3's bf16 projections on the plan of ops/attn_block.py:block_gemm_plans.
+// kLn (QKV): x [M, K] is LN's input, w[0 .. parts) the [rows, K] weights,
+// f32 sums into ws [splits, M, parts * rows]. !kLn (out): x [M, K] is the
+// B operand, w[0] the weight, y [M, rows] = bf16(res + x . w^T), one split.
+template <bool kLn>
+int launch_dense(const void* x, const void* ln_w, const void* ln_b,
+                 float eps, const void* const* w, int parts, void* ws,
+                 void* y, const void* res, int M, int rows, int K, int nt,
+                 int splits, int steps_per, void* stream) {
+  using namespace sm90;
+  if (M <= 0 || rows <= 0) return 0;
+  const int steps = (K + kStep - 1) / kStep;
+  if (parts < 1 || parts > 3 || splits < 1 || steps_per < 1 ||
+      (long)(splits - 1) * steps_per >= steps ||
+      (long)splits * steps_per < steps || (!kLn && splits != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (encoder() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tw[3], tx;
+  for (int p = 0; p < parts; ++p)
+    if (!map_2d(&tw[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w[p], K, rows,
+                kStep, kRows, CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorInvalidValue);
+  for (int p = parts; p < 3; ++p) tw[p] = tw[0];
+  if (!map_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, K, M, kStep, nt,
+              CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (rows + kRows - 1) / kRows;
+  const DenseArgs a{static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const __nv_bfloat16*>(ln_w),
+                    static_cast<const __nv_bfloat16*>(ln_b),
+                    eps,
+                    static_cast<float*>(ws),
+                    static_cast<__nv_bfloat16*>(y),
+                    static_cast<const __nv_bfloat16*>(res),
+                    M, rows, K, tiles, steps, steps_per};
+  const dim3 grid(parts * tiles, (M + nt - 1) / nt, splits);
+  auto* st = static_cast<cudaStream_t>(stream);
+#define WQ_DENSE(n)                                  \
+  case n:                                            \
+    return run_dense<kLn, n>(tw, tx, a, grid, st);
+  if constexpr (kLn) {  // the resident operand keeps batch tiles <= 64
+    switch (nt) {
+      WQ_DENSE(16)
+      WQ_DENSE(32)
+      WQ_DENSE(48)
+      WQ_DENSE(64)
+    }
+  } else {
+    switch (nt) {
+      WQ_DENSE(16)
+      WQ_DENSE(32)
+      WQ_DENSE(48)
+      WQ_DENSE(64)
+      WQ_DENSE(80)
+      WQ_DENSE(96)
+      WQ_DENSE(112)
+      WQ_DENSE(128)
+    }
+  }
+#undef WQ_DENSE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,7 +1,7 @@
-// GEMM body for Hopper, sm_90a, shared by kernels B4 (q8_matmul.cu, Q8_0)
-// and B5 (q4_matmul.cu, Q4_0) with f32 activations, and by the projections
-// of B3 (t1_attention_block.cu) in f32 and bf16. B4 and B5 with bf16
-// activations, the serving form, run on wq_gemm_sm90.cuh instead.
+// GEMM body for Hopper, sm_90a, with f32 activations: kernels B4
+// (q8_matmul.cu, Q8_0) and B5 (q4_matmul.cu, Q4_0) in f32, and the
+// projections of B3 (t1_attention_block.cu) in f32. Every bf16 form (B4,
+// B5, B3's projections) runs on wq_gemm_sm90.cuh instead.
 //
 //     y[m, n] = epilogue(m, n, sum_k a(m, k) * w(n, k))
 //
@@ -21,15 +21,13 @@
 // N, K in 1024..4096) one call reads the weight once and does 2*M*N*K
 // flops; f32 activations run on the CUDA cores (67 TFLOP/s, no TF32), so
 // the flops bind from M ~ 16 up. Design, a first version that is simple
-// and right (no TMA, no wgmma, no multi-stage pipeline):
+// and right (no TMA, no multi-stage pipeline; f32 is the parity form):
 //   * one block per output tile, a K loop over steps of whole Q8_0 / Q4_0
 //     blocks (32 inputs each, one scale per (row n, block));
 //   * the step's x tile and weight tile go to shared memory, the weight
-//     dequantized there (code * scale in f32) into the operand type;
-//   * f32 activations: FFMA with f32 sums, no TF32; 64x64 tiles, K steps
-//     of 32, 256 threads with 4x4 outputs each;
-//   * bf16 activations (B3's projections): mma.sync m16n8k16 on the tensor
-//     cores with f32 accumulators, 64x32 tiles, K steps of 128;
+//     dequantized there (code * scale in f32);
+//   * FFMA with f32 sums, no TF32; 64x64 tiles, K steps of 32, 256
+//     threads with 4x4 outputs each;
 //   * ragged M and N are masked in the loads and the stores: the wrapper
 //     never pads, and rows past M or N read as zero.
 // The wrappers check K % 32 == 0 (K % 64 == 0 for Q4), 16-byte aligned
@@ -37,11 +35,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace wq {
 
@@ -64,30 +60,9 @@ __device__ __forceinline__ void ld_f32(const float* p, float* v) {
   }
 }
 
-template <int NV>
-__device__ __forceinline__ void ld_f32(const __nv_bfloat16* p, float* v) {
-  static_assert(NV % 8 == 0, "bf16 values load 8 at a time");
-#pragma unroll
-  for (int i = 0; i < NV; i += 8) {
-    union {
-      uint4 u;
-      __nv_bfloat16 h[8];
-    } a;
-    a.u = __ldg(reinterpret_cast<const uint4*>(p + i));
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[i + j] = __bfloat162float(a.h[j]);
-  }
-}
-
 __device__ __forceinline__ void store(float* y, float v) { *y = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* y, float v) {
-  *y = __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // ---- A loaders: load<NV>(..., m, k, v) fills v[0..NV) = a(m, k .. k+NV) ---
 
@@ -96,14 +71,9 @@ struct PlainA {
   const T* x;
   int K;
   static constexpr bool kStats = false;
-  // bf16 rows go to the tensor-core tile as they are, 16 bytes at a time
-  static constexpr bool kRaw = std::is_same<T, __nv_bfloat16>::value;
   template <int NV>
   __device__ void load(int m, int k, float* v) const {
     ld_f32<NV>(x + (long)m * K + k, v);
-  }
-  __device__ uint4 raw8(int m, int k) const {
-    return __ldg(reinterpret_cast<const uint4*>(x + (long)m * K + k));
   }
 };
 
@@ -115,7 +85,6 @@ struct LnA {
   float eps;
   int K;
   static constexpr bool kStats = true;
-  static constexpr bool kRaw = false;
 
   // mean and 1/sqrt(var + eps) of rows m0 .. m0 + rows - 1 into st[], each
   // row by one warp (two passes over the row, as the reference formula)
@@ -272,115 +241,6 @@ gemm_f32(A a, W w, E e, int M, int N, int K) {
   }
 }
 
-// ---- bf16 activations: mma.sync m16n8k16, 128 threads, 32x16 per warp -----
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint4 pack_bf16(const float* v) {
-  union {
-    uint4 u;
-    __nv_bfloat16 h[8];
-  } p;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) p.h[j] = __float2bfloat16(v[j]);
-  return p.u;
-}
-
-constexpr int HM = 64, HN = 32, HK = 4 * QB;  // bf16 tile and K step
-
-template <class A, class W, class E>
-__global__ void __launch_bounds__(128)
-gemm_bf16(A a, W w, E e, int M, int N, int K) {
-  // row-major tiles, K contiguous, rows padded by 8 bf16 (16 bytes) so
-  // the fragment loads of a warp hit 32 distinct banks
-  constexpr int LD = HK + 8;
-  __shared__ __align__(16) __nv_bfloat16 xs[HM][LD];
-  __shared__ __align__(16) __nv_bfloat16 ws[HN][LD];
-  __shared__ float2 stats[HM];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment coordinates
-  const int m0 = blockIdx.y * HM, n0 = blockIdx.x * HN;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 16;  // 32x16 per warp
-  float acc[2][2][4] = {};
-  if constexpr (A::kStats) {
-    a.stats(stats, m0, HM, M);
-    __syncthreads();
-  }
-
-  for (int k0 = 0; k0 < K; k0 += HK) {
-    const int kw = min(HK, K - k0);  // a multiple of 32
-    // x tile: HM rows x kw/8 chunks of 8 values: bf16 rows copied as they
-    // are, normalised rows rounded to bf16
-    for (int i = tid; i < HM * HK / 8; i += 128) {
-      const int r = i / (HK / 8), c = (i % (HK / 8)) * 8;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M && c < kw) {
-        if constexpr (A::kRaw) {
-          u = a.raw8(m0 + r, k0 + c);
-        } else {
-          float v[8];
-          load_a<8>(a, stats, r, m0 + r, k0 + c, v);
-          u = pack_bf16(v);
-        }
-      }
-      *reinterpret_cast<uint4*>(&xs[r][c]) = u;
-    }
-    // weight tile: HN rows x kw/8 groups of 8, rounded to bf16 as the plain
-    // version rounds it: bf16(f32(code) * scale)
-    for (int i = tid; i < HN * HK / 8; i += 128) {
-      const int r = i / (HK / 8), c = (i % (HK / 8)) * 8, n = n0 + r;
-      float v[8] = {};
-      if (n < N && c < kw) w.load8(n, k0 + c, v);
-      *reinterpret_cast<uint4*>(&ws[r][c]) = pack_bf16(v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < HK; kk += 16) {
-      uint32_t fa[2][4], fb[2][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm + mi * 16 + g;
-        fa[mi][0] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t4 * 2]);
-        fa[mi][1] = *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + t4 * 2]);
-        fa[mi][2] = *reinterpret_cast<const uint32_t*>(&xs[r][kk + t4 * 2 + 8]);
-        fa[mi][3] =
-            *reinterpret_cast<const uint32_t*>(&xs[r + 8][kk + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const int n = wn + ni * 8 + g;
-        fb[ni][0] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t4 * 2]);
-        fb[ni][1] = *reinterpret_cast<const uint32_t*>(&ws[n][kk + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 2; ++ni) mma_bf16(acc[mi][ni], fa[mi], fb[ni]);
-    }
-    __syncthreads();
-  }
-  // accumulator fragment: c0, c1 at (g, 2*t4 + {0, 1}); c2, c3 at row g + 8
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + wm + mi * 16 + g + (q >= 2 ? 8 : 0);
-        const int n = n0 + wn + ni * 8 + t4 * 2 + (q & 1);
-        if (m < M && n < N) e(m, n, acc[mi][ni][q]);
-      }
-}
-
 // ---- launchers -------------------------------------------------------------
 
 template <class A, class W, class E>
@@ -390,16 +250,6 @@ int run_f32(const A& a, const W& w, const E& e, int M, int N, int K,
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   gemm_f32<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a, w, e, M,
                                                                  N, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class A, class W, class E>
-int run_bf16(const A& a, const W& w, const E& e, int M, int N, int K,
-             void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  const dim3 grid((N + HN - 1) / HN, (M + HM - 1) / HM);
-  gemm_bf16<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(a, w, e, M,
-                                                                  N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

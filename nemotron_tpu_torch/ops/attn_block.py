@@ -17,17 +17,22 @@ Dh reduction and the V scale multiplies the softmax weight. The JAX
 package dequantizes first; the values agree up to rounding order.
 
 A CUDA tensor goes through the kernel (or the call raises); a CPU tensor
-takes `t1_attention_block_ref`.
+takes `t1_attention_block_ref`. The kernel's bf16 projections run on the
+plans of `block_gemm_plans`, its attention launch on `attn_group`'s.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from .. import kernels
+from .attn_kernel import (SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, r16,
+                          check_shape, sm_count, tile_bytes)
 from .kvquant import is_quant
+from .quant import GEMM_M_TILES, GEMM_ROWS, GEMM_STEP
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -76,6 +81,142 @@ def t1_attention_block_ref(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
     return out.to(dt), kn.to(dt), vn.to(dt)
 
 
+# The bf16 projections (csrc/wq_gemm_sm90.cuh, gemm_dense_sm90): blocks of
+# GEMM_ROWS weight rows, steps of GEMM_STEP columns, batch tiles of one of
+# GEMM_M_TILES rows (the QKV GEMM's resident LN operand keeps them <= 64),
+# a ring of 2 to MAX_STAGES weight tiles.
+QKV_MAX_TILE = 64
+MAX_STAGES = 4
+STAGING_LD = GEMM_ROWS + 4  # floats per row of the epilogue's staging
+
+
+def dense_smem(ln: bool, nt: int, steps: int, stages: int) -> int:
+    """Shared memory of one projection block (csrc/wq_gemm_sm90.cuh's
+    dense_smem): alignment slack, the ring (or the epilogue's staging,
+    the larger), with `ln` the resident operand (the block's x rows, all
+    `steps` atoms of 64 columns), its row statistics and barrier, and the
+    ring's barriers."""
+    ring = stages * (GEMM_ROWS * 128 + (0 if ln else nt * 128))
+    region = -(-max(ring, nt * STAGING_LD * 4) // 1024) * 1024
+    return (1024 + region + (nt * 128 * steps + nt * 8 + 8 if ln else 0)
+            + 16 * stages)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """One projection launch: batch tiles of nt rows (tiles_m of them),
+    tiles_n weight-row tiles (for QKV, ceil(D / 128) in each of q, k, v:
+    none straddles two), `steps` steps of GEMM_STEP columns in `splits`
+    runs of steps_per (none empty); smem with the ring's stages."""
+    nt: int
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    steps: int
+    steps_per: int
+    stages: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+
+def _tile(rows: int) -> int:
+    return min(t for t in GEMM_M_TILES if t >= max(1, rows))
+
+
+def _dense_plan(ln, nt, tiles_m, tiles_n, steps, steps_per) -> DensePlan:
+    stages = MAX_STAGES
+    while stages > 2 and dense_smem(ln, nt, steps, stages) > SMEM_BLOCK:
+        stages -= 1
+    return DensePlan(nt, tiles_m, tiles_n, -(-steps // steps_per), steps,
+                     steps_per, stages, dense_smem(ln, nt, steps, stages))
+
+
+def block_gemm_plans(m: int, d: int, sms: int):
+    """The plans of B3's two bf16 projections for m streams at d_model d
+    on a card with `sms` SMs: (qkv, out).
+
+    QKV: batch tiles of at most 64 rows (the block's x rows stay resident:
+    nt x d in bf16, within one block's shared memory), then split-K while
+    the blocks leave SMs idle, at least one step per split; the attention
+    launch adds the splits' partials in split order. Out: one split (the
+    residual is added in the epilogue), batch tiles as small as it takes
+    to give the SMs a block each."""
+    steps = -(-d // GEMM_STEP)
+    tiles_n = 3 * -(-d // GEMM_ROWS)
+    tiles_m = -(-m // QKV_MAX_TILE)
+    while dense_smem(True, _tile(-(-m // tiles_m)), steps, 2) > SMEM_BLOCK:
+        tiles_m += 1
+    nt = _tile(-(-m // tiles_m))
+    want = max(1, sms // (tiles_n * tiles_m))
+    steps_per = -(-steps // min(want, steps))
+    qkv = _dense_plan(True, nt, tiles_m, tiles_n, steps, steps_per)
+    out_n = -(-d // GEMM_ROWS)
+    nt = _tile(-(-m // max(1, sms // out_n)))
+    out = _dense_plan(False, nt, -(-m // nt), out_n, steps, steps)
+    return qkv, out
+
+
+MAX_GROUPS = 4  # groups of 128 threads per attention block, at most
+
+
+def attn_smem(s_buf: int, d_head: int, elem: int, stages: int,
+              splits: int, groups: int) -> int:
+    """Shared memory of one attention block of B3 (csrc/
+    t1_attention_block.cu's Layout): pp[h], the biases and pp's barrier;
+    per group `stages` stages of K and V tiles, the stream's q, k, v sums
+    of each of the QKV GEMM's `splits` and (int8) the scales, then the
+    per-stream vectors, the position and context partials and barriers."""
+    s1 = r16((s_buf + 1) * 4)
+    stage = (2 * tile_bytes(s_buf, d_head, elem) + 3 * splits
+             * r16(d_head * 4) + (2 * r16(s_buf * 4) if elem == 1 else 0))
+    group = (stages * stage + 4 * r16(d_head * 4) + 2 * s1 + 4 * s1
+             + 8192 // elem + 16 + 16 * stages)
+    shared = (-(-d_head * (s_buf + 1) * 4 // 128) * 128
+              + 2 * r16(d_head * 4) + 16)
+    return shared + groups * group
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnGroupPlan:
+    """B3's attention launch: per_block streams of one head per block,
+    taken in turn by its `groups` groups of 128 threads, each with a ring
+    of `stages`."""
+    per_block: int
+    groups: int
+    stages: int
+    smem: int
+    per_sm: int  # blocks an SM holds at once
+
+    def blocks(self, b: int, h: int) -> int:
+        return h * -(-b // self.per_block)
+
+
+def attn_group(b: int, h: int, s_buf: int, d_head: int, elem: int,
+               splits: int, sms: int) -> AttnGroupPlan:
+    """The plan of B3's attention launch: the most stream buffers (groups x
+    stages, 2 groups of 2 stages first) that fit a block, up to
+    MAX_GROUPS groups; then just enough streams per block that the blocks
+    an SM holds at once cover every (stream, head) in one wave, and no
+    more groups than streams. Raises ValueError where not even two groups
+    of one stage fit."""
+    fits = [(g * st, g, st) for st in (2, 1) for g in range(2, MAX_GROUPS + 1)
+            if attn_smem(s_buf, d_head, elem, st, splits, g) <= SMEM_BLOCK]
+    if not fits:
+        raise ValueError(f"t1_attention_block: s_buf {s_buf} x d_head "
+                         f"{d_head} does not fit one block's shared memory")
+    _, groups, stages = max(fits, key=lambda f: (f[0], -f[1]))
+    smem = attn_smem(s_buf, d_head, elem, stages, splits, groups)
+    per_sm = max(1, min(16 // groups, SMEM_SM // (smem + SMEM_RESERVED)))
+    per_block = max(1, -(-(b * h) // (per_sm * sms)))
+    groups = min(groups, per_block)  # no group without a stream
+    return AttnGroupPlan(per_block, groups, stages,
+                         attn_smem(s_buf, d_head, elem, stages, splits,
+                                   groups), per_sm)
+
+
 def _check(name, t, shape, dtype, device):
     if not isinstance(t, torch.Tensor) or tuple(t.shape) != tuple(shape) \
             or t.dtype != dtype or t.device != device:
@@ -116,10 +257,6 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
             code = name.endswith("q")
             _check(name, t, (B, H, s_buf, Dh) if code else (B, H, s_buf),
                    torch.int8 if code else torch.float32, dev)
-        if Dh % 4 or Dh > 128:  # one 4-byte code group per lane of a warp
-            raise ValueError(
-                f"t1_attention_block: int8 caches need d_head % 4 == 0 and "
-                f"d_head <= 128, got {Dh}")
     else:
         s_buf = k_buf.shape[2]
         caches = (k_buf, v_buf)
@@ -135,17 +272,31 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
         _check(name, t, shape, want, dev)
     if not all(t.is_contiguous() for t in caches):
         raise ValueError("t1_attention_block: K/V buffers must be contiguous")
+    elem = 1 if quant else caches[0].element_size()
+    check_shape(Dh, elem, s_buf)
     ins = [t.contiguous() for t in (x, ln_w, ln_b, q_w, k_w, v_w, out_w,
                                     bias_u, bias_v, pp, mask)]
+    codes = (k_buf.q, v_buf.q) if quant else caches
+    if any(t.data_ptr() % 16 for t in (*ins, *codes)):
+        raise ValueError("t1_attention_block: operands must be 16-byte "
+                         "aligned (bulk copies and TMA)")
+    sms = sm_count(dev)
+    if dt == torch.bfloat16:
+        qkv_plan, out_plan = block_gemm_plans(B, D, sms)
+        plan = (qkv_plan.nt, qkv_plan.splits, qkv_plan.steps_per, out_plan.nt)
+    else:  # f32: the FFMA body, one split
+        plan = (0, 1, 0, 0)
+    attn = attn_group(B, H, s_buf, Dh, elem, plan[1], sms)
     out = torch.empty((B, D), dtype=dt, device=dev)
     k_new = torch.empty((B, H, Dh), dtype=dt, device=dev)
     v_new = torch.empty((B, H, Dh), dtype=dt, device=dev)
-    qkv = torch.empty((B, 3 * D), dtype=torch.float32, device=dev)
+    qkv = torch.empty((plan[1], B, 3 * D), dtype=torch.float32, device=dev)
     ctx = torch.empty((B, D), dtype=dt, device=dev)
     symbol = ("t1_attention_block_i8_" if quant
               else "t1_attention_block_") + _SUFFIX[dt]
     kernels.T1_ATTENTION_BLOCK.launch(
         symbol, *(t.data_ptr() for t in ins), *(t.data_ptr() for t in caches),
         *(t.data_ptr() for t in (out, k_new, v_new, qkv, ctx)),
-        B, H, s_buf, Dh, eps, 1.0 / math.sqrt(Dh))
+        B, H, s_buf, Dh, eps, 1.0 / math.sqrt(Dh), *plan, attn.per_block,
+        attn.groups, attn.stages)
     return out, k_new, v_new

@@ -1,18 +1,28 @@
-"""Time kernels B4 / B5 (Q8_0 / Q4_0 linears, bf16 activations) of two or
-more checkouts of the repo in turns on one card, as one call of the card
-allows a fair comparison: each tree runs in a process of its own (it
-builds its own kernels into its own `_build/`), in the order given, e.g.
-parent, change, change, parent.
+"""Time kernels B1 (T=1 attention), B3 (the fused attention block) and B4 /
+B5 (Q8_0 / Q4_0 linears, bf16 activations) of two or more checkouts of the
+repo in turns on one card, as one call of the card allows a fair
+comparison: each tree runs in a process of its own (it builds its own
+kernels into its own `_build/`), in the order given, e.g. parent, change,
+change, parent.
 
     python3 nemotron_tpu_torch/tools/gemm_turns.py \\
         --tree parent=_archive/parent --tree change=. \\
-        --tree change=. --tree parent=_archive/parent [--probe]
+        --tree change=. --tree parent=_archive/parent \\
+        [--only b1 --only b3 --only b4b5] [--probe]
 
 Per tree and case: device ms per call (CUDA events around 50 calls behind
-a device spin, median of 7), and `dense_ms`, torch.matmul of x and the
-weight dequantized to bf16 beforehand (cuBLAS's dense product of the same
-shape). The cases are the main path's (N, K) at M in {32, 141, 256}.
-`--probe` then times the change's kernels built as measurement variants
+a device spin, median of 7). B1 and B3 at chip_smoke.py phase 3's shapes:
+B in {32, 256}, H=8, S_buf=78, Dh=128 (B3: D=1024), f32 and bf16, dense
+and int8 caches, random validity windows with garbage in the dead slots.
+B4 / B5 also give `dense_ms`, torch.matmul of x and the weight dequantized
+to bf16 beforehand (cuBLAS's dense product of the same shape), at the main
+path's (N, K) and M in {32, 141, 256}. `--only` picks the groups (all
+three by default). `--profile` adds each of B3's launches' device us.
+`--probe` then times the change's B1 built as measurement variants
+(T1_PROBE: without the scores and context, without the copies;
+T1_COPY_SPLIT: 2 KB bulk copies), its B3 (T1_BLOCK_GROUPS: 2, 3 or 4
+thread groups per attention block; WQ_DENSE_LAG: the projections release a
+stage one step later), and its B4 / B5 as measurement variants
 of csrc/wq_gemm_sm90.cuh (WQ_SM90_PROBE: without the dequantization,
 without the wgmma, without both; WQ_SM90_MAX_STAGES: a deeper ring), each
 on ops/quant.py:gemm_plan's plan, with one more case of a single pipeline
@@ -24,6 +34,7 @@ there as JSON.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -33,6 +44,7 @@ from pathlib import Path
 
 import numpy as np
 
+GROUPS = ("b1", "b3", "b4b5")
 SHAPES = ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024))
 BATCHES = (32, 141, 256)
 
@@ -66,12 +78,117 @@ PROBES = (
      ("-DWQ_SM90_MAX_STAGES=8", "-DWQ_SM90_PROBE=3")),
 )
 ONE_STEP = (1024, 64)  # (N, K) of a single pipeline step, one split
+# measurement variants of the change's B3: label, extra nvcc flags
+B3_PROBES = (
+    ("b3 probe: 2 groups", ("-DT1_BLOCK_GROUPS=2",)),
+    ("b3 probe: 3 groups", ("-DT1_BLOCK_GROUPS=3",)),
+    ("b3 probe: 4 groups", ("-DT1_BLOCK_GROUPS=4",)),
+    ("b3 probe: dense GEMM lag", ("-DWQ_DENSE_LAG=1",)),
+)
+# measurement variants of the change's B1: label, extra nvcc flags
+B1_PROBES = (
+    ("b1 probe: full", ()),
+    ("b1 probe: no math", ("-DT1_PROBE=1",)),
+    ("b1 probe: no copies", ("-DT1_PROBE=2",)),
+    ("b1 probe: 2 KB copies", ("-DT1_COPY_SPLIT=2048",)),
+)
 
 
-def child(tree: str, flags: list[str], probe: bool) -> None:
-    """Runs inside `tree`: times its B4 / B5, built with the extra nvcc
-    `flags`, and prints one JSON line. A probe's rows carry the plan, and
-    it adds the single-step case."""
+ATTN_BATCHES = (32, 256)
+H, DH, S_BUF = 8, 128, 78
+
+
+def _live(rng, b):
+    """Random validity windows of b streams over S_BUF slots (+ the new
+    frame, always live)."""
+    live = np.zeros((b, S_BUF + 1), bool)
+    lo, valid = rng.integers(0, 9, b), rng.integers(1, 71, b)
+    for i in range(b):
+        live[i, lo[i] + 70 - valid[i]:lo[i] + 70] = True
+    live[:, S_BUF] = True
+    return live
+
+
+def _caches(torch, rng, dev, dtype, int8, live):
+    """K and V caches [B, H, S_BUF, DH], int8 ones with garbage codes and
+    scales in the dead slots."""
+    from nemotron_tpu_torch.ops.kvquant import quantize_kv
+
+    b = live.shape[0]
+    bufs = [torch.tensor(rng.standard_normal((b, H, S_BUF, DH)).astype(
+        np.float32), device=dev).to(dtype) for _ in range(2)]
+    if int8:
+        bufs = [quantize_kv(x) for x in bufs]
+        dead = torch.tensor(~live[:, :S_BUF], device=dev)[:, None, :]
+        for buf in bufs:
+            buf.q.masked_fill_(dead[..., None], 127)
+            buf.s.masked_fill_(dead, 3.0e4)
+    return bufs
+
+
+def launch_us(torch, fn, calls: int = 20) -> dict:
+    """Device us per call of each kernel fn launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0][-60:]: e.self_device_time_total / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def attn_rows(torch, dev, rng, b3: bool, profile: bool = False):
+    """B1 (and with b3 B3) at phase 3's shapes: one row per case; with
+    `profile`, B3's rows also carry each of its launches' device us."""
+    from nemotron_tpu_torch.ops.attn_block import t1_attention_block
+    from nemotron_tpu_torch.ops.attn_kernel import t1_attention_core
+
+    D = H * DH
+    rows = []
+    for b, int8, dtype in itertools.product(
+            ATTN_BATCHES, (False, True), (torch.float32, torch.bfloat16)):
+        name = (f"{'int8' if int8 else 'dense'} "
+                f"{'f32' if dtype == torch.float32 else 'bf16'} B={b}")
+
+        def t(*shape, scale=1.0, dt=dtype):
+            return torch.tensor((rng.standard_normal(shape) * scale).astype(
+                np.float32), device=dev).to(dt)
+
+        live = _live(rng, b)
+        kb, vb = _caches(torch, rng, dev, dtype, int8, live)
+        pm = t(b, H, S_BUF + 1, scale=DH ** -0.5, dt=torch.float32)
+        pm.masked_fill_(torch.tensor(~live, device=dev)[:, None, :], -1e9)
+        args = (t(b, H, DH), t(b, H, DH), t(b, H, DH), pm, kb, vb)
+        rows.append(dict(kernel="t1_attention", case=name, ms=cuda_ms(
+            torch, lambda: t1_attention_core(*args))))
+        if not b3:
+            continue
+        a = dict(x=t(b, D), ln_w=1 + t(D, scale=0.1), ln_b=t(D, scale=0.1),
+                 q_w=t(D, D, scale=D ** -0.5), k_w=t(D, D, scale=D ** -0.5),
+                 v_w=t(D, D, scale=D ** -0.5), out_w=t(D, D, scale=D ** -0.5),
+                 bias_u=t(H, DH, scale=0.1), bias_v=t(H, DH, scale=0.1),
+                 pp=t(H, DH, S_BUF + 1, scale=0.5, dt=torch.float32),
+                 mask=torch.tensor(np.where(live, 0.0, -1e9).astype(
+                     np.float32), device=dev).to(dtype),
+                 k_buf=kb, v_buf=vb, n_heads=H, d_head=DH)
+        rows.append(dict(kernel="t1_attention_block", case=name, ms=cuda_ms(
+            torch, lambda: t1_attention_block(**a))))
+        if profile:
+            rows[-1]["launch_us"] = launch_us(
+                torch, lambda: t1_attention_block(**a))
+    return rows
+
+
+def child(tree: str, flags: list[str], probe: bool, only: list[str],
+          profile: bool = False) -> None:
+    """Runs inside `tree`: times its kernels of the groups `only`, built
+    with the extra nvcc `flags`, and prints one JSON line. A B4/B5 probe's
+    rows carry the plan, and it adds the single-step case."""
     sys.path.insert(0, tree)
     import torch
 
@@ -83,7 +200,11 @@ def child(tree: str, flags: list[str], probe: bool) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
     rows = []
-    for bits in (8, 4):
+    if "b1" in only or "b3" in only:
+        rows += [r for r in attn_rows(torch, dev, rng, "b3" in only, profile)
+                 if {"t1_attention": "b1", "t1_attention_block": "b3"}[
+                     r["kernel"]] in only]
+    for bits in ((8, 4) if "b4b5" in only else ()):
         qz = quant.quantize_q8 if bits == 8 else quant.quantize_q4
         fn = quant.linear_q8 if bits == 8 else quant.linear_q4
         deq = quant.dequantize if bits == 8 else quant.dequantize_q4
@@ -94,7 +215,8 @@ def child(tree: str, flags: list[str], probe: bool) -> None:
             for m in BATCHES:
                 x = torch.tensor(rng.standard_normal((m, k)).astype(
                     np.float32), device=dev).to(torch.bfloat16)
-                row = dict(bits=bits, m=m, n=n, k=k,
+                row = dict(kernel=f"q{bits}_matmul", bits=bits, m=m, n=n,
+                           k=k,
                            ms=cuda_ms(torch, lambda: fn(x, qt)),
                            dense_ms=cuda_ms(torch,
                                             lambda: torch.matmul(x, wt.T)))
@@ -110,7 +232,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[],
                     help="label=path, in the order to run")
-    ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--probe", action="store_true",
+                    help="also time measurement builds of B1, B3 and B4/B5")
+    ap.add_argument("--only", action="append", choices=GROUPS,
+                    help="kernel groups to time (default: all)")
+    ap.add_argument("--profile", action="store_true",
+                    help="also give B3's launches' device us (torch.profiler)")
     ap.add_argument("--json", help="write every run's rows here as JSON")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--flag", action="append", default=[],
@@ -118,25 +245,35 @@ def main(argv=None) -> int:
     ap.add_argument("--child-probe", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    only = args.only or list(GROUPS)
     if args.child:
-        child(args.child, args.flag, args.child_probe)
+        child(args.child, args.flag, args.child_probe, only, args.profile)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    runs = [(t.split("=", 1)[0], t.split("=", 1)[1], None)
+    runs = [(t.split("=", 1)[0], t.split("=", 1)[1], None, None)
             for t in args.tree]
-    change = next((p for lbl, p, _ in runs if lbl == "change"), None)
-    if args.probe and change:
-        runs += [(label, change, flags) for label, flags in PROBES]
+    change = next((r[1] for r in runs if r[0] == "change"), None)
+    if args.probe and change and "b1" in only:
+        runs += [(label, change, flags, "b1") for label, flags in B1_PROBES]
+    if args.probe and change and "b3" in only:
+        runs += [(label, change, flags, "b3") for label, flags in B3_PROBES]
+    if args.probe and change and "b4b5" in only:
+        runs += [(label, change, flags, "b4b5") for label, flags in PROBES]
     out = []
-    for label, path, flags in runs:
+    for label, path, flags, probe in runs:
         cmd = [sys.executable, os.path.abspath(__file__),
                "--child", os.path.abspath(path)]
-        if flags is not None:
-            cmd += ["--child-probe", *(f"--flag={f}" for f in flags)]
+        if probe is not None:  # a probe build times one group
+            cmd += [f"--only={probe}", *(f"--flag={f}" for f in flags)]
+            cmd += ["--child-probe"] if probe == "b4b5" else []
+            cmd += ["--profile"] if args.profile and probe == "b3" else []
+        else:
+            cmd += [f"--only={g}" for g in only]
+            cmd += ["--profile"] if args.profile else []
         res = subprocess.run(cmd, capture_output=True, text=True,
                              cwd=os.path.abspath(path), timeout=900)
         if res.returncode != 0:
@@ -146,6 +283,12 @@ def main(argv=None) -> int:
         out.append(dict(label=label, path=path, flags=list(flags or ()),
                         **got))
         for r in got["rows"]:
+            if "bits" not in r:
+                parts = "".join(f"; {k} {v:.2f} us" for k, v in
+                                r.get("launch_us", {}).items())
+                print(f"{label}: {r['kernel']} {r['case']}: {r['ms']:.4f} ms"
+                      f"{parts} ({card})", flush=True)
+                continue
             plan = (f", m_tile {r['m_tile']} splits {r['splits']} x "
                     f"{r['steps_per']} steps" if "splits" in r else "")
             print(f"{label}: q{r['bits']} M={r['m']} N={r['n']} K={r['k']}: "

@@ -48,16 +48,38 @@ def _attn_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0):
             torch.tensor(pm, device=dev), t(B, H, S, Dh), t(B, H, S, Dh))
 
 
+# (S_buf, d_head, n_heads): the full-width model's and the tiny geometry's
+ATTN_GEOMS = [(78, 128, 8), (16, 16, 4)]
+
+
+@pytest.mark.parametrize("geom", ATTN_GEOMS, ids=["full", "tiny"])
+@pytest.mark.parametrize("b", [1, 7, 32, 256])
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-5),
                                          (torch.bfloat16, 2e-2)])
-def test_t1_attention_kernel_matches_plain(cuda, dtype, atol):
-    args = _attn_inputs(cuda, dtype)
+def test_t1_attention_kernel_matches_plain(cuda, dtype, atol, int8, b, geom):
+    """B1 (bulk copies, 16-byte shared reads; a block or a cluster per
+    pair, as attn_plan says) against its plain version, dense and int8
+    caches; garbage in the dead slots changes no bit."""
+    S, Dh, H = geom
+    q, kn, vn, pm, kb, vb = _attn_inputs(cuda, dtype, B=b, H=H, S=S, Dh=Dh)
+    if int8:
+        kb, vb = _int8_caches(kb, vb)
     before = kernels.T1_ATTENTION.launches
-    got = t1_attention_core(*args).float()
+    got = t1_attention_core(q, kn, vn, pm, kb, vb)
     torch.cuda.synchronize()
     assert kernels.T1_ATTENTION.launches == before + 1
-    want = t1_attention_core_ref(*args).float()
-    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+    assert got.dtype == dtype
+    want = t1_attention_core_ref(q, kn, vn, pm, kb, vb)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    dead = (3 * 7) % S if b > 3 else 0
+    if int8:  # other garbage codes and scales in stream 3's dead slots
+        kb.q[3:4, :, :dead] = -5
+        vb.s[3:4, :, :dead] = -7.0
+    else:
+        vb[3:4, :, :dead] = 1e6
+    torch.testing.assert_close(t1_attention_core(q, kn, vn, pm, kb, vb), got,
+                               atol=0, rtol=0)
 
 
 def test_t1_attention_dead_slots_weigh_exactly_zero(cuda):
@@ -69,6 +91,27 @@ def test_t1_attention_dead_slots_weigh_exactly_zero(cuda):
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-5),
+                                         (torch.bfloat16, 2e-2)])
+def test_t1_attention_cluster_plan_at_the_servers_batch(cuda, dtype, atol,
+                                                        int8):
+    """At batch 8 (64 pairs) the plan splits each pair's slots over a
+    cluster; stream 3's share of dead slots weighs exactly 0."""
+    from nemotron_tpu_torch.ops.attn_kernel import attn_plan, sm_count
+
+    plan = attn_plan(8 * 8, 78, 128, 1 if int8 else dtype.itemsize,
+                     dtype.itemsize, sm_count(cuda))
+    assert plan.cluster > 1
+    q, kn, vn, pm, kb, vb = _attn_inputs(cuda, dtype, B=8)
+    if int8:
+        kb, vb = _int8_caches(kb, vb)
+    got = t1_attention_core(q, kn, vn, pm, kb, vb)
+    want = t1_attention_core_ref(q, kn, vn, pm, kb, vb)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(t1_attention_core(q, kn, vn, pm, kb, vb), got)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, kn, vn, pm, kb, vb = _attn_inputs(cuda, torch.float32)
     with pytest.raises(ValueError):
@@ -76,6 +119,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         t1_attention_core(q.half(), kn.half(), vn.half(), pm, kb.half(),
                           vb.half())
+    a = _attn_inputs(cuda, torch.bfloat16, B=2, Dh=24)  # 48-byte rows
+    with pytest.raises(ValueError):
+        t1_attention_core(*a)
+    flat = torch.zeros(kb.numel() + 1, device=cuda)
+    shifted = flat[1:].view(kb.shape)  # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError):
+        t1_attention_core(q, kn, vn, pm, shifted, vb)
     buf = torch.zeros(2, 600, device=cuda)
     with pytest.raises(ValueError):  # 600 samples < 2 frames
         mel_frames(buf, torch.ones(512, device=cuda),
@@ -94,23 +144,6 @@ def _int8_caches(kb, vb):
             buf.s[b, :, :dead] = 3.0e4
         bufs.append(buf)
     return bufs
-
-
-@pytest.mark.parametrize("dtype, atol", [(torch.float32, 2e-5),
-                                         (torch.bfloat16, 2e-2)])
-def test_t1_attention_int8_kernel_matches_plain(cuda, dtype, atol):
-    q, kn, vn, pm, kb, vb = _attn_inputs(cuda, dtype)
-    kq, vq = _int8_caches(kb, vb)
-    before = kernels.T1_ATTENTION.launches
-    got = t1_attention_core(q, kn, vn, pm, kq, vq)
-    torch.cuda.synchronize()
-    assert kernels.T1_ATTENTION.launches == before + 1
-    assert got.dtype == dtype
-    want = t1_attention_core_ref(q, kn, vn, pm, kq, vq)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
-    kq.q[3, :, :21] = -5  # other garbage in stream 3's dead slots
-    torch.testing.assert_close(t1_attention_core(q, kn, vn, pm, kq, vq), got,
-                               atol=0, rtol=0)
 
 
 # (M, N, K): the main path's shapes, M = 141 (the position projection),
@@ -229,21 +262,25 @@ def _block_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0):
                 n_heads=H, d_head=Dh)
 
 
-@pytest.mark.parametrize("b", [32, 256, 7])
+@pytest.mark.parametrize("b", [7, 32, 141, 256])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-2)])
 def test_t1_attention_block_kernel_matches_plain(cuda, dtype, rel, int8, b):
     """B3 against its plain version, dense and int8 caches (garbage codes
     and scales in the dead slots); f32 within 1e-5 x max|out|, bf16 within
-    1e-2 x max|out| (the bf16 rule of B4/B5)."""
+    1e-2 x max|out| (the bf16 rule of B4/B5); two calls give identical bits
+    (the QKV splits are added in a fixed order)."""
     a = _block_inputs(cuda, dtype, B=b)
     if int8:
         a["k_buf"], a["v_buf"] = _int8_caches(a["k_buf"], a["v_buf"])
     before = kernels.T1_ATTENTION_BLOCK.launches
     got = t1_attention_block(**a)
+    again = t1_attention_block(**a)
     torch.cuda.synchronize()
-    assert kernels.T1_ATTENTION_BLOCK.launches == before + 1
+    assert kernels.T1_ATTENTION_BLOCK.launches == before + 2
+    for g, w in zip(again, got):
+        assert torch.equal(g, w)
     want = t1_attention_block_ref(**a)
     for name, g, w in zip(("out", "k_new", "v_new"), got, want):
         assert g.dtype == dtype and g.shape == w.shape, name
