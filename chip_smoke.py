@@ -284,8 +284,7 @@ def phase_kernels(torch, report):
         q, kn, vn, pm, kb, vb = args
         H, Dh = q.shape[1:]
         S = pm.shape[-1] - 1
-        plan = attn_plan(B * H, S, Dh, 1 if int8 else dtype.itemsize,
-                         dtype.itemsize, sms)
+        plan = attn_plan(B * H, S, sms)
         log(f"[3 kernels] t1_attention {dname} "
             f"{'int8' if int8 else 'dense'} B={B}: plan {plan}")
         library = None

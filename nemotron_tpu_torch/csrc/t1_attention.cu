@@ -45,14 +45,6 @@ using t1::kProbe;
 using t1::kThreads;
 using t1::kWarps;
 
-// measurement only (tools/gemm_turns.py --probe): bytes per bulk copy
-// (0, every build of the kernels: one copy for a pair's K rows and one for
-// its V rows)
-#ifndef T1_COPY_SPLIT
-#define T1_COPY_SPLIT 0
-#endif
-constexpr uint32_t kSplit = T1_COPY_SPLIT;
-
 __host__ __device__ inline int r16(int x) { return (x + 15) / 16 * 16; }
 
 // shared memory of one block, in bytes from the (aligned) base: the K
@@ -108,10 +100,9 @@ t1_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
   }
   __syncthreads();
 
-  // warp 0 stages the pair. K's barrier: the K rows (in pieces of kSplit
-  // bytes, 0: one copy) and q, k_new, v_new by bulk copies, the position
-  // terms and int8 scales by 4-byte cp.async (their rows are not 16-byte
-  // aligned); V's barrier: the V rows.
+  // warp 0 stages the pair. K's barrier: the K rows, q, k_new and v_new by
+  // bulk copies, the position terms and int8 scales by 4-byte cp.async
+  // (their rows are not 16-byte aligned); V's barrier: the V rows.
   if (tid < 32 && !(kProbe & 2)) {
     const long row_b = (long)kDh * sizeof(TC);
     const uint32_t bytes = (uint32_t)(n * row_b);
@@ -120,19 +111,14 @@ t1_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
     if (lane == 0) {
       hopper::bar_expect(bk, bytes + 3 * vec);
       hopper::bar_expect(bk + 1, bytes);
+      hopper::bulk_copy(smem, reinterpret_cast<const uint8_t*>(kc) + off,
+                        bytes, bk);
+      hopper::bulk_copy(smem + lay.tile,
+                        reinterpret_cast<const uint8_t*>(vc) + off, bytes,
+                        bk + 1);
       hopper::bulk_copy(smem + lay.q, q + bh * kDh, vec, bk);
       hopper::bulk_copy(smem + lay.kn, k_new + bh * kDh, vec, bk);
       hopper::bulk_copy(smem + lay.vn, v_new + bh * kDh, vec, bk);
-    }
-    __syncwarp();
-    const uint32_t piece = kSplit > 0 ? kSplit : bytes;
-    for (uint32_t o = lane * piece; o < bytes; o += 32 * piece) {
-      const uint32_t len = min(piece, bytes - o);
-      hopper::bulk_copy(smem + o, reinterpret_cast<const uint8_t*>(kc) + off + o,
-                        len, bk);
-      hopper::bulk_copy(smem + lay.tile + o,
-                        reinterpret_cast<const uint8_t*>(vc) + off + o, len,
-                        bk + 1);
     }
     const float* pmg = pos_mask + bh * (s_buf + 1);
     for (int i = lane; i <= n; i += 32)

@@ -63,12 +63,6 @@ using t1::kWarps;
 __host__ __device__ inline int r16(int x) { return (x + 15) / 16 * 16; }
 
 constexpr int kMaxGroups = 4;  // thread groups of kThreads per block, at most
-// measurement only (tools/gemm_turns.py --probe): groups per attention
-// block in place of the plan's (with 2 stages where they fit, else 1, else
-// the plan's groups); 0 in every build of the kernels
-#ifndef T1_BLOCK_GROUPS
-#define T1_BLOCK_GROUPS 0
-#endif
 
 // shared memory of one attention block, in bytes from the base: pp[h],
 // bias_u and bias_v, pp's barrier; then per group `stages` stages of [K
@@ -282,19 +276,6 @@ int attention(const float* qkv, int splits, const void* bias_u,
               void* ctx, void* k_new, void* v_new, int B, int H, int s_buf,
               int d_head, float scale, int per_block, int groups,
               int stages, cudaStream_t stream) {
-  if (T1_BLOCK_GROUPS > 0) {  // where it fits, else the plan's
-    int limit = 0, dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    for (int st = 2; st >= 1; --st)
-      if (Layout(s_buf, d_head, (int)sizeof(TC), st, splits, T1_BLOCK_GROUPS)
-              .total <= limit) {
-        groups = T1_BLOCK_GROUPS;
-        stages = st;
-        break;
-      }
-  }
   if (per_block < 1 || stages < 1 || stages > 2 || groups < 1 ||
       groups > kMaxGroups || s_buf + 1 > 2 * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);

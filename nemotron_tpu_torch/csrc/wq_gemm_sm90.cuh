@@ -339,6 +339,16 @@ __device__ __forceinline__ void put8(uint8_t* tile, int r, int ch,
   *reinterpret_cast<uint4*>(tile + r * 128 + ((ch ^ (r & 7)) << 4)) = u;
 }
 
+// the ring's barriers, by one thread: full[s] completes on `producers`
+// arrivals (and the TMA bytes expected), empty[s] on the 256 consumers'
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
+                                          int stages, int producers) {
+  for (int s = 0; s < stages; ++s) {
+    bar_init(&full[s], producers);
+    bar_init(&empty[s], 256);
+  }
+}
+
 }  // namespace sm90
 
 // ---- the kernel ---------------------------------------------------------------
@@ -371,10 +381,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   const int it0 = z * steps_per, it1 = min(steps, it0 + steps_per);
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) {
-      bar_init(&full[s], 1 + 32);  // the TMA issuer + the warp's scales
-      bar_init(&empty[s], 256);
-    }
+    ring_init(full, empty, stages, 1 + 32);  // the TMA issuer + the scales
     bar_init_fence();
   }
   __syncthreads();
@@ -522,7 +529,10 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
 
   // epilogue: the accumulator fragment (rows 16w + g and + 8 of the
-  // warpgroup's 64, columns 8j + 2q and + 1) staged as [m][n] f32
+  // warpgroup's 64, columns 8j + 2q and + 1) staged as [m][n] f32, then
+  // stored coalesced along n. gemm_dense_sm90 below stages the same way;
+  // written out in each kernel, not as one inlined function: that function
+  // (three forms of it) cost B5 1.4-1.9% at batch tiles of 80 rows (PERF.md)
   named_sync(3, 256);  // both warpgroups are done with the ring
   float* stg = reinterpret_cast<float*>(base);
   {
@@ -723,9 +733,10 @@ int launch_sm90(const void* x, const void* w, const void* scales, void* y,
 //        weight tiles; out: y = bf16(res + sum), summed in f32, rounded once.
 // grid (parts * tiles_per_part, ceil(M / NT), splits), 288 threads: lane 0
 // of the producer warp issues the TMA copies, two consumer warpgroups of 64
-// weight rows each run SS wgmma with f32 sums (fenced as in gemm_sm90).
-// Rows past the weight's or the batch's edge read as zero through TMA and
-// are masked in the stores.
+// weight rows each run SS wgmma with f32 sums (fenced as in gemm_sm90);
+// the ring's barriers are gemm_sm90's (ring_init) and the epilogue stages
+// as its does. Rows past the weight's or the batch's edge read as zero
+// through TMA and are masked in the stores.
 
 struct DenseArgs {
   const __nv_bfloat16* x;     // [M, K]: LN's input (kLn) or the B operand
@@ -741,12 +752,6 @@ struct DenseArgs {
 namespace sm90 {
 
 constexpr int kWTile = kRows * 128;  // bytes of a [128, 64] bf16 weight tile
-// measurement only (tools/gemm_turns.py --probe): 1 releases a stage one
-// step later, with that step's wgmma still in flight; 0 in every build
-#ifndef WQ_DENSE_LAG
-#define WQ_DENSE_LAG 0
-#endif
-constexpr int kDenseLag = WQ_DENSE_LAG;
 
 // the ring (or the epilogue's staging, the larger), rounded to 1 KB
 __host__ __device__ inline int dense_region(bool ln, int nt, int stages) {
@@ -820,10 +825,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   const int it0 = z * a.steps_per, it1 = min(a.steps, it0 + a.steps_per);
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < stages; ++s) {
-      bar_init(&full[s], 1);
-      bar_init(&empty[s], 256);
-    }
+    ring_init(full, empty, stages, 1);
     if (kLn) bar_init(xbar, 1);
     bar_init_fence();
   }
@@ -927,22 +929,12 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                    desc_sw128(bt + kk * 32));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     fence_acc<NT / 2>(acc);
-    if constexpr (kDenseLag) {  // keep one step's wgmma in flight
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-      fence_acc<NT / 2>(acc);
-      if (it > it0) bar_arrive(&empty[(i + stages - 1) % stages]);
-    } else {
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      fence_acc<NT / 2>(acc);
-      bar_arrive(&empty[s]);  // the stage goes back to the producer
-    }
-  }
-  if constexpr (kDenseLag) {
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc<NT / 2>(acc);
+    bar_arrive(&empty[s]);  // the stage goes back to the producer
   }
 
-  // epilogue, as gemm_sm90's: the transposed accumulator staged as [m][n]
+  // epilogue, staged as gemm_sm90's (see there why it is written out)
   named_sync(3, 256);
   float* stg = reinterpret_cast<float*>(base);
   {

@@ -24,6 +24,7 @@ plans of `block_gemm_plans`, its attention launch on `attn_group`'s.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -83,10 +84,9 @@ def t1_attention_block_ref(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
 
 # The bf16 projections (csrc/wq_gemm_sm90.cuh, gemm_dense_sm90): blocks of
 # GEMM_ROWS weight rows, steps of GEMM_STEP columns, batch tiles of one of
-# GEMM_M_TILES rows (the QKV GEMM's resident LN operand keeps them <= 64),
-# a ring of 2 to MAX_STAGES weight tiles.
+# GEMM_M_TILES rows (the QKV GEMM's resident LN operand keeps them <= 64).
+# The launcher gives the ring as many stages as fit, at least 2.
 QKV_MAX_TILE = 64
-MAX_STAGES = 4
 STAGING_LD = GEMM_ROWS + 4  # floats per row of the epilogue's staging
 
 
@@ -95,7 +95,7 @@ def dense_smem(ln: bool, nt: int, steps: int, stages: int) -> int:
     dense_smem): alignment slack, the ring (or the epilogue's staging,
     the larger), with `ln` the resident operand (the block's x rows, all
     `steps` atoms of 64 columns), its row statistics and barrier, and the
-    ring's barriers."""
+    ring's barriers. The QKV plan picks its batch tile by it."""
     ring = stages * (GEMM_ROWS * 128 + (0 if ln else nt * 128))
     region = -(-max(ring, nt * STAGING_LD * 4) // 1024) * 1024
     return (1024 + region + (nt * 128 * steps + nt * 8 + 8 if ln else 0)
@@ -107,15 +107,13 @@ class DensePlan:
     """One projection launch: batch tiles of nt rows (tiles_m of them),
     tiles_n weight-row tiles (for QKV, ceil(D / 128) in each of q, k, v:
     none straddles two), `steps` steps of GEMM_STEP columns in `splits`
-    runs of steps_per (none empty); smem with the ring's stages."""
+    runs of steps_per (none empty)."""
     nt: int
     tiles_m: int
     tiles_n: int
     splits: int
     steps: int
     steps_per: int
-    stages: int
-    smem: int
 
     @property
     def blocks(self) -> int:
@@ -126,24 +124,17 @@ def _tile(rows: int) -> int:
     return min(t for t in GEMM_M_TILES if t >= max(1, rows))
 
 
-def _dense_plan(ln, nt, tiles_m, tiles_n, steps, steps_per) -> DensePlan:
-    stages = MAX_STAGES
-    while stages > 2 and dense_smem(ln, nt, steps, stages) > SMEM_BLOCK:
-        stages -= 1
-    return DensePlan(nt, tiles_m, tiles_n, -(-steps // steps_per), steps,
-                     steps_per, stages, dense_smem(ln, nt, steps, stages))
-
-
+@functools.lru_cache(maxsize=None)
 def block_gemm_plans(m: int, d: int, sms: int):
     """The plans of B3's two bf16 projections for m streams at d_model d
     on a card with `sms` SMs: (qkv, out).
 
-    QKV: batch tiles of at most 64 rows (the block's x rows stay resident:
-    nt x d in bf16, within one block's shared memory), then split-K while
-    the blocks leave SMs idle, at least one step per split; the attention
-    launch adds the splits' partials in split order. Out: one split (the
-    residual is added in the epilogue), batch tiles as small as it takes
-    to give the SMs a block each."""
+    QKV: batch tiles of at most 64 rows, as large as let a ring of two
+    stages fit beside the block's resident x rows (nt x d in bf16), then
+    split-K while the blocks leave SMs idle, at least one step per split;
+    the attention launch adds the splits' partials in split order. Out: one
+    split (the residual is added in the epilogue), batch tiles as small as
+    it takes to give the SMs a block each."""
     steps = -(-d // GEMM_STEP)
     tiles_n = 3 * -(-d // GEMM_ROWS)
     tiles_m = -(-m // QKV_MAX_TILE)
@@ -152,11 +143,11 @@ def block_gemm_plans(m: int, d: int, sms: int):
     nt = _tile(-(-m // tiles_m))
     want = max(1, sms // (tiles_n * tiles_m))
     steps_per = -(-steps // min(want, steps))
-    qkv = _dense_plan(True, nt, tiles_m, tiles_n, steps, steps_per)
+    qkv = DensePlan(nt, tiles_m, tiles_n, -(-steps // steps_per), steps,
+                    steps_per)
     out_n = -(-d // GEMM_ROWS)
     nt = _tile(-(-m // max(1, sms // out_n)))
-    out = _dense_plan(False, nt, -(-m // nt), out_n, steps, steps)
-    return qkv, out
+    return qkv, DensePlan(nt, -(-m // nt), out_n, 1, steps, steps)
 
 
 MAX_GROUPS = 4  # groups of 128 threads per attention block, at most
@@ -187,17 +178,17 @@ class AttnGroupPlan:
     per_block: int
     groups: int
     stages: int
-    smem: int
     per_sm: int  # blocks an SM holds at once
 
     def blocks(self, b: int, h: int) -> int:
         return h * -(-b // self.per_block)
 
 
+@functools.lru_cache(maxsize=None)
 def attn_group(b: int, h: int, s_buf: int, d_head: int, elem: int,
                splits: int, sms: int) -> AttnGroupPlan:
     """The plan of B3's attention launch: the most stream buffers (groups x
-    stages, 2 groups of 2 stages first) that fit a block, up to
+    stages, 2 groups of 2 stages first) that fit a block (attn_smem), up to
     MAX_GROUPS groups; then just enough streams per block that the blocks
     an SM holds at once cover every (stream, head) in one wave, and no
     more groups than streams. Raises ValueError where not even two groups
@@ -212,9 +203,7 @@ def attn_group(b: int, h: int, s_buf: int, d_head: int, elem: int,
     per_sm = max(1, min(16 // groups, SMEM_SM // (smem + SMEM_RESERVED)))
     per_block = max(1, -(-(b * h) // (per_sm * sms)))
     groups = min(groups, per_block)  # no group without a stream
-    return AttnGroupPlan(per_block, groups, stages,
-                         attn_smem(s_buf, d_head, elem, stages, splits,
-                                   groups), per_sm)
+    return AttnGroupPlan(per_block, groups, stages, per_sm)
 
 
 def _check(name, t, shape, dtype, device):

@@ -19,6 +19,7 @@ shapes it takes) on the plan of `attn_plan`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -82,6 +83,7 @@ def b1_smem(n: int, d_head: int, elem: int, act: int) -> int:
             + r16((n + 1) * 4) + 8192 // elem + r16((2 + d_head) * 4) + 16)
 
 
+@functools.lru_cache(maxsize=None)
 def check_shape(d_head: int, elem: int, s_buf: int) -> None:
     """The shapes the bulk-copy body takes (elem: bytes of a cache element,
     4 f32, 2 bf16, 1 int8): d_head one of D_HEADS (the kernels' compiled
@@ -104,17 +106,10 @@ class AttnPlan:
     (ceil(s_buf / cluster) each)."""
     cluster: int
     blocks: int
-    smem: int    # bytes of shared memory per block
-    per_sm: int  # blocks an SM holds at once
 
 
-def blocks_per_sm(smem: int) -> int:
-    """Blocks of 128 threads with `smem` bytes that one SM holds at once."""
-    return max(1, min(16, SMEM_SM // (smem + SMEM_RESERVED)))
-
-
-def attn_plan(pairs: int, s_buf: int, d_head: int, elem: int, act: int,
-              sms: int) -> AttnPlan:
+@functools.lru_cache(maxsize=None)
+def attn_plan(pairs: int, s_buf: int, sms: int) -> AttnPlan:
     """The plan of one B1 call on a card with `sms` SMs: a block per
     (stream, head) pair; with fewer pairs than SMs, a cluster of 2 or 4
     blocks per pair while the clusters still leave SMs idle (every block
@@ -123,8 +118,7 @@ def attn_plan(pairs: int, s_buf: int, d_head: int, elem: int, act: int,
     while (cluster < MAX_CLUSTER and pairs * cluster < sms
            and -(-s_buf // (2 * cluster)) * (2 * cluster - 1) < s_buf):
         cluster *= 2
-    smem = b1_smem(-(-s_buf // cluster), d_head, elem, act)
-    return AttnPlan(cluster, pairs * cluster, smem, blocks_per_sm(smem))
+    return AttnPlan(cluster, pairs * cluster)
 
 
 _SMS: dict = {}
@@ -186,8 +180,7 @@ def t1_attention_core(q_u, k_new, v_new, pos_mask, k_buf, v_buf):
     if any(t.data_ptr() % 16 for t in codes):
         raise ValueError("t1_attention_core: K/V buffers must be 16-byte "
                          "aligned (bulk copies)")
-    plan = attn_plan(b * h, s_buf, dh, elem, q_u.element_size(),
-                     sm_count(dev))
+    plan = attn_plan(b * h, s_buf, sm_count(dev))
     # q, k_new and v_new are staged by bulk copies: 16-byte aligned rows
     q_u, k_new, v_new = (t.contiguous() if t.data_ptr() % 16 == 0
                          and t.is_contiguous() else t.clone(

@@ -1,14 +1,14 @@
 """Time kernels B1 (T=1 attention), B3 (the fused attention block) and B4 /
-B5 (Q8_0 / Q4_0 linears, bf16 activations) of two or more checkouts of the
-repo in turns on one card, as one call of the card allows a fair
-comparison: each tree runs in a process of its own (it builds its own
-kernels into its own `_build/`), in the order given, e.g. parent, change,
-change, parent.
+B5 (Q8_0 / Q4_0 linears, bf16 activations), and the host time of a
+full-width tick, of two or more checkouts of the repo in turns on one card,
+as one call of the card allows a fair comparison: each tree runs in a
+process of its own (it builds its own kernels into its own `_build/`), in
+the order given, e.g. parent, change, change, parent.
 
     python3 nemotron_tpu_torch/tools/gemm_turns.py \\
         --tree parent=_archive/parent --tree change=. \\
         --tree change=. --tree parent=_archive/parent \\
-        [--only b1 --only b3 --only b4b5] [--probe]
+        [--only b1 --only b3 --only b4b5 --only tick] [--probe]
 
 Per tree and case: device ms per call (CUDA events around 50 calls behind
 a device spin, median of 7). B1 and B3 at chip_smoke.py phase 3's shapes:
@@ -16,16 +16,17 @@ B in {32, 256}, H=8, S_buf=78, Dh=128 (B3: D=1024), f32 and bf16, dense
 and int8 caches, random validity windows with garbage in the dead slots.
 B4 / B5 also give `dense_ms`, torch.matmul of x and the weight dequantized
 to bf16 beforehand (cuBLAS's dense product of the same shape), at the main
-path's (N, K) and M in {32, 141, 256}. `--only` picks the groups (all
-three by default). `--profile` adds each of B3's launches' device us.
-`--probe` then times the change's B1 built as measurement variants
-(T1_PROBE: without the scores and context, without the copies;
-T1_COPY_SPLIT: 2 KB bulk copies), its B3 (T1_BLOCK_GROUPS: 2, 3 or 4
-thread groups per attention block; WQ_DENSE_LAG: the projections release a
-stage one step later), and its B4 / B5 as measurement variants
-of csrc/wq_gemm_sm90.cuh (WQ_SM90_PROBE: without the dequantization,
-without the wgmma, without both; WQ_SM90_MAX_STAGES: a deeper ring), each
-on ops/quant.py:gemm_plan's plan, with one more case of a single pipeline
+path's (N, K) and M in {32, 141, 256}. `tick`: host ms of one all-active
+fused tick at full width and B=256 (random weights from seed 0; the tick
+synchronised before and after, median of 48 after 8 warm-up ticks) in bf16,
+and in f32, bf16 and bf16 with int8 K/V through the attention block.
+`--only` picks the groups (all four by default). `--profile` adds each of
+B3's launches' device us. `--probe` then times the change's B1 built as
+measurement variants (T1_PROBE: without the scores and context, without
+the copies) and its B4 / B5 as measurement variants of
+csrc/wq_gemm_sm90.cuh (WQ_SM90_PROBE: without the dequantization, without
+the wgmma, without both; WQ_SM90_MAX_STAGES: a deeper ring), each on
+ops/quant.py:gemm_plan's plan, with one more case of a single pipeline
 step (K = 64) for the fixed cost of a call. Their outputs are not the
 function's. Prints one line per case; `--json PATH` also writes all of it
 there as JSON.
@@ -44,7 +45,7 @@ from pathlib import Path
 
 import numpy as np
 
-GROUPS = ("b1", "b3", "b4b5")
+GROUPS = ("b1", "b3", "b4b5", "tick")
 SHAPES = ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024))
 BATCHES = (32, 141, 256)
 
@@ -78,19 +79,11 @@ PROBES = (
      ("-DWQ_SM90_MAX_STAGES=8", "-DWQ_SM90_PROBE=3")),
 )
 ONE_STEP = (1024, 64)  # (N, K) of a single pipeline step, one split
-# measurement variants of the change's B3: label, extra nvcc flags
-B3_PROBES = (
-    ("b3 probe: 2 groups", ("-DT1_BLOCK_GROUPS=2",)),
-    ("b3 probe: 3 groups", ("-DT1_BLOCK_GROUPS=3",)),
-    ("b3 probe: 4 groups", ("-DT1_BLOCK_GROUPS=4",)),
-    ("b3 probe: dense GEMM lag", ("-DWQ_DENSE_LAG=1",)),
-)
 # measurement variants of the change's B1: label, extra nvcc flags
 B1_PROBES = (
     ("b1 probe: full", ()),
     ("b1 probe: no math", ("-DT1_PROBE=1",)),
     ("b1 probe: no copies", ("-DT1_PROBE=2",)),
-    ("b1 probe: 2 KB copies", ("-DT1_COPY_SPLIT=2048",)),
 )
 
 
@@ -126,6 +119,22 @@ def _caches(torch, rng, dev, dtype, int8, live):
     return bufs
 
 
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its return type, its
+    anonymous namespace and its trailing argument list:
+    'void (anonymous namespace)::k<float, 128>(float const*, int)' ->
+    'k<float, 128>'."""
+    name, depth = key, 0
+    if name.endswith(")"):
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    name = name.replace("(anonymous namespace)::", "")
+    return name[5:] if name.startswith("void ") else name
+
+
 def launch_us(torch, fn, calls: int = 20) -> dict:
     """Device us per call of each kernel fn launches (torch.profiler)."""
     from torch.autograd import DeviceType
@@ -137,9 +146,69 @@ def launch_us(torch, fn, calls: int = 20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split("(")[0][-60:]: e.self_device_time_total / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            name = kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / calls
+    return out
+
+
+TICK_B = 256
+
+
+def tick_ms(torch, model, b: int, n: int = 48, warmup: int = 8) -> float:
+    """Median host ms of one all-active fused tick at batch b on a fresh
+    state (synchronised before and after each tick), with the engine's
+    phase advance and wrap compaction."""
+    import time
+
+    cfg = model.cache_config(0)
+    state = model.init_stream_state(b, cfg)
+    rng = np.random.default_rng(b)
+    phase, times = 0, []
+    for i in range(warmup + n):
+        audio = (rng.standard_normal((b, cfg.shift_samples)) * 3000).astype(
+            np.int16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = model.put_batch(model.pack_tick_inputs(
+            audio, np.ones(b), np.zeros(b), None))
+        state, _ = model.fused_tick_packed(cfg, state, packed, True,
+                                           phase=phase)
+        phase += 1
+        if phase == cfg.n_phases:
+            state = model.compact_state(cfg, state)
+            phase = 0
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def tick_rows(torch) -> list:
+    """Host ms per tick of the full-width model at B=TICK_B: bf16, and f32,
+    bf16 and bf16 int8-K/V through the attention block."""
+    from nemotron_tpu_torch import Hparams
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import params_to
+
+    f32 = ASRModel.random(Hparams(), seed=0, device="cuda")
+    hp, vocab = f32.hp, f32.tokenizer.vocab
+    bf16 = params_to(f32.params, "cuda", torch.bfloat16)
+    rows = []
+    for name, params, kw in (
+            ("bf16", bf16, {}),
+            ("f32 block", f32.params, dict(attn_block=True)),
+            ("bf16 block", bf16, dict(attn_block=True)),
+            ("bf16 int8-KV block", bf16, dict(attn_block=True,
+                                              kv_int8=True))):
+        model = ASRModel(hp, params, vocab, device="cuda", **kw)
+        rows.append(dict(kernel="tick", case=f"{name} B={TICK_B}",
+                         ms=tick_ms(torch, model, TICK_B)))
+        del model
+        torch.cuda.empty_cache()
+    return rows
 
 
 def attn_rows(torch, dev, rng, b3: bool, profile: bool = False):
@@ -225,6 +294,8 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
                     row.update(m_tile=p.m_tile, splits=p.splits,
                                steps_per=p.steps_per)
                 rows.append(row)
+    if "tick" in only:
+        rows += tick_rows(torch)
     print(json.dumps({"rows": rows}))
 
 
@@ -233,7 +304,7 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", action="append", default=[],
                     help="label=path, in the order to run")
     ap.add_argument("--probe", action="store_true",
-                    help="also time measurement builds of B1, B3 and B4/B5")
+                    help="also time measurement builds of B1 and B4/B5")
     ap.add_argument("--only", action="append", choices=GROUPS,
                     help="kernel groups to time (default: all)")
     ap.add_argument("--profile", action="store_true",
@@ -259,8 +330,6 @@ def main(argv=None) -> int:
     change = next((r[1] for r in runs if r[0] == "change"), None)
     if args.probe and change and "b1" in only:
         runs += [(label, change, flags, "b1") for label, flags in B1_PROBES]
-    if args.probe and change and "b3" in only:
-        runs += [(label, change, flags, "b3") for label, flags in B3_PROBES]
     if args.probe and change and "b4b5" in only:
         runs += [(label, change, flags, "b4b5") for label, flags in PROBES]
     out = []
@@ -270,7 +339,6 @@ def main(argv=None) -> int:
         if probe is not None:  # a probe build times one group
             cmd += [f"--only={probe}", *(f"--flag={f}" for f in flags)]
             cmd += ["--child-probe"] if probe == "b4b5" else []
-            cmd += ["--profile"] if args.profile and probe == "b3" else []
         else:
             cmd += [f"--only={g}" for g in only]
             cmd += ["--profile"] if args.profile else []

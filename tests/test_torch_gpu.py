@@ -100,8 +100,7 @@ def test_t1_attention_cluster_plan_at_the_servers_batch(cuda, dtype, atol,
     cluster; stream 3's share of dead slots weighs exactly 0."""
     from nemotron_tpu_torch.ops.attn_kernel import attn_plan, sm_count
 
-    plan = attn_plan(8 * 8, 78, 128, 1 if int8 else dtype.itemsize,
-                     dtype.itemsize, sm_count(cuda))
+    plan = attn_plan(8 * 8, 78, sm_count(cuda))
     assert plan.cluster > 1
     q, kn, vn, pm, kb, vb = _attn_inputs(cuda, dtype, B=8)
     if int8:
@@ -110,6 +109,36 @@ def test_t1_attention_cluster_plan_at_the_servers_batch(cuda, dtype, atol,
     want = t1_attention_core_ref(q, kn, vn, pm, kb, vb)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
     assert torch.equal(t1_attention_core(q, kn, vn, pm, kb, vb), got)
+
+
+@pytest.mark.parametrize("dtype, int8, atol", [
+    (torch.float32, False, 2e-5), (torch.bfloat16, False, 2e-2),
+    (torch.float32, True, 2e-5)], ids=["f32", "bf16", "int8"])
+def test_t1_attention_at_the_largest_s_buf_the_shape_rule_takes(
+        cuda, dtype, int8, atol):
+    """check_shape's Python copy of the kernel's shared-memory layout
+    (ops/attn_kernel.py:b1_smem) decides which S_buf the wrapper takes: at
+    the largest one, with a block per pair (17 streams x 8 heads > 132
+    SMs), the kernel launches and agrees with its plain version, so the
+    copy is not smaller than the kernel's own layout."""
+    from nemotron_tpu_torch.ops.attn_kernel import check_shape
+
+    elem = 1 if int8 else dtype.itemsize
+
+    def takes(s):
+        try:
+            check_shape(128, elem, s)
+        except ValueError:
+            return False
+        return True
+
+    s_buf = max(s for s in range(1, 2048) if takes(s))
+    q, kn, vn, pm, kb, vb = _attn_inputs(cuda, dtype, B=17, S=s_buf)
+    if int8:
+        kb, vb = _int8_caches(kb, vb)
+    got = t1_attention_core(q, kn, vn, pm, kb, vb)
+    want = t1_attention_core_ref(q, kn, vn, pm, kb, vb)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -291,6 +320,57 @@ def test_t1_attention_block_kernel_matches_plain(cuda, dtype, rel, int8, b):
         a["k_buf"].s[3, :, :21] = -7.0
         for g, w in zip(t1_attention_block(**a), got):
             torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+def _largest_attention_s_buf(elem, splits, sms, b=64, h=8, d_head=128):
+    """The S_buf at which B3's attention plan (ops/attn_block.py:
+    attn_group) gives its block the most shared memory, by attn_smem."""
+    from nemotron_tpu_torch.ops.attn_block import attn_group, attn_smem
+
+    best = (0, 0)
+    for s in range(2, 256):
+        try:
+            p = attn_group(b, h, s, d_head, elem, splits, sms)
+        except ValueError:
+            continue
+        best = max(best, (attn_smem(s, d_head, elem, p.stages, splits,
+                                    p.groups), s))
+    return best[1]
+
+
+@pytest.mark.parametrize("case", ["qkv bf16 D=2048", "attention f32",
+                                  "attention bf16", "attention bf16 int8"])
+def test_t1_attention_block_at_the_plans_largest_shared_memory(cuda, case):
+    """The plans' Python copies of the kernels' shared-memory layouts
+    (dense_smem for the QKV projection's batch tile, attn_smem for the
+    attention launch's groups and stages) at the configurations where they
+    come closest to one block's limit: B3 launches and agrees with its
+    plain version, so neither copy is smaller than the kernel's own."""
+    from nemotron_tpu_torch.ops.attn_block import block_gemm_plans, dense_smem
+    from nemotron_tpu_torch.ops.attn_kernel import SMEM_BLOCK, sm_count
+
+    sms = sm_count(cuda)
+    dtype = torch.float32 if "f32" in case else torch.bfloat16
+    int8 = "int8" in case
+    if case.startswith("qkv"):  # the resident LN rows beside two stages
+        B, H, S = 96, 16, 78
+        qkv, _ = block_gemm_plans(B, H * 128, sms)
+        assert SMEM_BLOCK - dense_smem(True, qkv.nt, qkv.steps, 2) < 2048
+    else:
+        B, H = 64, 8
+        splits = 1 if dtype == torch.float32 else block_gemm_plans(
+            B, H * 128, sms)[0].splits
+        S = _largest_attention_s_buf(1 if int8 else dtype.itemsize, splits,
+                                     sms, b=B, h=H)
+    a = _block_inputs(cuda, dtype, B=B, H=H, S=S)
+    if int8:
+        a["k_buf"], a["v_buf"] = _int8_caches(a["k_buf"], a["v_buf"])
+    got = t1_attention_block(**a)
+    want = t1_attention_block_ref(**a)
+    rel = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, g, w in zip(("out", "k_new", "v_new"), got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), (name, S, err)
 
 
 def test_t1_attention_block_wrapper_refuses(cuda):
