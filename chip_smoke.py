@@ -20,7 +20,8 @@ Phases, one line each, any failure exits non-zero:
              and B5 (Q4_0) in bf16 at M in {32, 141, 256} for the four
              (N, K) of the encoder's matrices (dense_ms: cuBLAS on the
              weight dequantized beforehand; B5's library_ms:
-             torch._weight_int4pack_mm) and in f32 at M in {256, 141}
+             torch._weight_int4pack_mm) and in f32 at M in {256, 141} for
+             the same four (dense_ms: cuBLAS's f32 FFMA product)
   4 tick     full-width random model (Hparams() defaults), 4 streams x 10
              fused ticks (through the slack-buffer wrap) on the card vs the
              same ticks on the CPU: f32 and bf16 dense; the same with the
@@ -35,8 +36,8 @@ Phases, one line each, any failure exits non-zero:
              random model;
     times    fused_tick_packed timed and profiled at B=32 and B=256 in f32,
              and at B=256 in bf16 dense, bf16 + int8 K/V, bf16 Q8_0 + int8
-             K/V, bf16 Q4_0, and f32, bf16 and bf16 + int8 K/V with the
-             block
+             K/V, bf16 Q4_0, f32 Q8_0 + int8 K/V, and f32, bf16 and bf16 +
+             int8 K/V with the block
 The second-to-last line is the kernels JSON, the last line the device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
@@ -239,6 +240,7 @@ def phase_kernels(torch, report):
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.ops import quant
     from nemotron_tpu_torch.ops.attn_block import (attn_group,
+                                                   block_f32_plans,
                                                    block_gemm_plans,
                                                    t1_attention_block,
                                                    t1_attention_block_ref)
@@ -325,13 +327,12 @@ def phase_kernels(torch, report):
                 D, S = H * Dh, a["mask"].shape[-1] - 1
                 ins = [v for v in a.values() if not isinstance(v, int)]
                 elem = 1 if int8 else dtype.itemsize
-                plans = block_gemm_plans(b, D, sms)
-                splits = plans[0].splits if dname == "bf16" else 1
+                plans = (block_gemm_plans(b, D, sms) if dname == "bf16" else
+                         block_f32_plans(b, D, S, Dh, elem, sms))
+                splits = plans[0].splits
                 log(f"[3 kernels] t1_attention_block {dname} "
                     f"{'int8' if int8 else 'dense'} B={b}: projections "
-                    + (f"{plans}" if dname == "bf16"
-                       else "FFMA (wq_matmul.cuh)")
-                    + f", attention "
+                    f"{plans}, attention "
                     f"{attn_group(b, H, S, Dh, elem, splits, sms)}")
                 unfused = _unfused_block(torch, a)
                 u_err = float((flat(unfused()) - flat(want)).abs().max())
@@ -365,8 +366,7 @@ def phase_kernels(torch, report):
             lib = _int4pack_mm(torch, qt, n, k) if bits == 4 else None
             for dname, dtype, batches in (
                     ("bf16", torch.bfloat16, (32, 141, 256)),
-                    ("f32", torch.float32,
-                     (256, 141) if (n, k) != (2048, 1024) else ())):
+                    ("f32", torch.float32, (256, 141))):
                 w_dense = deq(qt, dtype)  # cuBLAS's operand, made once
                 for m in batches:
                     x = torch.tensor(rng.standard_normal((m, k)).astype(
@@ -781,7 +781,8 @@ def phase_tick_times(torch, models, card: str):
 
     for name, b in (("f32", 32), ("f32", 256), ("bf16", 256),
                     ("bf16 int8-KV", 256), ("bf16 Q8_0 int8-KV", 256),
-                    ("bf16 Q4_0", 256), ("f32 block", 256),
+                    ("bf16 Q4_0", 256), ("f32 Q8_0 int8-KV", 256),
+                    ("f32 block", 256),
                     ("bf16 block", 256), ("bf16 int8-KV block", 256)):
         model = models[name]
         ms = time_ticks(torch, model, b)
@@ -811,7 +812,7 @@ def phase_tick_times(torch, models, card: str):
                 f"{per_launch * 1e3:.1f} us per launch, "
                 f"{kv_bytes / per_launch / 1e6:.0f} GB/s of K/V "
                 f"({kv_bytes / 1e6:.1f} MB per layer) ({card})")
-        block = [r for r in rows if "DenseW" in r[0]
+        block = [r for r in rows if "DenseW" in r[0] or "ln_stats" in r[0]
                  or "gemm_dense_sm90" in r[0]
                  or "block_attention_kernel" in r[0]]
         if block:  # B3: its two GEMMs and its attention launch
@@ -895,9 +896,9 @@ def main() -> int:
     del cpu_model, ref
     own = run_ticks(model(q8), stream_audio(4, 96 + N_TICKS * 1280,
                                             SEED + 1), N_TICKS)
+    gpu["f32 Q8_0 int8-KV"] = model(q8, "cuda", kv_int8=True)
     ref = phase_tick(torch, model(q8, kv_int8=True),
-                     model(q8, "cuda", kv_int8=True), "(a) f32 Q8_0 int8-KV",
-                     own=own)
+                     gpu["f32 Q8_0 int8-KV"], "(a) f32 Q8_0 int8-KV", own=own)
     del own
     phase_tick(torch, model(q4), model(q4, "cuda"), "(b) f32 Q4_0")
     gpu["bf16 Q8_0 int8-KV"] = model(q8, "cuda", bf16, kv_int8=True)

@@ -15,8 +15,10 @@
 // N*K/8 bytes of scales). The bf16 export runs wq_gemm_sm90.cuh: each
 // pipeline step loads 64 packed columns and the two x tiles they pair with
 // (columns j.. and K/2 + j..), so a packed byte is read once per batch
-// tile of 64-128 rows; its header has the design. The f32 export stays on wq_matmul.cuh's
-// FFMA body.
+// tile of 64-128 rows; its header has the design. With f32 x the flops
+// bind on the CUDA cores (67 TFLOP/s, full f32 FFMA) as for B4: the f32
+// export runs wq_matmul.cuh's FFMA body, B4's design with the nibble
+// loader below (each code dequantized once per block).
 
 #include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
@@ -24,17 +26,18 @@
 namespace {
 
 struct Q4Codes {
-  __device__ __forceinline__ static void load8(const uint8_t* w, int n, int K,
-                                               int k0, float* c) {
+  // original columns k0 .. k0+7 (8 | k0, all in one half of K): 8 packed
+  // bytes of row n, the low nibbles for k0 < K/2, the high ones above
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw fetch(const uint8_t* w, int n, int K,
+                                              int k0) {
     const int half = K / 2;
-    int col = k0;                // original column of c[0]
-    int shift = 0;               // low nibble
-    if (col >= half) {
-      col -= half;
-      shift = 4;                 // high nibble
-    }
-    const uint2 v =
-        __ldg(reinterpret_cast<const uint2*>(w + (long)n * half + col));
+    const int col = k0 >= half ? k0 - half : k0;
+    return __ldg(reinterpret_cast<const uint2*>(w + (long)n * half + col));
+  }
+  __device__ __forceinline__ static void unpack(Raw v, int K, int k0,
+                                                float* c) {
+    const int shift = k0 >= K / 2 ? 4 : 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       c[j] = (float)((int)((v.x >> (8 * j + shift)) & 0xFu) - 8);
@@ -45,10 +48,15 @@ struct Q4Codes {
 
 }  // namespace
 
-// x, w_packed, scales, y, M, N, K (unpacked), stream
+// x, w_packed, scales, y, split-K workspace, tile counters, M, N, K
+// (unpacked), then the plan (ops/quant.py:f32_plan): batch tile, splits,
+// steps per split; stream
 extern "C" int q4_matmul_f32(const void* x, const void* w, const void* scales,
-                             void* y, int M, int N, int K, void* stream) {
-  return wq::launch_f32<Q4Codes>(x, w, scales, y, M, N, K, stream);
+                             void* y, void* ws, void* counters, int M, int N,
+                             int K, int bm, int splits, int steps_per,
+                             void* stream) {
+  return wq::launch_f32<Q4Codes>(x, w, scales, y, ws, counters, M, N, K, bm,
+                                 splits, steps_per, stream);
 }
 
 // x, w_packed, scales, y, workspace, M, N, K (unpacked), then the plan

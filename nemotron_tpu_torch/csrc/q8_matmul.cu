@@ -13,8 +13,13 @@
 // us for 4M weights at 3.35 TB/s). The bf16 export runs wq_gemm_sm90.cuh:
 // wgmma with the streams as its N, a TMA ring, every code dequantized once
 // per batch tile of 64-128 rows, split-K for narrow N; its header has the
-// design. The f32 export (f32 activations, bound by the CUDA cores' 67
-// TFLOP/s) stays on wq_matmul.cuh's FFMA body.
+// design. With f32 x the flops bind from M ~ 16 up on the CUDA cores (67
+// TFLOP/s, full f32 FFMA: 32 us for 4M weights at M = 256): the f32 export
+// runs wq_matmul.cuh's FFMA body, 128 x 128 (or 64 x 128) output tiles with
+// 8 x 8 (4 x 8) outputs per thread, a two-stage register-staged ring, each
+// code dequantized once per block, and split-K summed in split order by the
+// tile's last block (plan: ops/quant.py:f32_plan); its header has the
+// design.
 
 #include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
@@ -22,11 +27,13 @@
 namespace {
 
 struct Q8Codes {
-  // row n holds K int8 codes, column k at byte k
-  __device__ __forceinline__ static void load8(const uint8_t* w, int n, int K,
-                                               int k0, float* c) {
-    const uint2 v =
-        __ldg(reinterpret_cast<const uint2*>(w + (long)n * K + k0));
+  // row n holds K int8 codes, column k at byte k; 8 codes as one uint2
+  using Raw = uint2;
+  __device__ __forceinline__ static Raw fetch(const uint8_t* w, int n, int K,
+                                              int k0) {
+    return __ldg(reinterpret_cast<const uint2*>(w + (long)n * K + k0));
+  }
+  __device__ __forceinline__ static void unpack(Raw v, int, int, float* c) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       c[j] = (float)(int8_t)(v.x >> (8 * j));
@@ -37,10 +44,14 @@ struct Q8Codes {
 
 }  // namespace
 
-// x, w_i8, scales, y, M, N, K, stream
+// x, w_i8, scales, y, split-K workspace, tile counters, M, N, K, then the
+// plan (ops/quant.py:f32_plan): batch tile, splits, steps per split; stream
 extern "C" int q8_matmul_f32(const void* x, const void* w, const void* scales,
-                             void* y, int M, int N, int K, void* stream) {
-  return wq::launch_f32<Q8Codes>(x, w, scales, y, M, N, K, stream);
+                             void* y, void* ws, void* counters, int M, int N,
+                             int K, int bm, int splits, int steps_per,
+                             void* stream) {
+  return wq::launch_f32<Q8Codes>(x, w, scales, y, ws, counters, M, N, K, bm,
+                                 splits, steps_per, stream);
 }
 
 // x, w_i8, scales, y, workspace, M, N, K, then the plan (ops/quant.py:

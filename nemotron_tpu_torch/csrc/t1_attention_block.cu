@@ -24,16 +24,24 @@
 // What bounds it on the H100: the projections read the four [D, D]
 // weights (16 MB in f32, 8 MB in bf16 at D = 1024) and do 8*B*D^2 flops;
 // the attention reads the caches once (as B1). At B = 256 the f32 GEMMs are
-// FFMA-bound (no TF32, by contract); in bf16 the bytes bind.
+// bound by the CUDA cores' FFMA (67 TFLOP/s: 2.15 GFLOP, 32 us; full f32,
+// no TF32 and no tensor-core emulation, by contract); in bf16 the bytes
+// bind.
 //
-// Design: one entry call, three launches on the caller's stream,
-// intermediates in two scratch buffers the wrapper allocates:
+// Design: one entry call, three launches on the caller's stream (f32:
+// four, the LN statistics first), intermediates in scratch buffers the
+// wrapper allocates:
 //   (a) QKV. bf16: gemm_dense_sm90<kLn> (wq_gemm_sm90.cuh): the weights
 //       through a TMA ring straight into wgmma, the block's LN(x) rows
 //       normalised once into a resident operand; with split-K (the plan's,
 //       ops/attn_block.py:block_gemm_plans) each split writes its f32 sums
-//       to its own slice of the qkv scratch [splits, B, 3D]. f32: the FFMA
-//       body of wq_matmul.cuh (LN on load), one split.
+//       to its own slice of the qkv scratch [splits, B, 3D]. f32: ln_stats
+//       takes each row's mean and 1/sqrt(var + eps) once, then the FFMA
+//       body of wq_matmul.cuh (128- or 64-row by 128-column tiles, 8 x 8 or
+//       4 x 8 outputs per thread, a register-staged two-stage ring, LN
+//       applied as the x rows enter the ring) with the split-K of
+//       ops/attn_block.py:block_f32_plans, each split into its own slice
+//       as in bf16.
 //   (b) attention: a block takes one head and a group of streams
 //       (per_block, from the plan). It copies pp[h] (40 KB f32) into shared
 //       memory once with a bulk copy, so pp is read once per head group,
@@ -48,7 +56,10 @@
 //       body (t1_attention.cuh); ctx to scratch in x's type. Several
 //       groups, not one, so that one's math overlaps the others' waits.
 //   (c) out. bf16: gemm_dense_sm90<!kLn> over ctx, the residual added in
-//       the epilogue, one split; f32: the FFMA body.
+//       the epilogue, one split; f32: the FFMA body with the plan's
+//       split-K, the partials summed in split order by each tile's last
+//       block (a workspace and self-resetting tile counters from the
+//       wrapper), which adds the residual.
 // No library GEMM runs inside: all four projections are computed here.
 
 #include "t1_attention.cuh"
@@ -302,10 +313,12 @@ int attention(const float* qkv, int splits, const void* bias_u,
   });
 }
 
-// the plan of ops/attn_block.py:block_gemm_plans / attn_group
+// the plan of ops/attn_block.py:block_gemm_plans (bf16) or block_f32_plans
+// (f32: batch tiles, splits, steps per split of both projections) and
+// attn_group
 struct Plan {
-  int qkv_nt, qkv_splits, qkv_steps_per, out_nt, attn_per_block, attn_groups,
-      attn_stages;
+  int qkv_nt, qkv_splits, qkv_steps_per, out_nt, out_splits, out_steps_per,
+      attn_per_block, attn_groups, attn_stages;
 };
 
 template <typename T, typename TC>
@@ -314,22 +327,27 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
            const void* out_w, const void* bias_u, const void* bias_v,
            const void* pp, const void* mask, const void* kc, const void* k_s,
            const void* vc, const void* v_s, void* out, void* k_new,
-           void* v_new, void* qkv, void* ctx, int B, int H, int s_buf,
-           int d_head, float eps, float scale, const Plan& plan,
-           void* stream) {
+           void* v_new, void* qkv, void* ctx, void* stats, void* ws,
+           void* counters, int B, int H, int s_buf, int d_head, float eps,
+           float scale, const Plan& plan, void* stream) {
   if (B <= 0) return 0;
   const int D = H * d_head;
   auto* st = static_cast<cudaStream_t>(stream);
   int err;
-  if constexpr (sizeof(T) == 4) {  // f32: the FFMA body, one split
-    if (plan.qkv_splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (sizeof(T) == 4) {  // f32: LN statistics, the FFMA body
     const float* x = static_cast<const float*>(x_);
-    const wq::DenseW<float> w_qkv{{static_cast<const float*>(q_w),
-                                   static_cast<const float*>(k_w),
-                                   static_cast<const float*>(v_w)}, D, D};
-    err = wq::run_f32(wq::LnA<float>{x, static_cast<const float*>(ln_w),
-                                     static_cast<const float*>(ln_b), eps, D},
-                      w_qkv, wq::StoreY<float>{static_cast<float*>(qkv), 3 * D},
+    auto* st2 = static_cast<float2*>(stats);
+    err = wq::run_ln_stats(x, st2, B, D, eps, st);
+    if (err) return err;
+    const wq::DenseW w_qkv{{static_cast<const float*>(q_w),
+                            static_cast<const float*>(k_w),
+                            static_cast<const float*>(v_w)}, D, D};
+    err = wq::run_f32(wq::LnA{x, static_cast<const float*>(ln_w),
+                              static_cast<const float*>(ln_b), st2, D},
+                      w_qkv,
+                      wq::StoreSplits{static_cast<float*>(qkv), B, 3 * D},
+                      wq::F32Plan{plan.qkv_nt, plan.qkv_splits,
+                                  plan.qkv_steps_per, nullptr, nullptr},
                       B, 3 * D, D, stream);
   } else {
     const void* w[3] = {q_w, k_w, v_w};
@@ -348,10 +366,14 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
 
   if constexpr (sizeof(T) == 4) {
     const float* wo = static_cast<const float*>(out_w);
-    return wq::run_f32(wq::PlainA<float>{static_cast<const float*>(ctx), D},
-                       wq::DenseW<float>{{wo, wo, wo}, D, D},
-                       wq::AddResidual<float>{static_cast<float*>(out),
-                                              static_cast<const float*>(x_), D},
+    return wq::run_f32(wq::PlainA{static_cast<const float*>(ctx), D},
+                       wq::DenseW{{wo, wo, wo}, D, D},
+                       wq::AddResidual{static_cast<float*>(out),
+                                       static_cast<const float*>(x_), D},
+                       wq::F32Plan{plan.out_nt, plan.out_splits,
+                                   plan.out_steps_per,
+                                   static_cast<float*>(ws),
+                                   static_cast<int*>(counters)},
                        B, D, D, stream);
   } else {
     const void* wo[1] = {out_w};
@@ -366,17 +388,20 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
 
 // x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
 // v_buf, out, k_new, v_new, qkv scratch [splits, B, 3D] f32, ctx scratch
-// [B, D], B, H, S_buf, Dh, eps, scale, the plan (QKV batch tile, splits,
-// steps per split; out batch tile; streams per attention block, its
-// thread groups and their rings' stages), stream
+// [B, D]; f32 only (else null): LN statistics [B, 2] f32, the out
+// projection's split-K workspace and tile counters; B, H, S_buf, Dh, eps,
+// scale, the plan (QKV batch tile, splits, steps per split; out batch
+// tile, splits, steps per split; streams per attention block, its thread
+// groups and their rings' stages), stream
 #define DENSE_ARGS                                                           \
   const void *x, const void *ln_w, const void *ln_b, const void *q_w,        \
       const void *k_w, const void *v_w, const void *out_w,                   \
       const void *bias_u, const void *bias_v, const void *pp,                \
       const void *mask, const void *k_buf, const void *v_buf, void *out,     \
-      void *k_new, void *v_new, void *qkv, void *ctx, int B, int H,          \
-      int s_buf, int d_head, float eps, float scale, int qkv_nt,             \
-      int qkv_splits, int qkv_steps_per, int out_nt, int attn_per_block,     \
+      void *k_new, void *v_new, void *qkv, void *ctx, void *stats,           \
+      void *ws, void *counters, int B, int H, int s_buf, int d_head,         \
+      float eps, float scale, int qkv_nt, int qkv_splits, int qkv_steps_per, \
+      int out_nt, int out_splits, int out_steps_per, int attn_per_block,     \
       int attn_groups, int attn_stages, void *stream
 // the same with the int8 caches as codes and scales: k_q, k_s, v_q, v_s
 #define I8_ARGS                                                              \
@@ -385,38 +410,40 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
       const void *bias_u, const void *bias_v, const void *pp,                \
       const void *mask, const void *k_q, const void *k_s, const void *v_q,   \
       const void *v_s, void *out, void *k_new, void *v_new, void *qkv,       \
-      void *ctx, int B, int H, int s_buf, int d_head, float eps,             \
-      float scale, int qkv_nt, int qkv_splits, int qkv_steps_per,            \
-      int out_nt, int attn_per_block, int attn_groups, int attn_stages,      \
-      void *stream
+      void *ctx, void *stats, void *ws, void *counters, int B, int H,        \
+      int s_buf, int d_head, float eps, float scale, int qkv_nt,             \
+      int qkv_splits, int qkv_steps_per, int out_nt, int out_splits,         \
+      int out_steps_per, int attn_per_block, int attn_groups,                \
+      int attn_stages, void *stream
 #define PLAN                                                         \
-  Plan{qkv_nt, qkv_splits, qkv_steps_per, out_nt, attn_per_block,    \
-       attn_groups, attn_stages}
+  Plan{qkv_nt, qkv_splits, qkv_steps_per, out_nt, out_splits,       \
+       out_steps_per, attn_per_block, attn_groups, attn_stages}
 
 extern "C" int t1_attention_block_f32(DENSE_ARGS) {
   return launch<float, float>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
                               bias_v, pp, mask, k_buf, nullptr, v_buf,
-                              nullptr, out, k_new, v_new, qkv, ctx, B, H,
-                              s_buf, d_head, eps, scale, PLAN, stream);
+                              nullptr, out, k_new, v_new, qkv, ctx, stats, ws,
+                              counters, B, H, s_buf, d_head, eps, scale, PLAN,
+                              stream);
 }
 
 extern "C" int t1_attention_block_bf16(DENSE_ARGS) {
   return launch<__nv_bfloat16, __nv_bfloat16>(
       x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
-      nullptr, v_buf, nullptr, out, k_new, v_new, qkv, ctx, B, H, s_buf,
-      d_head, eps, scale, PLAN, stream);
+      nullptr, v_buf, nullptr, out, k_new, v_new, qkv, ctx, stats, ws,
+      counters, B, H, s_buf, d_head, eps, scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_i8_f32(I8_ARGS) {
   return launch<float, int8_t>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
                                bias_v, pp, mask, k_q, k_s, v_q, v_s, out,
-                               k_new, v_new, qkv, ctx, B, H, s_buf, d_head,
-                               eps, scale, PLAN, stream);
+                               k_new, v_new, qkv, ctx, stats, ws, counters, B,
+                               H, s_buf, d_head, eps, scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_i8_bf16(I8_ARGS) {
   return launch<__nv_bfloat16, int8_t>(
       x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_q,
-      k_s, v_q, v_s, out, k_new, v_new, qkv, ctx, B, H, s_buf, d_head, eps,
-      scale, PLAN, stream);
+      k_s, v_q, v_s, out, k_new, v_new, qkv, ctx, stats, ws, counters, B, H,
+      s_buf, d_head, eps, scale, PLAN, stream);
 }

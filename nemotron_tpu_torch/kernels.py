@@ -44,7 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_BLOCK_TAIL = [_I, _I, _I, _I, _F, _F] + [_I] * 7 + [_P]
+_BLOCK_TAIL = [_I, _I, _I, _I, _F, _F] + [_I] * 9 + [_P]
 
 # exported symbol -> argtypes (pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them)
@@ -61,23 +61,27 @@ _SIGNATURES = {
     # batch*heads, s_buf, d_head, scale, cluster, stream
     "t1_attention_i8_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
     "t1_attention_i8_bf16": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
-    # x, weight codes, scales, y, M, N, K, stream
-    "q8_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "q4_matmul_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, weight codes, scales, y, split-K workspace, tile counters, M, N,
+    # K, then the plan (ops/quant.py:f32_plan): batch tile, splits, steps
+    # per split; stream
+    "q8_matmul_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "q4_matmul_f32": [_P] * 6 + [_I] * 6 + [_P],
     # x, weight codes, scales, y, workspace, M, N, K, then the plan
     # (ops/quant.py:gemm_plan): m_tile, splits, steps per split; stream
     "q8_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
     "q4_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
     # x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
-    # v_buf, out, k_new, v_new, qkv scratch, ctx scratch, batch, heads,
-    # s_buf, d_head, eps, scale, then the plan (ops/attn_block.py: QKV batch
-    # tile, splits, steps per split; out batch tile; streams per attention
-    # block, its thread groups and their rings' stages); stream
-    "t1_attention_block_f32": [_P] * 18 + _BLOCK_TAIL,
-    "t1_attention_block_bf16": [_P] * 18 + _BLOCK_TAIL,
+    # v_buf, out, k_new, v_new, qkv scratch, ctx scratch, (f32, else null)
+    # LN statistics, the out projection's split-K workspace and tile
+    # counters, batch, heads, s_buf, d_head, eps, scale, then the plan
+    # (ops/attn_block.py: QKV batch tile, splits, steps per split; out
+    # batch tile, splits, steps per split; streams per attention block, its
+    # thread groups and their rings' stages); stream
+    "t1_attention_block_f32": [_P] * 21 + _BLOCK_TAIL,
+    "t1_attention_block_bf16": [_P] * 21 + _BLOCK_TAIL,
     # the same with the int8 caches as k codes, k scales, v codes, v scales
-    "t1_attention_block_i8_f32": [_P] * 20 + _BLOCK_TAIL,
-    "t1_attention_block_i8_bf16": [_P] * 20 + _BLOCK_TAIL,
+    "t1_attention_block_i8_f32": [_P] * 23 + _BLOCK_TAIL,
+    "t1_attention_block_i8_bf16": [_P] * 23 + _BLOCK_TAIL,
 }
 
 _lock = threading.Lock()

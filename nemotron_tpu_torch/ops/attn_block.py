@@ -18,7 +18,8 @@ package dequantizes first; the values agree up to rounding order.
 
 A CUDA tensor goes through the kernel (or the call raises); a CPU tensor
 takes `t1_attention_block_ref`. The kernel's bf16 projections run on the
-plans of `block_gemm_plans`, its attention launch on `attn_group`'s.
+plans of `block_gemm_plans`, its f32 ones on `block_f32_plans`', its
+attention launch on `attn_group`'s.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from .. import kernels
 from .attn_kernel import (SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, r16,
                           check_shape, sm_count, tile_bytes)
 from .kvquant import is_quant
-from .quant import GEMM_M_TILES, GEMM_ROWS, GEMM_STEP
+from .quant import (GEMM_M_TILES, GEMM_ROWS, GEMM_STEP, _ptr, f32_plan,
+                    f32_scratch)
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -151,6 +153,7 @@ def block_gemm_plans(m: int, d: int, sms: int):
 
 
 MAX_GROUPS = 4  # groups of 128 threads per attention block, at most
+MAX_QKV_SPLITS = 8  # f32 QKV splits, at most
 
 
 def attn_smem(s_buf: int, d_head: int, elem: int, stages: int,
@@ -204,6 +207,22 @@ def attn_group(b: int, h: int, s_buf: int, d_head: int, elem: int,
     per_block = max(1, -(-(b * h) // (per_sm * sms)))
     groups = min(groups, per_block)  # no group without a stream
     return AttnGroupPlan(per_block, groups, stages, per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def block_f32_plans(m: int, d: int, s_buf: int, d_head: int, elem: int,
+                    sms: int):
+    """The plans of B3's two f32 projections (the FFMA body of
+    csrc/wq_matmul.cuh, ops/quant.py:f32_plan) for m streams at d_model d
+    on a card with `sms` SMs: (qkv, out). The QKV splits go to their own
+    slices of the qkv scratch, which the attention launch adds in split
+    order, so they are capped where its smallest configuration (attn_smem:
+    2 groups of 1 stage, elem bytes per cache element) still fits a block;
+    the out projection's splits are summed in the kernel."""
+    cap = max([z for z in range(1, MAX_QKV_SPLITS + 1)
+               if attn_smem(s_buf, d_head, elem, 1, z, 2) <= SMEM_BLOCK],
+              default=1)
+    return (f32_plan(m, 3 * d, d, sms, cap), f32_plan(m, d, d, sms))
 
 
 def _check(name, t, shape, dtype, device):
@@ -272,9 +291,15 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
     sms = sm_count(dev)
     if dt == torch.bfloat16:
         qkv_plan, out_plan = block_gemm_plans(B, D, sms)
-        plan = (qkv_plan.nt, qkv_plan.splits, qkv_plan.steps_per, out_plan.nt)
-    else:  # f32: the FFMA body, one split
-        plan = (0, 1, 0, 0)
+        plan = (qkv_plan.nt, qkv_plan.splits, qkv_plan.steps_per,
+                out_plan.nt, 1, out_plan.steps)
+        f32 = (None, None, None)
+    else:  # f32: the FFMA body; LN statistics, the out GEMM's split-K
+        qkv_plan, out_plan = block_f32_plans(B, D, s_buf, Dh, elem, sms)
+        plan = (qkv_plan.bm, qkv_plan.splits, qkv_plan.steps_per,
+                out_plan.bm, out_plan.splits, out_plan.steps_per)
+        f32 = (torch.empty((B, 2), dtype=torch.float32, device=dev),
+               *f32_scratch(out_plan, dev))
     attn = attn_group(B, H, s_buf, Dh, elem, plan[1], sms)
     out = torch.empty((B, D), dtype=dt, device=dev)
     k_new = torch.empty((B, H, Dh), dtype=dt, device=dev)
@@ -286,6 +311,7 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
     kernels.T1_ATTENTION_BLOCK.launch(
         symbol, *(t.data_ptr() for t in ins), *(t.data_ptr() for t in caches),
         *(t.data_ptr() for t in (out, k_new, v_new, qkv, ctx)),
+        *(_ptr(t) for t in f32),
         B, H, s_buf, Dh, eps, 1.0 / math.sqrt(Dh), *plan, attn.per_block,
         attn.groups, attn.stages)
     return out, k_new, v_new

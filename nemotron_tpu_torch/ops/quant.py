@@ -3,7 +3,8 @@
 nemotron_tpu/ops/quant.py). With bf16 activations the kernels run the
 Hopper body `csrc/wq_gemm_sm90.cuh` on the plan of `gemm_plan` (batch
 tiles, split-K), which sizes the f32 workspace of the splits; with f32
-activations they run `csrc/wq_matmul.cuh`.
+activations they run the FFMA body `csrc/wq_matmul.cuh` on the plan of
+`f32_plan`, whose splits the kernel sums itself (`f32_scratch`).
 
 A Q8_0 weight is (w_i8 [..., out, in] int8, scales [..., out, in/32] f32):
 element (n, k) is w_i8[n, k] * scales[n, k // 32]. A Q4_0 weight keeps the
@@ -23,6 +24,7 @@ bits from the same f32 weights.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -197,6 +199,116 @@ def gemm_plan(m: int, n: int, k: int, bits: int, sms: int) -> GemmPlan:
     return GemmPlan(m_tile, tiles_m, -(-steps // steps_per), steps, steps_per)
 
 
+# The f32 body (csrc/wq_matmul.cuh): blocks of F32_ROWS weight rows (output
+# columns) by one of F32_M_TILES batch rows, pipeline steps of F32_STEP K
+# columns. One block per SM (its registers and two-stage ring).
+F32_ROWS = 128
+F32_STEP = 64
+F32_M_TILES = (64, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """How the f32 body covers one call: batch tiles of bm rows (tiles_m of
+    them) by tiles_n tiles of F32_ROWS weight rows, `steps` steps of
+    F32_STEP K columns cut into `splits` runs of steps_per (the last may be
+    shorter; none is empty)."""
+    bm: int
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    steps: int
+    steps_per: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def split_columns(self, k: int) -> list[np.ndarray]:
+        """The K columns that each split sums, in split order."""
+        return [np.arange(z * self.steps_per * F32_STEP,
+                          min(k, (z + 1) * self.steps_per * F32_STEP))
+                for z in range(self.splits)]
+
+
+# The plan's cost model, fitted to the body's times over (batch tile,
+# splits) at the encoder's shapes (tools/gemm_turns.py --plans, NVIDIA
+# H100 80GB HBM3): a block's time is its steps x its batch rows (64-row
+# tiles F32_COST_64 dearer per row: 4 x 8 outputs per thread), and each
+# extra split adds F32_COST_SPLIT (in 128-row step units) for its
+# partial's write and read.
+F32_COST_64 = 1.1
+F32_COST_SPLIT = 11.7
+F32_MAX_SPLITS = 16
+
+
+def _f32_cost(m: int, n: int, steps: int, bm: int, steps_per: int,
+              sms: int) -> float:
+    tiles = -(-m // bm) * -(-n // F32_ROWS)
+    splits = -(-steps // steps_per)
+    waves = -(-tiles // sms)  # splits only where the tiles leave SMs
+    return (waves * steps_per * bm * (F32_COST_64 if bm == 64 else 1.0)
+            + F32_COST_SPLIT * (splits - 1) * bm / 128)
+
+
+@functools.lru_cache(maxsize=None)
+def f32_plan(m: int, n: int, k: int, sms: int,
+             max_splits: int | None = None) -> F32Plan:
+    """The plan of one f32 call of the FFMA body (B4, B5, B3's projections)
+    on a card with `sms` SMs: among the batch tiles (F32_M_TILES) and K
+    splits (at most `max_splits`, or F32_MAX_SPLITS) that keep the blocks
+    within one wave of one block per SM (or split nothing where the tiles
+    alone exceed it), the one of least modelled time (_f32_cost); ties go
+    to fewer splits, then to the larger tile."""
+    steps = -(-k // F32_STEP)
+    cap = min(steps, max_splits or F32_MAX_SPLITS, F32_MAX_SPLITS)
+    best = None
+    for bm in sorted(F32_M_TILES, reverse=True):
+        tiles = -(-m // bm) * -(-n // F32_ROWS)
+        for want in range(1, cap + 1):
+            steps_per = -(-steps // want)
+            splits = -(-steps // steps_per)
+            if splits != want or tiles * splits > max(sms, tiles):
+                continue  # a smaller want's plan, or past one wave
+            key = (_f32_cost(m, n, steps, bm, steps_per, sms), splits, -bm)
+            if best is None or key < best[0]:
+                best = (key, bm, steps_per, splits)
+    _, bm, steps_per, splits = best
+    return F32Plan(bm, -(-m // bm), -(-n // F32_ROWS), splits, steps,
+                   steps_per)
+
+
+_COUNTERS: dict = {}
+
+
+def f32_scratch(plan: F32Plan, device):
+    """The workspace of a split f32 call, [splits, tiles, bm * F32_ROWS]
+    f32 partials, and the per-tile arrival counters its last block reads
+    and resets to 0: one zeroed int32 buffer per (device, stream), made
+    once and grown when a call needs more tiles (stream order keeps a call
+    from seeing another's counts). Returns (workspace, counters), both None
+    without a split."""
+    if plan.splits == 1:
+        return None, None
+    ws = torch.empty((plan.splits, plan.tiles, plan.bm * F32_ROWS),
+                     dtype=torch.float32, device=device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < plan.tiles:
+        cnt = torch.zeros(max(plan.tiles, 1024), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[key] = cnt
+    return ws, cnt
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 _SMS: dict = {}
 
 
@@ -209,7 +321,8 @@ def _sm_count(device) -> int:
 
 def _launch(kernel, prefix, x, w, scales, n, k, k_multiple, bits):
     """Shared wrapper of B4 / B5: checks, then one launch over x [M, K]
-    (bf16: on the plan of gemm_plan, with its f32 workspace)."""
+    (bf16: on the plan of gemm_plan, with its f32 workspace; f32: on the
+    plan of f32_plan, with its workspace and tile counters)."""
     name = kernel.name
     if x.dtype not in _SYMBOL:
         raise ValueError(f"{name}: unsupported activation dtype {x.dtype}")
@@ -239,7 +352,10 @@ def _launch(kernel, prefix, x, w, scales, n, k, k_multiple, bits):
         return out.reshape(*lead, n)
     ptrs = (x2.data_ptr(), w.data_ptr(), scales.data_ptr(), out.data_ptr())
     if x.dtype == torch.float32:
-        kernel.launch(f"{prefix}_f32", *ptrs, m, n, k)
+        plan = f32_plan(m, n, k, _sm_count(x.device))
+        ws, cnt = f32_scratch(plan, x.device)
+        kernel.launch(f"{prefix}_f32", *ptrs, _ptr(ws), _ptr(cnt), m, n, k,
+                      plan.bm, plan.splits, plan.steps_per)
     else:
         plan = gemm_plan(m, n, k, bits, _sm_count(x.device))
         ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,

@@ -1,5 +1,5 @@
 """Time kernels B1 (T=1 attention), B3 (the fused attention block) and B4 /
-B5 (Q8_0 / Q4_0 linears, bf16 activations), and the host time of a
+B5 (Q8_0 / Q4_0 linears, bf16 and f32 activations), and the host time of a
 full-width tick, of two or more checkouts of the repo in turns on one card,
 as one call of the card allows a fair comparison: each tree runs in a
 process of its own (it builds its own kernels into its own `_build/`), in
@@ -15,21 +15,28 @@ a device spin, median of 7). B1 and B3 at chip_smoke.py phase 3's shapes:
 B in {32, 256}, H=8, S_buf=78, Dh=128 (B3: D=1024), f32 and bf16, dense
 and int8 caches, random validity windows with garbage in the dead slots.
 B4 / B5 also give `dense_ms`, torch.matmul of x and the weight dequantized
-to bf16 beforehand (cuBLAS's dense product of the same shape), at the main
-path's (N, K) and M in {32, 141, 256}. `tick`: host ms of one all-active
+to x's type beforehand (cuBLAS's dense product of the same shape; in f32
+its FFMA product, TF32 off), at the main path's (N, K) and M in {32, 141,
+256} in bf16, M in {141, 256} in f32. `tick`: host ms of one all-active
 fused tick at full width and B=256 (random weights from seed 0; the tick
 synchronised before and after, median of 48 after 8 warm-up ticks) in bf16,
-and in f32, bf16 and bf16 with int8 K/V through the attention block.
+in f32, bf16 and bf16 with int8 K/V through the attention block, and in
+f32 with Q8_0 encoder weights (B4 in f32) and int8 K/V.
 `--only` picks the groups (all four by default). `--profile` adds each of
 B3's launches' device us. `--probe` then times the change's B1 built as
 measurement variants (T1_PROBE: without the scores and context, without
-the copies) and its B4 / B5 as measurement variants of
+the copies), its B4 / B5 as measurement variants of
 csrc/wq_gemm_sm90.cuh (WQ_SM90_PROBE: without the dequantization, without
 the wgmma, without both; WQ_SM90_MAX_STAGES: a deeper ring), each on
 ops/quant.py:gemm_plan's plan, with one more case of a single pipeline
-step (K = 64) for the fixed cost of a call. Their outputs are not the
-function's. Prints one line per case; `--json PATH` also writes all of it
-there as JSON.
+step (K = 64) for the fixed cost of a call, and its B3 and B4 / B5 with
+the f32 body csrc/wq_matmul.cuh built as WQ_F32_PROBE variants (without
+the staging of later steps; without all but one column of math);
+`--probe=f32` builds the last two only. Their
+outputs are not the function's. `--plans` adds the change's f32 B4 at
+every plan ops/quant.py:f32_plan weighs (batch tile x splits within one
+wave), the data its cost model is fitted to. Prints one line per case;
+`--json PATH` also writes all of it there as JSON.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import numpy as np
 GROUPS = ("b1", "b3", "b4b5", "tick")
 SHAPES = ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024))
 BATCHES = (32, 141, 256)
+F32_BATCHES = (141, 256)
 
 
 def cuda_ms(torch, fn, launches: int = 50, repeats: int = 7) -> float:
@@ -77,6 +85,11 @@ PROBES = (
     ("probe: 8 stages", ("-DWQ_SM90_MAX_STAGES=8",)),
     ("probe: 8 stages, neither",
      ("-DWQ_SM90_MAX_STAGES=8", "-DWQ_SM90_PROBE=3")),
+)
+# measurement variants of the change's f32 body (B3, B4 / B5 in f32)
+F32_PROBES = (
+    ("f32 probe: math only", ("-DWQ_F32_PROBE=1",)),
+    ("f32 probe: staging only", ("-DWQ_F32_PROBE=2",)),
 )
 ONE_STEP = (1024, 64)  # (N, K) of a single pipeline step, one split
 # measurement variants of the change's B1: label, extra nvcc flags
@@ -187,11 +200,12 @@ def tick_ms(torch, model, b: int, n: int = 48, warmup: int = 8) -> float:
 
 
 def tick_rows(torch) -> list:
-    """Host ms per tick of the full-width model at B=TICK_B: bf16, and f32,
-    bf16 and bf16 int8-K/V through the attention block."""
+    """Host ms per tick of the full-width model at B=TICK_B: bf16; f32,
+    bf16 and bf16 int8-K/V through the attention block; f32 Q8_0 int8-K/V
+    (B4 in f32)."""
     from nemotron_tpu_torch import Hparams
     from nemotron_tpu_torch.api import ASRModel
-    from nemotron_tpu_torch.params import params_to
+    from nemotron_tpu_torch.params import params_to, quantize_encoder_layers
 
     f32 = ASRModel.random(Hparams(), seed=0, device="cuda")
     hp, vocab = f32.hp, f32.tokenizer.vocab
@@ -202,7 +216,9 @@ def tick_rows(torch) -> list:
             ("f32 block", f32.params, dict(attn_block=True)),
             ("bf16 block", bf16, dict(attn_block=True)),
             ("bf16 int8-KV block", bf16, dict(attn_block=True,
-                                              kv_int8=True))):
+                                              kv_int8=True)),
+            ("f32 Q8_0 int8-KV", quantize_encoder_layers(f32.params, bits=8),
+             dict(kv_int8=True))):
         model = ASRModel(hp, params, vocab, device="cuda", **kw)
         rows.append(dict(kernel="tick", case=f"{name} B={TICK_B}",
                          ms=tick_ms(torch, model, TICK_B)))
@@ -253,8 +269,48 @@ def attn_rows(torch, dev, rng, b3: bool, profile: bool = False):
     return rows
 
 
+def plan_rows(torch, dev, rng, sms) -> list:
+    """f32 B4 at M in F32_BATCHES and the main path's (N, K), once per plan
+    that ops/quant.py:f32_plan weighs: every batch tile and every K split
+    whose blocks fit one wave."""
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.ops import quant
+
+    rows = []
+    for n, k in SHAPES:
+        qt = quant.quantize_q8((rng.standard_normal((n, k)) / np.sqrt(k))
+                               .astype(np.float32)).to(dev)
+        steps = -(-k // quant.F32_STEP)
+        for m in F32_BATCHES:
+            x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                             device=dev)
+            y = torch.empty((m, n), device=dev)
+            chosen = quant.f32_plan(m, n, k, sms)
+            for bm in quant.F32_M_TILES:
+                tiles = -(-m // bm) * -(-n // quant.F32_ROWS)
+                for want in range(1, min(steps, quant.F32_MAX_SPLITS) + 1):
+                    spp = -(-steps // want)
+                    if -(-steps // spp) != want or tiles * want > max(
+                            sms, tiles):
+                        continue
+                    p = quant.F32Plan(bm, -(-m // bm), tiles // -(-m // bm),
+                                      want, steps, spp)
+                    ws, cnt = quant.f32_scratch(p, dev)
+                    args = (x.data_ptr(), qt.w_i8.data_ptr(),
+                            qt.scales.data_ptr(), y.data_ptr(),
+                            0 if ws is None else ws.data_ptr(),
+                            0 if cnt is None else cnt.data_ptr(), m, n, k,
+                            bm, want, spp)
+                    rows.append(dict(
+                        kernel="q8_matmul plan", m=m, n=n, k=k, bm=bm,
+                        splits=want, chosen=p == chosen, ms=cuda_ms(
+                            torch, lambda: kernels.Q8_MATMUL.launch(
+                                "q8_matmul_f32", *args))))
+    return rows
+
+
 def child(tree: str, flags: list[str], probe: bool, only: list[str],
-          profile: bool = False) -> None:
+          profile: bool = False, plans: bool = False) -> None:
     """Runs inside `tree`: times its kernels of the groups `only`, built
     with the extra nvcc `flags`, and prints one JSON line. A B4/B5 probe's
     rows carry the plan, and it adds the single-step case."""
@@ -269,6 +325,9 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
     rows = []
+    if plans:
+        print(json.dumps({"rows": plan_rows(torch, dev, rng, sms)}))
+        return
     if "b1" in only or "b3" in only:
         rows += [r for r in attn_rows(torch, dev, rng, "b3" in only, profile)
                  if {"t1_attention": "b1", "t1_attention_block": "b3"}[
@@ -280,20 +339,22 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
         for n, k in SHAPES + ((ONE_STEP,) if probe else ()):
             qt = qz((rng.standard_normal((n, k)) / np.sqrt(k)).astype(
                 np.float32)).to(dev)
-            wt = deq(qt, torch.bfloat16)  # [N, K] bf16, once
-            for m in BATCHES:
-                x = torch.tensor(rng.standard_normal((m, k)).astype(
-                    np.float32), device=dev).to(torch.bfloat16)
-                row = dict(kernel=f"q{bits}_matmul", bits=bits, m=m, n=n,
-                           k=k,
-                           ms=cuda_ms(torch, lambda: fn(x, qt)),
-                           dense_ms=cuda_ms(torch,
-                                            lambda: torch.matmul(x, wt.T)))
-                if probe:
-                    p = quant.gemm_plan(m, n, k, bits, sms)
-                    row.update(m_tile=p.m_tile, splits=p.splits,
-                               steps_per=p.steps_per)
-                rows.append(row)
+            for dtype, batches in ((torch.bfloat16, BATCHES),
+                                   (torch.float32, F32_BATCHES)):
+                wt = deq(qt, dtype)  # [N, K] in x's type, once
+                for m in batches:
+                    x = torch.tensor(rng.standard_normal((m, k)).astype(
+                        np.float32), device=dev).to(dtype)
+                    row = dict(kernel=f"q{bits}_matmul", bits=bits,
+                               dtype=str(dtype)[6:], m=m, n=n, k=k,
+                               ms=cuda_ms(torch, lambda: fn(x, qt)),
+                               dense_ms=cuda_ms(
+                                   torch, lambda: torch.matmul(x, wt.T)))
+                    if probe and dtype == torch.bfloat16:
+                        p = quant.gemm_plan(m, n, k, bits, sms)
+                        row.update(m_tile=p.m_tile, splits=p.splits,
+                                   steps_per=p.steps_per)
+                    rows.append(row)
     if "tick" in only:
         rows += tick_rows(torch)
     print(json.dumps({"rows": rows}))
@@ -303,12 +364,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[],
                     help="label=path, in the order to run")
-    ap.add_argument("--probe", action="store_true",
-                    help="also time measurement builds of B1 and B4/B5")
+    ap.add_argument("--probe", nargs="?", const="all", choices=("all", "f32"),
+                    help="also time measurement builds of B1 and B4/B5 "
+                    "(all), or of the f32 body only (f32)")
     ap.add_argument("--only", action="append", choices=GROUPS,
                     help="kernel groups to time (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="also give B3's launches' device us (torch.profiler)")
+    ap.add_argument("--plans", action="store_true",
+                    help="also time the change's f32 B4 at every plan "
+                    "ops/quant.py:f32_plan weighs")
     ap.add_argument("--json", help="write every run's rows here as JSON")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--flag", action="append", default=[],
@@ -318,7 +383,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     only = args.only or list(GROUPS)
     if args.child:
-        child(args.child, args.flag, args.child_probe, only, args.profile)
+        child(args.child, args.flag, args.child_probe, only, args.profile,
+              args.plans)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -328,17 +394,27 @@ def main(argv=None) -> int:
     runs = [(t.split("=", 1)[0], t.split("=", 1)[1], None, None)
             for t in args.tree]
     change = next((r[1] for r in runs if r[0] == "change"), None)
-    if args.probe and change and "b1" in only:
-        runs += [(label, change, flags, "b1") for label, flags in B1_PROBES]
-    if args.probe and change and "b4b5" in only:
-        runs += [(label, change, flags, "b4b5") for label, flags in PROBES]
+    if args.probe == "all" and change and "b1" in only:
+        runs += [(label, change, flags, ("b1",)) for label, flags in B1_PROBES]
+    if args.probe == "all" and change and "b4b5" in only:
+        runs += [(label, change, flags, ("b4b5",)) for label, flags in PROBES]
+    if args.probe and change and ("b3" in only or "b4b5" in only):
+        runs += [(label, change, flags, tuple(g for g in ("b3", "b4b5")
+                                              if g in only))
+                 for label, flags in F32_PROBES]
+    if args.plans and change:
+        runs.append(("plans", change, (), ()))
     out = []
     for label, path, flags, probe in runs:
         cmd = [sys.executable, os.path.abspath(__file__),
                "--child", os.path.abspath(path)]
-        if probe is not None:  # a probe build times one group
-            cmd += [f"--only={probe}", *(f"--flag={f}" for f in flags)]
-            cmd += ["--child-probe"] if probe == "b4b5" else []
+        if probe == ():  # the plan sweep only
+            cmd += ["--plans"]
+        elif probe is not None:  # a probe build times its groups
+            cmd += [f"--only={g}" for g in probe]
+            cmd += [f"--flag={f}" for f in flags]
+            cmd += ["--child-probe"] if probe == ("b4b5",) else []
+            cmd += ["--profile"] if "b3" in probe and args.profile else []
         else:
             cmd += [f"--only={g}" for g in only]
             cmd += ["--profile"] if args.profile else []
@@ -351,6 +427,12 @@ def main(argv=None) -> int:
         out.append(dict(label=label, path=path, flags=list(flags or ()),
                         **got))
         for r in got["rows"]:
+            if r["kernel"] == "q8_matmul plan":
+                print(f"{label}: q8 float32 M={r['m']} N={r['n']} K={r['k']}"
+                      f" plan {r['bm']} x {r['splits']}"
+                      f"{' (chosen)' if r['chosen'] else ''}: "
+                      f"{r['ms']:.4f} ms ({card})", flush=True)
+                continue
             if "bits" not in r:
                 parts = "".join(f"; {k} {v:.2f} us" for k, v in
                                 r.get("launch_us", {}).items())
@@ -359,7 +441,8 @@ def main(argv=None) -> int:
                 continue
             plan = (f", m_tile {r['m_tile']} splits {r['splits']} x "
                     f"{r['steps_per']} steps" if "splits" in r else "")
-            print(f"{label}: q{r['bits']} M={r['m']} N={r['n']} K={r['k']}: "
+            print(f"{label}: q{r['bits']} {r.get('dtype', 'bfloat16')} "
+                  f"M={r['m']} N={r['n']} K={r['k']}: "
                   f"{r['ms']:.4f} ms, dense {r['dense_ms']:.4f} ms{plan} "
                   f"({card})", flush=True)
     if args.json:

@@ -3,11 +3,12 @@
 ops/attn_kernel.py:attn_plan cuts B1's (stream, head) pairs into blocks
 (a ring of pairs per block, or a cluster that splits one pair's slots);
 ops/attn_block.py:block_gemm_plans cuts B3's bf16 projections into batch
-tiles, weight-row tiles and K splits, attn_group B3's attention launch into
-(head, stream group) blocks. Each must cover every pair, slot, stream and
+tiles, weight-row tiles and K splits, block_f32_plans its f32 ones (the
+FFMA body's plan, ops/quant.py:f32_plan), attn_group B3's attention launch
+into (head, stream group) blocks. Each must cover every pair, slot, stream and
 weight row once, keep every split non-empty, fit a block's shared memory
 and stay within one wave of the SMs. check_shape says which cache rows the
-bulk-copy body takes. The split-K order of the QKV projection is emulated
+bulk-copy body takes. The split-K order of the projections is emulated
 on the CPU against the plain version and the JAX package's Pallas block.
 """
 
@@ -22,6 +23,7 @@ from nemotron_tpu.ops.attn_block_pallas import t1_attention_block as j_block
 from nemotron_tpu_torch.config import CacheConfig, Hparams
 from nemotron_tpu_torch.ops import attn_block as ab
 from nemotron_tpu_torch.ops import attn_kernel as ak
+from nemotron_tpu_torch.ops import quant as tq
 
 SMS = 132  # the H100's SM count
 BATCHES = (1, 7, 8, 32, 141, 256)
@@ -104,12 +106,42 @@ def test_block_gemm_plans_cover_every_row_and_stream_once(m, d):
 
 
 @pytest.mark.parametrize("geom", GEOMETRIES, ids=["full", "tiny"])
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("m", [1, 17, 141, 256])
+def test_block_f32_plans_cover_every_output_and_column_once(m, int8, geom):
+    """B3's f32 projections: each plan's tiles cover every (stream, output)
+    once and its splits every K column once; the QKV splits fit the
+    attention launch, which adds them (attn_group raises where they do
+    not); at full width a small batch splits K in both, as the card wants."""
+    s_buf, d_head, heads = geom
+    d = heads * d_head
+    elem = 1 if int8 else 4
+    qkv, out = ab.block_f32_plans(m, d, s_buf, d_head, elem, SMS)
+    for plan, n in ((qkv, 3 * d), (out, d)):
+        assert plan == tq.f32_plan(m, n, d, SMS, plan.splits
+                                   if plan is qkv else None)
+        assert plan.tiles_m * plan.bm >= m > (plan.tiles_m - 1) * plan.bm
+        assert plan.tiles_n * tq.F32_ROWS >= n
+        cols = plan.split_columns(d)
+        assert all(len(c) for c in cols)
+        np.testing.assert_array_equal(np.concatenate(cols), np.arange(d))
+        assert plan.blocks <= max(SMS, plan.tiles)
+    p = ab.attn_group(m, heads, s_buf, d_head, elem, qkv.splits, SMS)
+    assert ab.attn_smem(s_buf, d_head, elem, p.stages, qkv.splits,
+                        p.groups) <= ak.SMEM_BLOCK
+    if d == 1024 and m <= 17:
+        assert qkv.splits > 1 and out.splits > 1
+
+
+@pytest.mark.parametrize("geom", GEOMETRIES, ids=["full", "tiny"])
 @pytest.mark.parametrize("kind", ELEMS)
 @pytest.mark.parametrize("b", BATCHES)
 def test_b3_attention_groups_fit_one_wave(b, kind, geom):
     s_buf, d_head, heads = geom
-    splits = (ab.block_gemm_plans(b, heads * d_head, SMS)[0].splits
-              if kind != "f32" else 1)
+    d = heads * d_head
+    splits = (ab.block_gemm_plans(b, d, SMS)[0].splits if kind == "bf16"
+              else ab.block_f32_plans(b, d, s_buf, d_head, ELEMS[kind],
+                                      SMS)[0].splits)
     p = ab.attn_group(b, heads, s_buf, d_head, ELEMS[kind], splits, SMS)
     assert p.per_block >= 1 and p.stages in (1, 2)
     assert 1 <= p.groups <= min(p.per_block, ab.MAX_GROUPS)
@@ -124,7 +156,10 @@ def test_b3_attention_groups_fit_one_wave(b, kind, geom):
     (ak.check_shape, (128, 2, 78)),
     (ab.block_gemm_plans, (256, 1024, SMS)),
     (ab.attn_group, (256, 8, 78, 128, 1, 1, SMS)),
-], ids=["attn_plan", "check_shape", "block_gemm_plans", "attn_group"])
+    (ab.block_f32_plans, (256, 1024, 78, 128, 4, SMS)),
+    (tq.f32_plan, (256, 4096, 1024, SMS)),
+], ids=["attn_plan", "check_shape", "block_gemm_plans", "attn_group",
+        "block_f32_plans", "f32_plan"])
 def test_plans_are_computed_once_per_shape(plan, args):
     """The wrappers run on every call of the tick: each plan is worked out
     once per shape and then looked up."""
@@ -211,3 +246,65 @@ def test_split_qkv_order_matches_plain_and_jax(m):
                     n_heads=H, d_head=Dh, interpret=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out[0]), atol=1e-4,
                                rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 17])
+def test_f32_split_order_matches_plain_and_jax(m):
+    """Both f32 projections summed as the kernel's splits do (each split's
+    columns in f32, the partials added in split order: QKV by the attention
+    launch, out by the tile's last block before the residual) give the
+    plain block's result within 1e-5 x max|y|, and the JAX package's Pallas
+    block (interpret mode) too."""
+    rng = np.random.default_rng(m + 100)
+    H, Dh, S = 4, 64, 16
+    D = H * Dh
+    qkv_p, out_p = ab.block_f32_plans(m, D, S, Dh, 4, SMS)
+    assert qkv_p.splits > 1 and out_p.splits > 1
+
+    def f(*shape, sc=1.0):
+        return (rng.standard_normal(shape) * sc).astype(np.float32)
+
+    args = dict(x=f(m, D), ln_w=1 + f(D, sc=0.1), ln_b=f(D, sc=0.1),
+                q_w=f(D, D, sc=D ** -0.5), k_w=f(D, D, sc=D ** -0.5),
+                v_w=f(D, D, sc=D ** -0.5), out_w=f(D, D, sc=D ** -0.5),
+                bias_u=f(H, Dh, sc=0.1), bias_v=f(H, Dh, sc=0.1),
+                pp=f(H, Dh, S + 1, sc=0.5),
+                mask=np.zeros((m, S + 1), np.float32),
+                k_buf=f(m, H, S, Dh), v_buf=f(m, H, S, Dh))
+    t = {k: torch.tensor(v) for k, v in args.items()}
+    want = ab.t1_attention_block_ref(**t, n_heads=H, d_head=Dh)
+
+    def split_sum(a, w, plan):
+        acc = None
+        for c in plan.split_columns(D):
+            c = torch.from_numpy(c)
+            part = a[:, c] @ w[:, c].T
+            acc = part if acc is None else acc + part
+        return acc
+
+    xf = t["x"]
+    mu = xf.mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt((xf - mu).square().mean(-1, keepdim=True)
+                                + 1e-5) * t["ln_w"] + t["ln_b"]
+    acc = split_sum(y, torch.cat([t["q_w"], t["k_w"], t["v_w"]]), qkv_p)
+    q, k, v = (acc[:, i * D:(i + 1) * D].view(m, H, Dh) for i in range(3))
+    for got, ref in ((k, want[1]), (v, want[2])):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+    scale = 1.0 / math.sqrt(Dh)
+    pos = torch.einsum("bhd,hds->bhs", q + t["bias_v"], t["pp"])
+    pos[..., -1] += ((q + t["bias_u"]) * k).sum(-1)
+    sc = torch.cat([torch.einsum("bhd,bhsd->bhs", q + t["bias_u"],
+                                 t["k_buf"]), torch.zeros(m, H, 1)], -1)
+    w = torch.softmax(sc * scale + pos * scale, -1)
+    ctx = (torch.einsum("bhs,bhsd->bhd", w[..., :-1], t["v_buf"])
+           + w[..., -1:] * v).reshape(m, D)
+    out = xf + split_sum(ctx, t["out_w"], out_p)
+    tol = 1e-5 * float(want[0].abs().max())
+    torch.testing.assert_close(out, want[0], atol=tol, rtol=0)
+    j_out = j_block(*(args[k] for k in ("x", "ln_w", "ln_b", "q_w", "k_w",
+                                        "v_w", "out_w", "bias_u", "bias_v",
+                                        "pp", "mask", "k_buf", "v_buf")),
+                    n_heads=H, d_head=Dh, interpret=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out[0]),
+                               atol=1e-4, rtol=0)

@@ -234,6 +234,64 @@ def test_hopper_quantized_linears_bf16(cuda, bits, n, k):
         assert err <= 1e-2 * float(want.abs().max()), (m, err)
 
 
+F32_SHAPES = [(4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024),
+              (128, 4096)]  # the last: one tile, the plan's most splits
+
+
+@pytest.mark.parametrize("n, k", F32_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_f32_quantized_linears_at_every_plan(cuda, bits, n, k):
+    """B4 / B5 with f32 activations (the FFMA body on ops/quant.py:f32_plan,
+    split-K summed by each tile's last block) against the plain versions
+    within 1e-5 x max|y| at the encoder's shapes and ragged batches; two
+    calls give identical bits; one launch counted per call."""
+    rng = np.random.default_rng(n + k + bits + 1)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w).to(cuda)
+    kern = kernels.Q8_MATMUL if bits == 8 else kernels.Q4_MATMUL
+    fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
+               else (quant.linear_q4, quant.linear_q4_ref))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in (1, 17, 141, 256):
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                         device=cuda)
+        before = kern.launches
+        got = fn(x, qt)
+        again = fn(x, qt)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        assert torch.equal(got, again), m
+        want = ref(x, qt)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (
+            m, quant.f32_plan(m, n, k, sms), err)
+
+
+def test_f32_split_counters_survive_alternating_shapes(cuda):
+    """The per-tile counters of the f32 split-K reduction reset themselves:
+    calls at alternating shapes, tile counts and splits, back to back on one
+    stream, repeat their first results bit for bit."""
+    rng = np.random.default_rng(5)
+    cases = []
+    for m, n, k in ((256, 1024, 4096), (1, 4096, 1024), (141, 1024, 1024),
+                    (17, 200, 128)):
+        qt = quant.quantize_q8((rng.standard_normal((n, k)) / np.sqrt(k))
+                               .astype(np.float32)).to(cuda)
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                         device=cuda)
+        cases.append((x, qt, quant.linear_q8(x, qt)))
+    for _ in range(3):
+        outs = [quant.linear_q8(x, qt) for x, qt, _ in cases]
+        torch.cuda.synchronize()
+        for (x, qt, first), got in zip(cases, outs):
+            assert torch.equal(got, first)
+    for x, qt, first in cases:
+        want = quant.linear_q8_ref(x, qt)
+        assert float((first - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
 def test_quantized_linear_wrappers_refuse(cuda):
     qt = quant.quantize_q8(np.ones((64, 64), np.float32)).to(cuda)
     x = torch.ones(4, 64, device=cuda)
@@ -324,16 +382,20 @@ def test_t1_attention_block_kernel_matches_plain(cuda, dtype, rel, int8, b):
 
 def _largest_attention_s_buf(elem, splits, sms, b=64, h=8, d_head=128):
     """The S_buf at which B3's attention plan (ops/attn_block.py:
-    attn_group) gives its block the most shared memory, by attn_smem."""
-    from nemotron_tpu_torch.ops.attn_block import attn_group, attn_smem
+    attn_group) gives its block the most shared memory, by attn_smem;
+    `splits` is the QKV splits, or None for the f32 plan's at each S_buf."""
+    from nemotron_tpu_torch.ops.attn_block import (attn_group, attn_smem,
+                                                   block_f32_plans)
 
     best = (0, 0)
     for s in range(2, 256):
+        z = splits or block_f32_plans(b, h * d_head, s, d_head, elem,
+                                      sms)[0].splits
         try:
-            p = attn_group(b, h, s, d_head, elem, splits, sms)
+            p = attn_group(b, h, s, d_head, elem, z, sms)
         except ValueError:
             continue
-        best = max(best, (attn_smem(s, d_head, elem, p.stages, splits,
+        best = max(best, (attn_smem(s, d_head, elem, p.stages, z,
                                     p.groups), s))
     return best[1]
 
@@ -358,7 +420,7 @@ def test_t1_attention_block_at_the_plans_largest_shared_memory(cuda, case):
         assert SMEM_BLOCK - dense_smem(True, qkv.nt, qkv.steps, 2) < 2048
     else:
         B, H = 64, 8
-        splits = 1 if dtype == torch.float32 else block_gemm_plans(
+        splits = None if dtype == torch.float32 else block_gemm_plans(
             B, H * 128, sms)[0].splits
         S = _largest_attention_s_buf(1 if int8 else dtype.itemsize, splits,
                                      sms, b=B, h=H)
@@ -371,6 +433,32 @@ def test_t1_attention_block_at_the_plans_largest_shared_memory(cuda, case):
     for name, g, w in zip(("out", "k_new", "v_new"), got, want):
         err = float((g.float() - w.float()).abs().max())
         assert err <= rel * float(w.float().abs().max()), (name, S, err)
+
+
+@pytest.mark.parametrize("b", [1, 8, 256])
+@pytest.mark.parametrize("int8", [False, True])
+def test_t1_attention_block_f32_splits_qkv(cuda, int8, b):
+    """B3 in f32 with its projections split along K (ops/attn_block.py:
+    block_f32_plans: the QKV splits added by the attention launch, the out
+    splits by the tile's last block) against its plain version within
+    1e-5 x max|out|; two calls give identical bits."""
+    from nemotron_tpu_torch.ops.attn_block import block_f32_plans
+    from nemotron_tpu_torch.ops.attn_kernel import sm_count
+
+    a = _block_inputs(cuda, torch.float32, B=b, seed=b)
+    if int8:
+        a["k_buf"], a["v_buf"] = _int8_caches(a["k_buf"], a["v_buf"])
+    qkv, out = block_f32_plans(b, 1024, 78, 128, 1 if int8 else 4,
+                               sm_count(cuda))
+    assert qkv.splits > 1 and out.splits > 1
+    got = t1_attention_block(**a)
+    again = t1_attention_block(**a)
+    torch.cuda.synchronize()
+    want = t1_attention_block_ref(**a)
+    for name, g, r, w in zip(("out", "k_new", "v_new"), got, again, want):
+        assert torch.equal(g, r), name
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), (name, err)
 
 
 def test_t1_attention_block_wrapper_refuses(cuda):

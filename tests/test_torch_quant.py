@@ -270,3 +270,65 @@ def test_split_k_emulation_matches_plain_and_xla(bits, n, k):
             jx = jnp.asarray(x.float().numpy()).astype(jdt)
             xla = np.asarray(jxla(jx, jqt).astype(jnp.float32))
             assert float(np.abs(got.numpy() - xla).max()) <= tol, (dtype, m)
+
+
+# the f32 body's plans: the main path's shapes and ragged ones (Q4_0 takes
+# K % 64 == 0), at ragged and full batches, on cards of other SM counts
+F32_SHAPES = MAIN_SHAPES + [(200, 128), (96, 64), (3072, 1024), (128, 4096)]
+F32_BATCHES = (1, 17, 141, 256)
+
+
+@pytest.mark.parametrize("n, k", F32_SHAPES)
+def test_f32_plan_covers_every_output_and_column_once(n, k):
+    """Every plan of the f32 FFMA body (ops/quant.py:f32_plan): its batch and
+    weight-row tiles cover each output element once, its splits each K
+    column once, none empty; it fills the SMs up to one wave and never
+    splits past it."""
+    for m in F32_BATCHES + (7, 64, 300):
+        for sms in (132, 114, 78):
+            p = tq.f32_plan(m, n, k, sms)
+            assert p.bm in tq.F32_M_TILES
+            assert p.tiles_m * p.bm >= m > (p.tiles_m - 1) * p.bm
+            assert p.tiles_n * tq.F32_ROWS >= n > (p.tiles_n - 1) * tq.F32_ROWS
+            out = np.zeros((p.tiles_m * p.bm, p.tiles_n * tq.F32_ROWS), int)
+            for t in range(p.tiles):
+                r, c = divmod(t, p.tiles_n)
+                out[r * p.bm:(r + 1) * p.bm,
+                    c * tq.F32_ROWS:(c + 1) * tq.F32_ROWS] += 1
+            assert (out[:m, :n] == 1).all()
+            cols = p.split_columns(k)
+            assert len(cols) == p.splits and all(len(c) for c in cols)
+            np.testing.assert_array_equal(np.concatenate(cols), np.arange(k))
+            assert p.steps == -(-k // tq.F32_STEP)
+            assert (p.splits - 1) * p.steps_per < p.steps \
+                <= p.splits * p.steps_per
+            assert p.blocks <= max(sms, p.tiles)  # one wave
+            if p.splits == 1 and p.steps > 1:
+                assert 2 * p.tiles > sms  # a split would not fit the wave
+
+
+@pytest.mark.parametrize("n, k", MAIN_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_f32_split_k_emulation_matches_plain_and_xla(bits, n, k):
+    """A plain emulation of the f32 body's partition: per split, the f32
+    product of x and the dequantized weights over that split's K columns;
+    the partials added in split order (as the tile's last block adds them).
+    Held against the port's plain linear and the JAX package's XLA linear
+    within 1e-5 x max|y|."""
+    jquant, tquant, _, tdeq, jxla, _, tref = KINDS[bits][:7]
+    w = rand(n, k, seed=n + k + 1, scale=k ** -0.5)
+    jqt, tqt = jquant(w), tquant(w)
+    wd = tdeq(tqt, torch.float32)
+    for m in F32_BATCHES:
+        x = torch.from_numpy(rand(m, k, seed=m + 1))
+        plan = tq.f32_plan(m, n, k, 132)
+        acc = None
+        for cols in plan.split_columns(k):
+            idx = torch.from_numpy(cols)
+            part = x[:, idx] @ wd[:, idx].T
+            acc = part if acc is None else acc + part
+        want = tref(x, tqt)
+        tol = 1e-5 * float(want.abs().max())
+        assert float((acc - want).abs().max()) <= tol, m
+        xla = np.asarray(jxla(jnp.asarray(x.numpy()), jqt))
+        assert float(np.abs(acc.numpy() - xla).max()) <= tol, m
