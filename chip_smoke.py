@@ -16,8 +16,11 @@ Phases, one line each, any failure exits non-zero:
              caches in f32 and bf16 (SDPA beside the dense ones), B3 (the
              fused attention block) at B in {32, 256} in f32 and bf16 over
              dense and int8 caches (unfused_ms: the port's sub-block
-             without B3, LN + torch.matmul + B1, beside it), B2, B4 (Q8_0)
-             and B5 (Q4_0) in bf16 at M in {32, 141, 256} for the four
+             without B3, LN + torch.matmul + B1, beside it), B2 (log-mel)
+             at B x frames in {256 x 8, 32 x 8, 1 x 8, 1 x 6000} over a
+             dense and a slaney filterbank (rfft_ms: cuFFT + torch.matmul
+             beside it) and, untimed, on a loud tone and on silence, B4
+             (Q8_0) and B5 (Q4_0) in bf16 at M in {32, 141, 256} for the four
              (N, K) of the encoder's matrices (dense_ms: cuBLAS on the
              weight dequantized beforehand; B5's library_ms:
              torch._weight_int4pack_mm) and in f32 at M in {256, 141} for
@@ -247,8 +250,11 @@ def phase_kernels(torch, report):
     from nemotron_tpu_torch.ops.attn_kernel import (attn_plan, sm_count,
                                                     t1_attention_core,
                                                     t1_attention_core_ref)
-    from nemotron_tpu_torch.ops.mel import padded_window
-    from nemotron_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_ref
+    from nemotron_tpu_torch.ops.mel_kernel import (filterbank_layout,
+                                                   mel_frames, mel_frames_ref,
+                                                   mel_plan, wide_bands)
+    from nemotron_tpu_torch.tools.gemm_turns import (mel_cases, mel_exact,
+                                                     rfft_mel)
 
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -389,27 +395,65 @@ def phase_kernels(torch, report):
                     if (m, n, k, dname) == (256, 4096, 1024, "bf16"):
                         report[kname].update(res)
 
-    n_frames, n_mels, B = 8, 128, 32
-    n_buf = (n_frames - 1) * 160 + 512
-    buf = torch.tensor(rng.standard_normal((B, n_buf)).astype(np.float32)
-                       * 0.1, device=dev)
-    fb = torch.tensor(rng.uniform(0, 1, (n_mels, 257)).astype(np.float32),
-                      device=dev)
-    win = padded_window(torch.tensor(np.hanning(400).astype(np.float32),
-                                     device=dev))
-    want = mel_frames_ref(buf, win, fb, n_frames)
-    # the least work of the function, not of the kernel's direct DFT: per
-    # frame the window, a 512-point FFT (2.5 N log2 N), the power, the
-    # filterbank product and the log; the bytes of its inputs and output
-    n_fft = 512
-    frame_ops = (n_fft + 2.5 * n_fft * np.log2(n_fft) + 3.0 * 257
-                 + 2.0 * 257 * n_mels + n_mels)
-    report["mel_frames"].update(check(
-        "mel_frames", f"B={B} frames={n_frames} mels={n_mels}",
-        mel_frames(buf, win, fb, n_frames), want, 1e-3,
-        lambda: mel_frames(buf, win, fb, n_frames),
-        lambda: mel_frames_ref(buf, win, fb, n_frames),
-        tensor_bytes(buf, win, fb, want), B * n_frames * frame_ops, "f32"))
+    # B2 at the shapes its paths run: B x frames in {256 x 8, 32 x 8, 1 x 8,
+    # 1 x 6000}, dense and slaney filterbanks; bound: the least work of
+    # the function, not of the kernel: per frame the window,
+    # a 512-point FFT (2.5 N log2 N), the power, the filterbank's non-zero
+    # terms and the log; the bytes of the audio, the window, the
+    # filterbank's non-zeros and the output. rfft_ms: cuFFT + torch.matmul
+    fbs = {}
+    for case, b, f, buf, win, fb in mel_cases(torch, dev, rng):
+        fbs[case.rsplit(" ", 1)[1]] = fb
+        want = mel_frames_ref(buf, win, fb, f)
+        n_mels, nnz = fb.shape[0], int((fb != 0).sum())
+        frame_ops = 512 + 2.5 * 512 * 9 + 3.0 * 257 + 2.0 * nnz + n_mels
+        got = mel_frames(buf, win, fb, f)
+        exact = mel_exact(torch, buf, win, fb, f)
+        plan = mel_plan(b, f, wide_bands(filterbank_layout(fb)), sms)
+        r_err = float((rfft_mel(torch, buf, win, fb, f) - exact).abs().max())
+        log(f"[3 kernels] mel_frames {case}: plan {plan} "
+            f"frames per block; max|diff| to the exact float64 log-mel: "
+            f"kernel {float((got - exact).abs().max()):.3e}, plain "
+            f"{float((want - exact).abs().max()):.3e}, rfft yardstick "
+            f"{r_err:.3e}")
+        res = check(
+            "mel_frames", f"{case} mels={n_mels}", got,
+            want, 1e-3, lambda: mel_frames(buf, win, fb, f),
+            lambda: mel_frames_ref(buf, win, fb, f),
+            tensor_bytes(buf, win, want) + 4 * nnz, b * f * frame_ops, "f32",
+            rfft_ms=lambda: rfft_mel(torch, buf, win, fb, f))
+        if case == "B=256 x 8 dense":  # the tick's headline
+            report["mel_frames"].update(res)
+    # untimed: a full-scale 300 Hz tone with noise at -60 dB (loud bins
+    # beside bands just above the guard) and digital silence, where both
+    # versions give log(2^-24) exactly; held to the exact float64 log-mel
+    # at 1e-4, and to the plain version at 1e-3 except on the tone through
+    # the slaney filterbank, where the plain version's f32 DFT-matmul is
+    # itself farther than that from the exact value (both printed)
+    t = np.arange(1632) / 16000.0
+    tone = torch.tensor((np.sin(2 * np.pi * 300.0 * t) + 1e-3
+                         * rng.standard_normal((32, 1632))).astype(np.float32),
+                        device=dev)
+    floor = float(np.log(np.float32(2.0 ** -24)))
+    for name, x in (("tone", tone), ("silence", torch.zeros_like(tone))):
+        for kind, fb in fbs.items():
+            got = mel_frames(x, win, fb, 8)
+            want = mel_frames_ref(x, win, fb, 8)
+            exact = mel_exact(torch, x, win, fb, 8)
+            err = float((got - exact).abs().max())
+            to_plain = float((got - want).abs().max())
+            good = bool(torch.isfinite(got).all()) and err <= 1e-4
+            if (name, kind) != ("tone", "slaney"):
+                good &= to_plain <= 1e-3
+            if name == "silence":
+                good &= bool((got == floor).all() and (want == floor).all())
+            ok &= good
+            log(f"[3 kernels] mel_frames {name} B=32 x 8 {kind}: max|diff| "
+                f"to the exact log-mel: kernel {err:.3e} (bound 1e-4"
+                f"{'; log(2^-24) exactly' if name == 'silence' else ''}) "
+                f"{'ok' if good else 'FAIL'}, plain "
+                f"{float((want - exact).abs().max()):.3e}; kernel to plain "
+                f"{to_plain:.3e}")
     if not ok:
         raise SystemExit("phase 3: a kernel disagrees with its plain version")
     kernels.reset_counts()

@@ -54,9 +54,10 @@ _SIGNATURES = {
     # attn_plan), stream
     "t1_attention_f32": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "t1_attention_bf16": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
-    # buf, window512, dft_cos, dft_sin, fb_t, out, batch, n_buf, n_frames,
-    # n_mels, stream
-    "mel_frames_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # buf, window512, twiddles, filterbank weights, bands, out, batch,
+    # n_buf, n_frames, n_mels, weights' count, frames per block
+    # (ops/mel_kernel.py: filterbank_layout, mel_plan), stream
+    "mel_frames_f32": [_P] * 6 + [_I] * 6 + [_P],
     # q, k_new, v_new, pos_mask, k codes, k scales, v codes, v scales, out,
     # batch*heads, s_buf, d_head, scale, cluster, stream
     "t1_attention_i8_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],

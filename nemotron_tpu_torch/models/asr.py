@@ -79,8 +79,8 @@ def fused_encode_tick(params, state: StreamState, audio_block, active,
     x = audio_block.to(torch.float32)
     if not audio_block.is_floating_point():
         x = x / 32768.0
-    window512 = melops.padded_window(params.preproc.window)
-    fb = params.preproc.filterbank.to(torch.float32)
+    window512 = melops.window512_of(params.preproc.window)
+    fb = melops.filterbank_f32(params.preproc.filterbank)
     mel_new, tail2, last2 = melops.mel_step(
         x, state.pp_tail, state.pp_last, window512, fb,
         n_frames=cfg.shift_mel_frames)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .mel_kernel import (HOP, N_FFT, dft_bases,  # noqa: F401
+from .mel_kernel import (HOP, N_FFT, TensorMemo, dft_bases,  # noqa: F401
                          mel_frames, mel_from_frames)
 
 PREEMPH = 0.97
@@ -22,6 +22,12 @@ def padded_window(window):
     window = window.to(torch.float32)
     pad = (N_FFT - window.shape[0]) // 2
     return F.pad(window, (pad, N_FFT - window.shape[0] - pad))
+
+
+# The tick's frontend constants, built once per params tensor (and again
+# only if that tensor changes in place) instead of on every tick.
+window512_of = TensorMemo(padded_window)
+filterbank_f32 = TensorMemo(lambda fb: fb.to(torch.float32))
 
 
 def frame_signal(audio, n_frames: int):

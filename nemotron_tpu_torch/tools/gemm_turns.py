@@ -1,6 +1,7 @@
-"""Time kernels B1 (T=1 attention), B3 (the fused attention block) and B4 /
-B5 (Q8_0 / Q4_0 linears, bf16 and f32 activations), and the host time of a
-full-width tick, of two or more checkouts of the repo in turns on one card,
+"""Time kernels B1 (T=1 attention), B3 (the fused attention block), B4 /
+B5 (Q8_0 / Q4_0 linears, bf16 and f32 activations) and B2 (log-mel frames),
+and the host time of a full-width tick, of two or more checkouts of the
+repo in turns on one card,
 as one call of the card allows a fair comparison: each tree runs in a
 process of its own (it builds its own kernels into its own `_build/`), in
 the order given, e.g. parent, change, change, parent.
@@ -8,7 +9,7 @@ the order given, e.g. parent, change, change, parent.
     python3 nemotron_tpu_torch/tools/gemm_turns.py \\
         --tree parent=_archive/parent --tree change=. \\
         --tree change=. --tree parent=_archive/parent \\
-        [--only b1 --only b3 --only b4b5 --only tick] [--probe]
+        [--only b1 --only b3 --only b4b5 --only mel --only tick] [--probe]
 
 Per tree and case: device ms per call (CUDA events around 50 calls behind
 a device spin, median of 7). B1 and B3 at chip_smoke.py phase 3's shapes:
@@ -21,9 +22,15 @@ its FFMA product, TF32 off), at the main path's (N, K) and M in {32, 141,
 fused tick at full width and B=256 (random weights from seed 0; the tick
 synchronised before and after, median of 48 after 8 warm-up ticks) in bf16,
 in f32, bf16 and bf16 with int8 K/V through the attention block, and in
-f32 with Q8_0 encoder weights (B4 in f32) and int8 K/V.
-`--only` picks the groups (all four by default). `--profile` adds each of
-B3's launches' device us. `--probe` then times the change's B1 built as
+f32 with Q8_0 encoder weights (B4 in f32) and int8 K/V. `mel`: B2 at
+the shapes its paths run, B x frames in {256 x 8 (the tick's headline),
+32 x 8, 1 x 8 (the session's chunk), 1 x 6000 (mel_full of 60 s)}, 128
+mels, white noise, with the dense uniform filterbank of random_params and
+a slaney one (`slaney_filterbank`), each beside
+`rfft_ms`: torch.fft.rfft of the unfolded windowed frames, the power, the
+filterbank by torch.matmul and the log (cuFFT; a yardstick, not called by
+the port). `--only` picks the groups (all five by default). `--profile`
+adds each of B3's launches' device us. `--probe` then times the change's B1 built as
 measurement variants (T1_PROBE: without the scores and context, without
 the copies), its B4 / B5 as measurement variants of
 csrc/wq_gemm_sm90.cuh (WQ_SM90_PROBE: without the dequantization, without
@@ -35,7 +42,8 @@ the staging of later steps; without all but one column of math);
 `--probe=f32` builds the last two only. Their
 outputs are not the function's. `--plans` adds the change's f32 B4 at
 every plan ops/quant.py:f32_plan weighs (batch tile x splits within one
-wave), the data its cost model is fitted to. Prints one line per case;
+wave), the data its cost model is fitted to, and with `mel` B2 at every
+tile ops/mel_kernel.py:mel_plan picks from. Prints one line per case;
 `--json PATH` also writes all of it there as JSON.
 """
 
@@ -52,7 +60,7 @@ from pathlib import Path
 
 import numpy as np
 
-GROUPS = ("b1", "b3", "b4b5", "tick")
+GROUPS = ("b1", "b3", "b4b5", "mel", "tick")
 SHAPES = ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024))
 BATCHES = (32, 141, 256)
 F32_BATCHES = (141, 256)
@@ -130,6 +138,107 @@ def _caches(torch, rng, dev, dtype, int8, live):
             buf.q.masked_fill_(dead[..., None], 127)
             buf.s.masked_fill_(dead, 3.0e4)
     return bufs
+
+
+def slaney_filterbank(n_mels: int, sr: int = 16000, n_fft: int = 512,
+                      fmin: float = 0.0, fmax: float = 8000.0) -> np.ndarray:
+    """librosa.filters.mel(htk=False, norm='slaney') [n_mels, n_fft/2 + 1]
+    f32: the kind of filterbank NeMo ships in the GGUF (triangles of about
+    two non-zero bins each), in numpy."""
+    def hz_to_mel(f):
+        f = np.asarray(f, dtype=np.float64)
+        return np.where(f >= 1000.0, 15.0 + np.log(np.maximum(f, 1e-10)
+                                                    / 1000.0)
+                        / (np.log(6.4) / 27.0), f / (200.0 / 3))
+
+    def mel_to_hz(m):
+        m = np.asarray(m, dtype=np.float64)
+        return np.where(m >= 15.0, 1000.0 * np.exp((np.log(6.4) / 27.0)
+                                                    * (m - 15.0)),
+                        m * (200.0 / 3))
+
+    fft_freqs = np.linspace(0, sr / 2, n_fft // 2 + 1)
+    pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2))
+    fdiff = np.diff(pts)
+    ramps = pts[:, None] - fft_freqs[None, :]
+    weights = np.maximum(0, np.minimum(-ramps[:-2] / fdiff[:-1, None],
+                                       ramps[2:] / fdiff[1:, None]))
+    enorm = 2.0 / (pts[2:n_mels + 2] - pts[:n_mels])
+    return (weights * enorm[:, None]).astype(np.float32)
+
+
+def rfft_mel(torch, buf, window512, filterbank, n_frames: int):
+    """The log-mel function by cuFFT: torch.fft.rfft of the unfolded,
+    windowed frames, the power, the filterbank by torch.matmul, the log.
+    B2's yardstick (`rfft_ms`); the port never calls it."""
+    spec = torch.fft.rfft(buf.unfold(-1, 512, 160)[:, :n_frames] * window512)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    return torch.log(torch.matmul(power, filterbank.T) + 2.0 ** -24)
+
+
+def mel_exact(torch, buf, window512, filterbank, n_frames: int):
+    """The log-mel function in float64 on the same f32 inputs (the window
+    product in f32, as both versions take it): the exact value B2 and its
+    plain version are held to where the plain version's f32 DFT-matmul
+    strays (a loud tone)."""
+    frames = (buf.unfold(-1, 512, 160)[:, :n_frames] * window512).double()
+    power = torch.fft.rfft(frames).abs() ** 2
+    return torch.log(power @ filterbank.double().T + 2.0 ** -24)
+
+
+# (B, frames): the tick's headline, a tick of 32 streams, the session's
+# chunk, mel_full of 60 s
+MEL_SHAPES = ((256, 8), (32, 8), (1, 8), (1, 6000))
+
+
+def mel_cases(torch, dev, rng):
+    """(label, B, frames, buf, window512, filterbank) of B2's timed cases:
+    white noise (std 0.1), 128 mels."""
+    from nemotron_tpu_torch.ops.mel import padded_window
+
+    win = padded_window(torch.tensor(np.hanning(400).astype(np.float32),
+                                     device=dev))
+    dense = torch.tensor(rng.uniform(0, 1, (128, 257)).astype(np.float32),
+                         device=dev)
+    slaney = torch.tensor(slaney_filterbank(128), device=dev)
+    for b, f in MEL_SHAPES:
+        buf = torch.tensor((rng.standard_normal((b, (f - 1) * 160 + 512))
+                            * 0.1).astype(np.float32), device=dev)
+        for kind, fb in (("dense", dense), ("slaney", slaney)):
+            yield f"B={b} x {f} {kind}", b, f, buf, win, fb
+
+
+def mel_rows(torch, dev, rng, plans: bool = False) -> list:
+    """B2 and its rfft yardstick at each case; with `plans`, B2 (the
+    change's entry point) at every tile of ops/mel_kernel.FRAME_TILES."""
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.ops import mel_kernel as mk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for case, b, f, buf, win, fb in mel_cases(torch, dev, rng):
+        if not plans:
+            rows.append(dict(
+                kernel="mel_frames", case=case,
+                ms=cuda_ms(torch, lambda: mk.mel_frames(buf, win, fb, f)),
+                rfft_ms=cuda_ms(torch, lambda: rfft_mel(torch, buf, win, fb,
+                                                        f))))
+            continue
+        lay = mk.filterbank_layout(fb)
+        out = torch.empty((b, f, fb.shape[0]), device=dev)
+        tw = mk.fft_twiddles(dev)
+        chosen = mk.mel_plan(b, f, mk.wide_bands(lay), sms)
+        for tile in mk.FRAME_TILES:
+            args = (buf.data_ptr(), win.data_ptr(), tw.data_ptr(),
+                    lay.weights.data_ptr(), lay.bands.data_ptr(),
+                    out.data_ptr(), b, buf.shape[1], f, fb.shape[0],
+                    lay.weights.numel(), tile)
+            rows.append(dict(
+                kernel="mel_frames plan", case=f"{case} tile {tile}"
+                + (" (chosen)" if tile == chosen else ""),
+                ms=cuda_ms(torch, lambda: kernels.MEL_FRAMES.launch(
+                    "mel_frames_f32", *args))))
+    return rows
 
 
 def kernel_name(key: str) -> str:
@@ -326,7 +435,10 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
     rng = np.random.default_rng(0)
     rows = []
     if plans:
-        print(json.dumps({"rows": plan_rows(torch, dev, rng, sms)}))
+        rows = plan_rows(torch, dev, rng, sms) if "b4b5" in only else []
+        if "mel" in only:
+            rows += mel_rows(torch, dev, rng, plans=True)
+        print(json.dumps({"rows": rows}))
         return
     if "b1" in only or "b3" in only:
         rows += [r for r in attn_rows(torch, dev, rng, "b3" in only, profile)
@@ -355,6 +467,8 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
                         row.update(m_tile=p.m_tile, splits=p.splits,
                                    steps_per=p.steps_per)
                     rows.append(row)
+    if "mel" in only:
+        rows += mel_rows(torch, dev, rng)
     if "tick" in only:
         rows += tick_rows(torch)
     print(json.dumps({"rows": rows}))
@@ -373,7 +487,8 @@ def main(argv=None) -> int:
                     help="also give B3's launches' device us (torch.profiler)")
     ap.add_argument("--plans", action="store_true",
                     help="also time the change's f32 B4 at every plan "
-                    "ops/quant.py:f32_plan weighs")
+                    "ops/quant.py:f32_plan weighs (with b4b5) and B2 at "
+                    "every tile of ops/mel_kernel.py:mel_plan (with mel)")
     ap.add_argument("--json", help="write every run's rows here as JSON")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--flag", action="append", default=[],
@@ -408,8 +523,8 @@ def main(argv=None) -> int:
     for label, path, flags, probe in runs:
         cmd = [sys.executable, os.path.abspath(__file__),
                "--child", os.path.abspath(path)]
-        if probe == ():  # the plan sweep only
-            cmd += ["--plans"]
+        if probe == ():  # the plan sweeps only
+            cmd += ["--plans"] + [f"--only={g}" for g in only]
         elif probe is not None:  # a probe build times its groups
             cmd += [f"--only={g}" for g in probe]
             cmd += [f"--flag={f}" for f in flags]
@@ -436,6 +551,8 @@ def main(argv=None) -> int:
             if "bits" not in r:
                 parts = "".join(f"; {k} {v:.2f} us" for k, v in
                                 r.get("launch_us", {}).items())
+                if "rfft_ms" in r:
+                    parts += f", rfft {r['rfft_ms']:.4f} ms"
                 print(f"{label}: {r['kernel']} {r['case']}: {r['ms']:.4f} ms"
                       f"{parts} ({card})", flush=True)
                 continue

@@ -14,6 +14,7 @@ import torch
 
 from nemotron_tpu_torch import Hparams, kernels
 from nemotron_tpu_torch.api import ASRModel
+from nemotron_tpu_torch.audio.frontend import mel_full
 from nemotron_tpu_torch.ops import quant
 from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
                                                t1_attention_block_ref)
@@ -23,6 +24,7 @@ from nemotron_tpu_torch.ops.kvquant import QuantKV, quantize_kv
 from nemotron_tpu_torch.ops.mel import padded_window
 from nemotron_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_ref
 from nemotron_tpu_torch.params import params_to, quantize_encoder_layers
+from nemotron_tpu_torch.tools.gemm_turns import mel_exact, slaney_filterbank
 
 pytestmark = pytest.mark.gpu
 
@@ -307,20 +309,109 @@ def test_quantized_linear_wrappers_refuse(cuda):
         quant.linear_q8(x, quant.QuantizedTensor(qt.w_i8[None], qt.scales[None]))
 
 
-def test_mel_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    buf = torch.tensor((rng.standard_normal((32, 1632)) * 0.1).astype(
-        np.float32), device=cuda)
-    fb = torch.tensor(rng.uniform(0, 1, (128, 257)).astype(np.float32),
-                      device=cuda)
+def _mel_case(dev, b, n_frames, n_mels=128, fb_kind="dense",
+              signal="noise", seed=1):
+    """Kernel B2's inputs: a buffer of b streams holding n_frames frames of
+    white noise (std 0.1), a full-scale 300 Hz tone with noise at -60 dB,
+    or digital silence; a dense uniform filterbank (as random_params) or a
+    slaney one; the 400-sample Hann window centred in 512."""
+    rng = np.random.default_rng(seed)
+    n_buf = (n_frames - 1) * 160 + 512
+    if signal == "noise":
+        x = rng.standard_normal((b, n_buf)) * 0.1
+    elif signal == "tone":
+        t = np.arange(n_buf) / 16000.0
+        x = np.sin(2 * np.pi * 300.0 * t) + 1e-3 * rng.standard_normal(
+            (b, n_buf))
+    else:
+        x = np.zeros((b, n_buf))
+    fb = (rng.uniform(0, 1, (n_mels, 257)) if fb_kind == "dense"
+          else slaney_filterbank(n_mels))
     win = padded_window(torch.tensor(np.hanning(400).astype(np.float32),
-                                     device=cuda))
+                                     device=dev))
+    return (torch.tensor(x.astype(np.float32), device=dev),
+            win, torch.tensor(fb.astype(np.float32), device=dev))
+
+
+# (B, frames): the tick's headline, a tick of 32 streams, the session's
+# chunk, mel_full of 60 s
+MEL_SHAPES = [(256, 8), (32, 8), (1, 8), (1, 6000)]
+
+
+@pytest.mark.parametrize("b, n_frames", MEL_SHAPES)
+def test_mel_kernel_matches_plain(cuda, b, n_frames):
+    """B2 against its plain version at the shapes its paths run, one launch
+    per call; 1e-3 absolute on log-mel (the JAX suite's bound between its
+    two mel paths)."""
+    buf, win, fb = _mel_case(cuda, b, n_frames)
     before = kernels.MEL_FRAMES.launches
-    got = mel_frames(buf, win, fb, 8)
+    got = mel_frames(buf, win, fb, n_frames)
     torch.cuda.synchronize()
     assert kernels.MEL_FRAMES.launches == before + 1
-    torch.testing.assert_close(got, mel_frames_ref(buf, win, fb, 8),
+    torch.testing.assert_close(got, mel_frames_ref(buf, win, fb, n_frames),
                                atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("signal", ["noise", "tone", "silence"])
+@pytest.mark.parametrize("n_mels", [32, 80, 128])
+@pytest.mark.parametrize("fb_kind", ["dense", "slaney"])
+def test_mel_kernel_inputs_and_filterbanks(cuda, signal, n_mels, fb_kind):
+    """B2 on white noise, on loud band-limited audio (bands just above the
+    guard beside bins 1e4 times louder) and on silence (log(2^-24) exactly
+    on both sides), at every filterbank height the wrapper takes, dense and
+    slaney. The kernel's FFT is float64, so it is held to the exact
+    log-mel at 1e-4 everywhere, and to the plain version at 1e-3 (the JAX
+    suite's bound between its two mel paths) except on the tone through a
+    slaney filterbank: there the plain version's f32 DFT-matmul is itself
+    up to 2.5e-3 from the exact value (PERF.md section 6), so no
+    implementation can be within 1e-3 of it and of the exact value both."""
+    buf, win, fb = _mel_case(cuda, 32, 8, n_mels, fb_kind, signal)
+    got = mel_frames(buf, win, fb, 8)
+    want = mel_frames_ref(buf, win, fb, 8)
+    assert got.shape == (32, 8, n_mels)
+    torch.testing.assert_close(got.double(), mel_exact(torch, buf, win, fb, 8),
+                               atol=1e-4, rtol=0)
+    if (signal, fb_kind) != ("tone", "slaney"):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    if signal == "silence":
+        floor = torch.full_like(got, float(np.log(np.float32(2.0 ** -24))))
+        torch.testing.assert_close(got, floor, atol=0, rtol=0)
+        torch.testing.assert_close(want, floor, atol=0, rtol=0)
+
+
+def test_mel_full_of_silence_on_the_card(cuda):
+    """The frontend's zero centre padding and digital silence through B2
+    (mel_full on the card) give log(2^-24) in every frame, as on the CPU."""
+    fb = slaney_filterbank(128)
+    win = np.hanning(400).astype(np.float32)
+    audio = np.zeros(16000, np.int16)
+    got = mel_full(audio, torch.tensor(fb, device=cuda), win)
+    want = mel_full(audio, torch.tensor(fb), win)
+    assert got.shape == want.shape and got.shape[1] == 128
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, np.full_like(got, np.log(np.float32(2.0 ** -24))))
+
+
+def test_mel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    buf, win, fb = _mel_case(cuda, 4, 8)
+    flat = torch.zeros(buf.numel() + 1, device=cuda)
+    shifted = flat[1:].view(buf.shape)  # contiguous, 4 bytes off 16
+    with pytest.raises(ValueError):
+        mel_frames(shifted, win, fb, 8)
+    odd = torch.zeros(4, buf.shape[1] + 1, device=cuda)  # rows % 4 != 0
+    with pytest.raises(ValueError):
+        mel_frames(odd, win, fb, 8)
+    with pytest.raises(ValueError):  # four samples short of 8 frames
+        mel_frames(buf[:, :-4].contiguous(), win, fb, 8)
+    w_flat = torch.zeros(513, device=cuda)
+    with pytest.raises(ValueError):  # window 4 bytes off 16
+        mel_frames(buf, w_flat[1:], fb, 8)
+    with pytest.raises(ValueError):  # a filterbank height not compiled for
+        mel_frames(buf, win, torch.ones(64, 257, device=cuda), 8)
+    before = kernels.MEL_FRAMES.launches
+    mel_frames(buf, win, fb, 8)
+    assert kernels.MEL_FRAMES.launches == before + 1
 
 
 def _block_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0):
