@@ -13,8 +13,9 @@ back from one to the other. NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1, read once at
 start-up, runs each layer's attention sub-block through kernel B3, as the
 same variable selects the fused block in the JAX package.
 
-Refused until the port runs them (ROADMAP.md): right_context other than 0,
-and the diarization options --diarize, --rttm, --speaker-text, --json,
+right_context is 0, 1, 6 or 13 (the 80 ms, 160 ms, 560 ms and 1.12 s
+latency modes). Refused until the port runs them (ROADMAP.md): the
+diarization options --diarize, --rttm, --speaker-text, --json,
 --num-speakers and --sub-shift.
 """
 
@@ -72,10 +73,6 @@ def parse_args(argv: list[str]) -> dict:
         opts["chunk_ms"] = int(pos[2])
     if len(pos) > 3:
         opts["right_context"] = int(pos[3])
-    if opts["right_context"] != 0:
-        _refuse(f"right_context {opts['right_context']} is not supported by "
-                "the torch port yet (it runs right_context 0; ROADMAP next "
-                "slice 2)")
     if opts["chunk_ms"] <= 0:
         _refuse(f"chunk_ms must be positive, got {opts['chunk_ms']}")
     return opts

@@ -4,21 +4,25 @@ masked fast paths of nemotron_tpu/models/encoder.py).
 The K/V caches are head-major [L, B, H, S_buf, Dh] phased slack buffers
 (dense, or int8 `QuantKV` codes with per-frame scales [L, B, H, S_buf]):
 the 70-frame history window of a stream sits at slots [phase*chunk_len,
-phase*chunk_len + lc); each chunk appends its new frame right after the
-window and the caller moves to phase + 1; once every n_phases chunks
-`compact_cache` moves the window back to phase 0. Conv caches are
-[L, B, K-1, D].
+phase*chunk_len + lc); each chunk appends its chunk_len new frames right
+after the window and the caller moves to phase + 1; once every n_phases
+chunks `compact_cache` moves the window back to phase 0. Conv caches are
+[L, B, K-1, D]. chunk_len is 1, 2, 7 or 14 frames at right context 0, 1,
+6 or 13; a chunk may be longer than the window (the window then holds the
+last lc of the chunk's frames).
 
 In-place updates: where the JAX package donates the cache buffers to XLA,
 the port writes them in place — `stream_encode_step` appends the new K/V
-frame into `k_cache`/`v_cache` and overwrites `conv_cache`;
+frames into `k_cache`/`v_cache` and overwrites `conv_cache`;
 `compact_cache` and `realign_cache` rewrite the buffers they are given.
 A caller that needs the old state keeps its own copy.
 
 `attn_block` (chunk_len 1) runs each layer's attention sub-block (LN,
 projections, attention, out projection, residual) as one call of kernel B3
 (ops/attn_block.py) instead of LN + `rel_pos_mha_fullbuf` (kernel B1): the
-JAX package's NEMOTRON_TPU_PALLAS_ATTN_BLOCK path, taken as an argument.
+JAX package's NEMOTRON_TPU_PALLAS_ATTN_BLOCK path, taken as an argument. At
+chunk_len > 1 the layers take `rel_pos_mha_fullbuf` whatever attn_block
+says, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -102,7 +106,7 @@ def _phase_attn_constants(lc: int, chunk_len: int, s_buf: int, phase: int):
 def _phase_tensors(lc, chunk_len, s_buf, phase, device):
     j_of_s, pos_index = _phase_attn_constants(lc, chunk_len, s_buf, phase)
     return (torch.tensor(j_of_s, device=device),
-            torch.tensor(pos_index[0], device=device))
+            torch.tensor(pos_index, device=device))
 
 
 ATTN_BLOCK_WEIGHTS = ("attn_q_w", "attn_k_w", "attn_v_w", "attn_out_w")
@@ -122,10 +126,11 @@ def check_attn_block_weights(layers) -> None:
 
 def _block_call(lp, hp: Hparams, pos, pos_index, mask, k_buf, v_buf):
     """Layer lp's attention sub-block as one B3 call: res -> (res', k_new,
-    v_new [B, H, 1, Dh]). pos [pos_len, D] is pos_emb . attn_pos_w^T; pp is
-    built here, outside the kernel as in the JAX package (encoder.py:345-350):
-    pp[h, d, s] = pos[pos_index[s], h, d] on live slots, 0 on dead ones (the
-    index form of its one-hot contraction)."""
+    v_new [B, H, 1, Dh]). pos [pos_len, D] is pos_emb . attn_pos_w^T;
+    pos_index is the one query's row [S_buf + 1]; pp is built here, outside
+    the kernel as in the JAX package (encoder.py:345-350): pp[h, d, s] =
+    pos[pos_index[s], h, d] on live slots, 0 on dead ones (the index form of
+    its one-hot contraction)."""
     live = (pos_index >= 0).to(torch.float32)
     ph = pos.float().view(-1, hp.n_heads, hp.d_head)
     pp = (ph[pos_index.clamp(min=0)] * live[:, None, None]).permute(
@@ -166,9 +171,10 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     mel_chunk: [B, chunk_mel_frames, n_mels]; k_cache/v_cache: [L, B, H,
     S_buf, Dh], dense or QuantKV (the new frames are quantized as they are
     written); conv_cache: [L, B, K-1, D]; cache_valid: [B] int32; phase:
-    the slack-buffer phase in [0, n_phases). The new frame is appended at
-    slot phase*chunk_len + lc, IN PLACE, and conv_cache is overwritten in
-    place; the caller then moves to phase + 1 and compacts at the wrap.
+    the slack-buffer phase in [0, n_phases). The chunk_len new frames are
+    appended at slot phase*chunk_len + lc, IN PLACE, and conv_cache is
+    overwritten in place; the caller then moves to phase + 1 and compacts
+    at the wrap.
 
     active_mask ([B] bool, optional) is the masked fast path: inactive slots
     keep their append slot (int8 codes and scales), conv cache and
@@ -203,7 +209,7 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
         kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
         ab = None
         if use_block:
-            ab = _block_call(lp, hp, linear(pe, lp.attn_pos_w), pos_index,
+            ab = _block_call(lp, hp, linear(pe, lp.attn_pos_w), pos_index[0],
                              mask_full, kl, vl)
         x, k_new, v_new, cc2 = conformer_layer(
             x, pe, lp, hp, kl, vl, cl, mask_full, pos_index, attn_block=ab)

@@ -66,8 +66,10 @@ def depthwise_causal_conv1d(x, dw_w, cache=None):
     padded = torch.cat([cache, x], dim=1)  # [B, K-1+T, D]
     if t == 1:
         y = torch.einsum("bkd,kd->bd", padded, dw_w)[:, None, :]
-    else:
-        y = padded[:, 0:t, :] * dw_w[0]
+    else:  # the taps summed in f32 and rounded once, as the T=1 einsum
+        p32, w32 = padded.float(), dw_w.float()
+        y = p32[:, 0:t, :] * w32[0]
         for i in range(1, k):
-            y = y + padded[:, i:i + t, :] * dw_w[i]
+            y = y + p32[:, i:i + t, :] * w32[i]
+        y = y.to(x.dtype)
     return y, padded[:, t:, :]

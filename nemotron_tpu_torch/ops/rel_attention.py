@@ -1,11 +1,17 @@
 """Relative-position multi-head attention over the phased slack buffer
-(port of nemotron_tpu/ops/rel_attention.py:rel_pos_mha_fullbuf at T=1).
+(port of nemotron_tpu/ops/rel_attention.py:rel_pos_mha_fullbuf).
 
-Scores are computed against ALL S_buf cache slots plus the new frame; the
-phase's slot -> relative-position map arrives as `pos_index` (an index
-gather in place of the JAX package's one-hot contraction: the same values)
-and the window/validity selection as the additive `attn_mask` (-1e9 on
-dead slots, whose softmax weight is exactly 0).
+Scores are computed against ALL S_buf cache slots plus the T new frames;
+the phase's (query, slot) -> relative-position map arrives as `pos_index`
+(an index gather in place of the JAX package's one-hot contraction: the
+same values) and the window/validity selection as the additive
+`attn_mask` (-1e9 on dead slots, whose softmax weight is exactly 0).
+
+At T=1 (right context 0) the attention runs in kernel B1 with an f32
+softmax, as the JAX package's Pallas path. At T>1 (right contexts 1, 6
+and 13) the JAX package computes it as einsums outside any Pallas kernel,
+in the activation type throughout (the 1/sqrt(Dh) scale and the softmax
+included), and so does the port, with torch.matmul.
 """
 
 from __future__ import annotations
@@ -16,26 +22,65 @@ import torch
 
 from .attn_kernel import t1_attention_core
 from .basic import linear
+from .kvquant import is_quant
 
 
 def rel_pos_mha_fullbuf(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u,
                         bias_v, n_heads: int, d_head: int, k_buf, v_buf,
                         pos_index, attn_mask):
-    """Streaming rel-pos MHA for one new frame (chunk_len 1).
+    """Streaming rel-pos MHA for a chunk of T new frames.
 
-    x: [B, 1, D]; pos_emb: [pos_len, D]; k_buf/v_buf: [B, H, S_buf, Dh]
+    x: [B, T, D]; pos_emb: [pos_len, D]; k_buf/v_buf: [B, H, S_buf, Dh]
     head-major per-layer cache views (read only), dense or int8 QuantKV;
-    the weights are dense or quantized (ops/basic.linear); pos_index: [S_buf + 1]
-    int64, the pos_emb row of each slot, -1 for slots outside the window;
-    attn_mask: [B, S_buf + 1] additive. Returns (out [B, 1, D], k_new,
-    v_new [B, H, 1, Dh] in x's dtype); the caller appends the new frame to
-    the cache (quantizing it for an int8 cache).
+    the weights are dense or quantized (ops/basic.linear); pos_index:
+    [T, S_buf + T] int64, the pos_emb row query t reads for each slot, -1
+    for slots outside the window; attn_mask: [B, S_buf + T] additive.
+    Returns (out [B, T, D], k_new, v_new [B, H, T, Dh] in x's dtype); the
+    caller appends the new frames to the cache (quantizing them for an int8
+    cache).
     """
     B, T, D = x.shape
-    if T != 1:
-        raise NotImplementedError(
-            "rel_pos_mha_fullbuf: only chunk_len 1 (right context 0) is "
-            "ported so far")
+    if T == 1:
+        return _mha_t1(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u,
+                       bias_v, n_heads, d_head, k_buf, v_buf, pos_index[0],
+                       attn_mask)
+    q = linear(x, q_w).view(B, T, n_heads, d_head)
+    k_new = linear(x, k_w).view(B, T, n_heads, d_head).transpose(1, 2)
+    v_new = linear(x, v_w).view(B, T, n_heads, d_head).transpose(1, 2)
+    pos = linear(pos_emb, pos_w).view(-1, n_heads, d_head)  # [pos_len, H, Dh]
+    q_u = (q + bias_u).transpose(1, 2)  # [B, H, T, Dh]
+    # 1/sqrt(Dh) in the activation type, as JAX's asarray(d_head, x.dtype)
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=x.dtype))
+    pos_raw = torch.einsum("bthd,phd->bhtp", q + bias_v, pos)
+    live = pos_index >= 0
+    rows = torch.arange(T, device=x.device)[:, None]
+    pos_sc = pos_raw[:, :, rows, pos_index.clamp(min=0)] * live
+    if is_quant(k_buf):
+        # the int8 codes in the activation type, the per-frame scale folded
+        # onto the scores after the Dh reduction
+        c_hist = torch.matmul(q_u, k_buf.q.to(x.dtype).transpose(-1, -2)) \
+            * k_buf.s[:, :, None, :].to(x.dtype)
+    else:
+        c_hist = torch.matmul(q_u, k_buf.transpose(-1, -2))
+    content = torch.cat(
+        [c_hist, torch.matmul(q_u, k_new.transpose(-1, -2))], dim=-1)
+    scores = (content + pos_sc) * scale + attn_mask[:, None, None, :]
+    weights = torch.softmax(scores, dim=-1)  # [B, H, T, S_buf + T]
+    s_buf = c_hist.shape[-1]
+    if is_quant(v_buf):  # the scale folded onto the weights
+        w_hist = weights[..., :s_buf] * v_buf.s[:, :, None, :].to(x.dtype)
+        ctx = torch.matmul(w_hist, v_buf.q.to(x.dtype))
+    else:
+        ctx = torch.matmul(weights[..., :s_buf], v_buf)
+    ctx = ctx + torch.matmul(weights[..., s_buf:], v_new)  # [B, H, T, Dh]
+    out = linear(ctx.transpose(1, 2).reshape(B, T, D), out_w)
+    return out, k_new, v_new
+
+
+def _mha_t1(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u, bias_v,
+            n_heads, d_head, k_buf, v_buf, pos_index, attn_mask):
+    """T=1 through kernel B1; pos_index is the query's row [S_buf + 1]."""
+    B, _, D = x.shape
     xt = x[:, 0]
     q = linear(xt, q_w).view(B, n_heads, d_head)
     k_new = linear(xt, k_w).view(B, n_heads, d_head)

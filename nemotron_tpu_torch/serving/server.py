@@ -10,8 +10,7 @@ Concurrency model, as the JAX server:
     are split into <= 8000-sample segments for fairness;
   - fail-stop: if the engine thread dies, the listener shuts down.
 
-Not ported yet: diarization, hot swap and the native ingest server; the
-port serves right context 0 only.
+Not ported yet: diarization, hot swap and the native ingest server.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ import numpy as np
 from . import protocol as P
 from ..streaming.engine import BatchedEngine
 
-SUPPORTED_RIGHT_CONTEXTS = (0,)
+SUPPORTED_RIGHT_CONTEXTS = (0, 1, 6, 13)
 
 
 class StreamServer:
@@ -94,17 +93,11 @@ class StreamServer:
                 rc = int(cfg.get("right_context", 0))
             except (TypeError, ValueError):
                 rc = -1
-            if rc not in (0, 1, 6, 13):
+            if rc not in SUPPORTED_RIGHT_CONTEXTS:
                 await self._send(writer, P.pack(
                     P.OP_ERROR, 0,
                     f"right_context must be one of 0, 1, 6, 13 (got "
                     f"{cfg.get('right_context')!r})"))
-                return
-            if rc not in SUPPORTED_RIGHT_CONTEXTS:
-                await self._send(writer, P.pack(
-                    P.OP_ERROR, 0,
-                    f"right_context {rc} is not supported by the torch port "
-                    "yet (it runs right_context 0)"))
                 return
             try:
                 sid = self.engine.start_stream(right_context=rc,

@@ -1,8 +1,10 @@
 """Batched multi-stream engine (port of nemotron_tpu/streaming/engine.py).
 
-All streams of one latency mode are slots of one device-resident state
-batch; each tick uploads one packed raw-PCM block and runs ONE fused tick
-(mel frontend + cached encoder + greedy RNNT) for every ready slot. Token
+All streams of one latency mode (right context 0, 1, 6 or 13) are slots of
+one device-resident state batch, an `EngineGroup`; streams of different
+modes share the engine as separate groups. Each group's tick uploads one
+packed raw-PCM block and runs ONE fused tick (mel frontend + cached
+encoder + greedy RNNT) for every ready slot. Token
 readbacks are pipelined: a tick's tokens start copying to pinned host memory
 right after dispatch and are scattered on a later tick, after the next step
 has been queued.
@@ -135,10 +137,6 @@ class EngineGroup:
     """All streams of one latency mode, stepped as one batch."""
 
     def __init__(self, model, cfg, batch: int):
-        if cfg.chunk_len(model.hp) != 1:
-            raise NotImplementedError(
-                f"right_context {cfg.att_right_context}: the torch port runs "
-                "only right context 0 (chunk_len 1) so far")
         self.model = model
         self.cfg = cfg
         self.batch = batch

@@ -188,7 +188,8 @@ def mel_exact(torch, buf, window512, filterbank, n_frames: int):
 
 # (B, frames): the tick's headline, a tick of 32 streams, the session's
 # chunk, mel_full of 60 s
-MEL_SHAPES = ((256, 8), (32, 8), (1, 8), (1, 6000))
+MEL_SHAPES = ((256, 8), (32, 8), (1, 8), (1, 6000), (256, 16), (256, 56),
+              (256, 112), (1, 112))
 
 
 def mel_cases(torch, dev, rng):

@@ -1,14 +1,16 @@
 """The port's streaming CLI (`python -m nemotron_tpu_torch.cli.transcribe_stream
 ... --cpu`) against the JAX package's `main` on the same tiny GGUF: stdout
 equal for raw PCM, a .wav, stdin and --timestamps, with and without the
-attention block (NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1); the RTF line on
-stderr; and every refused option exits non-zero with its message.
+attention block (NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1), and at right contexts
+1, 6 and 13; the RTF line on stderr; and every refused option exits
+non-zero with its message.
 
 The JAX package's main is given one model per GGUF (its `from_gguf`
 patched to return it), so its step functions compile once per file, and
 both packages run right context 0 with N_PHASES slack-buffer phases in
 place of the default 8 (fewer phases to compile, a wrap every N_PHASES
-chunks)."""
+chunks); right contexts 1 and 6 run with N_PHASES phases too, 13 with its
+own 2."""
 
 import io
 import struct
@@ -37,7 +39,8 @@ N_PHASES = 2
 def few_phases():
     with pytest.MonkeyPatch.context() as mp:
         for cls in (JaxCacheConfig, CacheConfig):
-            mp.setitem(cls._MODE_N_PHASES, 0, N_PHASES)
+            for mode in (0, 1, 6):  # 13 has 2 already
+                mp.setitem(cls._MODE_N_PHASES, mode, N_PHASES)
         yield
 
 
@@ -91,6 +94,18 @@ def test_cli_stdout_matches_jax(files, jax_main, capsys, monkeypatch, block):
         assert ("attention block B3" in err) == block
 
 
+@pytest.mark.parametrize("rc", ["1", "6", "13"])
+def test_cli_stdout_matches_jax_at_right_context(files, jax_main, capsys,
+                                                 rc):
+    """Right context 1 / 6 / 13 (the 4th positional argument): the 160 ms,
+    560 ms and 1.12 s chunks, with the block's variable unset."""
+    want, _ = run(jax_main, [files["gguf"], files["raw"], "80", rc], capsys)
+    got, err = run(tcli.main, [files["gguf"], files["raw"], "80", rc,
+                               "--cpu"], capsys)
+    assert got == want and len(want.strip()) > 10
+    assert f"right_context={rc}" in err and "RTF: " in err
+
+
 def test_cli_reads_stdin(files, jax_main, capsys, monkeypatch):
     want, _ = run(jax_main, [files["gguf"], files["raw"]], capsys)
     monkeypatch.setattr(sys, "stdin",
@@ -106,8 +121,6 @@ def test_cli_reads_stdin(files, jax_main, capsys, monkeypatch):
     (["--json"], "diarization"),
     (["--num-speakers", "2"], "diarization"),
     (["--sub-shift", "500"], "diarization"),
-    (["80", "6"], "right_context 6"),
-    (["80", "1"], "right_context 1"),
     (["--tpu"], "unknown option"),
 ])
 def test_cli_refusals(files, argv, message):

@@ -270,6 +270,52 @@ def test_f32_quantized_linears_at_every_plan(cuda, bits, n, k):
             m, quant.f32_plan(m, n, k, sms), err)
 
 
+# M = B x chunk_len at B=256 and right context 1 / 6 / 13, and a ragged
+# 1974 = 141 x 14
+RC_ROWS = (512, 1792, 3584, 1974)
+
+
+@pytest.mark.parametrize("n, k", F32_SHAPES[:4])
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linears_at_right_context_rows(cuda, bits, dtype, rel, n,
+                                                 k):
+    """B4 / B5 at the rows of the right-context ticks, on the plans
+    gemm_plan / f32_plan give them: within rel x max|y| of the plain
+    version, two calls bit-equal, one launch each; in f32 the workspace
+    f32_scratch makes holds every split's partial of every tile."""
+    rng = np.random.default_rng(n + k + bits + 7)
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w).to(cuda)
+    kern = kernels.Q8_MATMUL if bits == 8 else kernels.Q4_MATMUL
+    fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
+               else (quant.linear_q4, quant.linear_q4_ref))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m in RC_ROWS:
+        if dtype == torch.float32:
+            plan = quant.f32_plan(m, n, k, sms)
+            ws, cnt = quant.f32_scratch(plan, cuda)
+            if plan.splits > 1:
+                assert ws.shape == (plan.splits, plan.tiles,
+                                    plan.bm * quant.F32_ROWS)
+                assert cnt.numel() >= plan.tiles and not cnt.any()
+            else:
+                assert ws is None and cnt is None
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                         device=cuda).to(dtype)
+        before = kern.launches
+        got = fn(x, qt)
+        again = fn(x, qt)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 2
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert torch.equal(got, again), m
+        want = ref(x, qt).float()
+        err = float((got.float() - want).abs().max())
+        assert err <= rel * float(want.abs().max()), (m, err)
+
+
 def test_f32_split_counters_survive_alternating_shapes(cuda):
     """The per-tile counters of the f32 split-K reduction reset themselves:
     calls at alternating shapes, tile counts and splits, back to back on one
@@ -334,8 +380,10 @@ def _mel_case(dev, b, n_frames, n_mels=128, fb_kind="dense",
 
 
 # (B, frames): the tick's headline, a tick of 32 streams, the session's
-# chunk, mel_full of 60 s
-MEL_SHAPES = [(256, 8), (32, 8), (1, 8), (1, 6000)]
+# chunk, mel_full of 60 s; the ticks at right context 1, 6 and 13 (16 / 56
+# / 112 new frames per stream) and the session's chunk at 13
+MEL_SHAPES = [(256, 8), (32, 8), (1, 8), (1, 6000), (256, 16), (256, 56),
+              (256, 112), (1, 112)]
 
 
 @pytest.mark.parametrize("b, n_frames", MEL_SHAPES)
@@ -348,6 +396,26 @@ def test_mel_kernel_matches_plain(cuda, b, n_frames):
     got = mel_frames(buf, win, fb, n_frames)
     torch.cuda.synchronize()
     assert kernels.MEL_FRAMES.launches == before + 1
+    torch.testing.assert_close(got, mel_frames_ref(buf, win, fb, n_frames),
+                               atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("fb_kind", ["dense", "slaney"])
+@pytest.mark.parametrize("b, n_frames", [(256, 16), (256, 56), (256, 112),
+                                         (1, 112)])
+def test_mel_kernel_at_right_context_frames(cuda, b, n_frames, fb_kind):
+    """B2 at the frame counts of the right-context ticks, on the plan
+    mel_plan gives them: within 1e-4 of the exact float64 log-mel and
+    1e-3 of the plain version, one launch per call."""
+    buf, win, fb = _mel_case(cuda, b, n_frames, fb_kind=fb_kind, seed=b)
+    before = kernels.MEL_FRAMES.launches
+    got = mel_frames(buf, win, fb, n_frames)
+    torch.cuda.synchronize()
+    assert kernels.MEL_FRAMES.launches == before + 1
+    assert got.shape == (b, n_frames, 128)
+    torch.testing.assert_close(
+        got, mel_exact(torch, buf, win, fb, n_frames).float(), atol=1e-4,
+        rtol=0)
     torch.testing.assert_close(got, mel_frames_ref(buf, win, fb, n_frames),
                                atol=1e-3, rtol=0)
 
@@ -568,6 +636,19 @@ def test_tiny_tick_on_card_matches_cpu(cuda, int8, block):
     """Dense, or int8 K/V caches (codes within +-1) with Q8_0 weights
     (dense ones with the attention block, which takes them dense); through
     B1, or through B3 with `block`."""
+    _tiny_tick_on_card_matches_cpu(cuda, int8, block, 0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mode", [1, 6, 13])
+def test_tiny_tick_at_right_context_on_card_matches_cpu(cuda, mode, int8):
+    """Right context 1 / 6 / 13 (chunk_len 2 / 7 / 14; attention as
+    torch.matmul, B1 and B3 not launched), dense or int8 K/V with Q8_0
+    weights (B4 at M = 3 x chunk_len), through a wrap."""
+    _tiny_tick_on_card_matches_cpu(cuda, int8, False, mode)
+
+
+def _tiny_tick_on_card_matches_cpu(cuda, int8, block, mode):
     hp = Hparams(n_mels=32, d_model=64, n_heads=4, d_head=16, d_ff=96,
                  n_layers=2, kernel_size=5, vocab_size=33, decoder_dim=32,
                  joint_dim=32, subsampling_channels=16, att_left_context=8,
@@ -579,7 +660,7 @@ def test_tiny_tick_on_card_matches_cpu(cuda, int8, block):
         cpu.params = quantize_encoder_layers(cpu.params)
     gpu = ASRModel(hp, params_to(cpu.params, cuda), cpu.tokenizer.vocab,
                    device=cuda, kv_int8=int8, attn_block=block)
-    cfg = cpu.cache_config(0)
+    cfg = cpu.cache_config(mode)
     rng = np.random.default_rng(2)
     states = [m.init_stream_state(3, cfg) for m in (cpu, gpu)]
     kernels.reset_counts()
@@ -597,8 +678,10 @@ def test_tiny_tick_on_card_matches_cpu(cuda, int8, block):
             toks.append(t.cpu())
         torch.testing.assert_close(toks[1], toks[0], atol=0, rtol=0)
     n = hp.n_layers * (i + 1)
-    assert kernels.T1_ATTENTION.launches == (0 if block else n)
-    assert kernels.T1_ATTENTION_BLOCK.launches == (n if block else 0)
+    n_t1 = 0 if mode else n  # at T > 1 the attention is torch.matmul
+    assert kernels.MEL_FRAMES.launches == i + 1
+    assert kernels.T1_ATTENTION.launches == (0 if block else n_t1)
+    assert kernels.T1_ATTENTION_BLOCK.launches == (n_t1 if block else 0)
     assert kernels.Q8_MATMUL.launches == (11 * n if q8 else 0)
     for name in ("k_cache", "v_cache", "conv_cache", "pp_tail", "mel_ov"):
         got, want = getattr(states[1], name), getattr(states[0], name)

@@ -87,7 +87,7 @@ def test_rel_pos_mha_over_int8_cache_matches_jax(phase):
     _, pos_index = t_consts(lc, 1, s_buf, phase)
     got = t_mha(torch.tensor(x), torch.tensor(pe), *map(torch.tensor, ws),
                 torch.tensor(bu), torch.tensor(bv), H, Dh, kq, vq,
-                torch.tensor(pos_index[0]), torch.tensor(mask))
+                torch.tensor(pos_index), torch.tensor(mask))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
                                    rtol=0)

@@ -222,20 +222,23 @@ def test_gemm_plan_covers_every_column_once(bits):
     for n, k in shapes:
         for m in (1, 7, 8, 32, 141, 256, 300, 513):
             for sms in (132, 114, 78):
-                p = tq.gemm_plan(m, n, k, bits, sms)
-                cols = p.split_columns(k, bits)
-                assert len(cols) == p.splits and all(len(c) for c in cols)
-                flat = np.concatenate(cols)
-                np.testing.assert_array_equal(np.sort(flat), np.arange(k))
-                assert (p.splits - 1) * p.steps_per < p.steps \
-                    <= p.splits * p.steps_per
-                assert p.m_tile in tq.GEMM_M_TILES
-                assert p.m_tile * p.tiles_m >= m > p.m_tile * (p.tiles_m - 1)
-                # more than one batch tile only of at least 64 rows each
-                assert p.tiles_m == 1 or -(-m // p.tiles_m) >= tq.GEMM_MIN_ROWS
-                blocks = -(-n // tq.GEMM_ROWS) * p.tiles_m
-                if blocks * 2 <= sms and p.steps >= 2 * tq.GEMM_MIN_STEPS:
-                    assert p.splits > 1  # idle SMs take a share of K
+                check_gemm_plan(m, n, k, bits, sms)
+
+
+def check_gemm_plan(m, n, k, bits, sms):
+    p = tq.gemm_plan(m, n, k, bits, sms)
+    cols = p.split_columns(k, bits)
+    assert len(cols) == p.splits and all(len(c) for c in cols)
+    flat = np.concatenate(cols)
+    np.testing.assert_array_equal(np.sort(flat), np.arange(k))
+    assert (p.splits - 1) * p.steps_per < p.steps <= p.splits * p.steps_per
+    assert p.m_tile in tq.GEMM_M_TILES
+    assert p.m_tile * p.tiles_m >= m > p.m_tile * (p.tiles_m - 1)
+    # more than one batch tile only of at least 64 rows each
+    assert p.tiles_m == 1 or -(-m // p.tiles_m) >= tq.GEMM_MIN_ROWS
+    blocks = -(-n // tq.GEMM_ROWS) * p.tiles_m
+    if blocks * 2 <= sms and p.steps >= 2 * tq.GEMM_MIN_STEPS:
+        assert p.splits > 1  # idle SMs take a share of K
 
 
 def _bf16_ulp(v: float) -> float:
@@ -286,25 +289,28 @@ def test_f32_plan_covers_every_output_and_column_once(n, k):
     splits past it."""
     for m in F32_BATCHES + (7, 64, 300):
         for sms in (132, 114, 78):
-            p = tq.f32_plan(m, n, k, sms)
-            assert p.bm in tq.F32_M_TILES
-            assert p.tiles_m * p.bm >= m > (p.tiles_m - 1) * p.bm
-            assert p.tiles_n * tq.F32_ROWS >= n > (p.tiles_n - 1) * tq.F32_ROWS
-            out = np.zeros((p.tiles_m * p.bm, p.tiles_n * tq.F32_ROWS), int)
-            for t in range(p.tiles):
-                r, c = divmod(t, p.tiles_n)
-                out[r * p.bm:(r + 1) * p.bm,
-                    c * tq.F32_ROWS:(c + 1) * tq.F32_ROWS] += 1
-            assert (out[:m, :n] == 1).all()
-            cols = p.split_columns(k)
-            assert len(cols) == p.splits and all(len(c) for c in cols)
-            np.testing.assert_array_equal(np.concatenate(cols), np.arange(k))
-            assert p.steps == -(-k // tq.F32_STEP)
-            assert (p.splits - 1) * p.steps_per < p.steps \
-                <= p.splits * p.steps_per
-            assert p.blocks <= max(sms, p.tiles)  # one wave
-            if p.splits == 1 and p.steps > 1:
-                assert 2 * p.tiles > sms  # a split would not fit the wave
+            check_f32_plan(m, n, k, sms)
+
+
+def check_f32_plan(m, n, k, sms):
+    p = tq.f32_plan(m, n, k, sms)
+    assert p.bm in tq.F32_M_TILES
+    assert p.tiles_m * p.bm >= m > (p.tiles_m - 1) * p.bm
+    assert p.tiles_n * tq.F32_ROWS >= n > (p.tiles_n - 1) * tq.F32_ROWS
+    out = np.zeros((p.tiles_m * p.bm, p.tiles_n * tq.F32_ROWS), int)
+    for t in range(p.tiles):
+        r, c = divmod(t, p.tiles_n)
+        out[r * p.bm:(r + 1) * p.bm,
+            c * tq.F32_ROWS:(c + 1) * tq.F32_ROWS] += 1
+    assert (out[:m, :n] == 1).all()
+    cols = p.split_columns(k)
+    assert len(cols) == p.splits and all(len(c) for c in cols)
+    np.testing.assert_array_equal(np.concatenate(cols), np.arange(k))
+    assert p.steps == -(-k // tq.F32_STEP)
+    assert (p.splits - 1) * p.steps_per < p.steps <= p.splits * p.steps_per
+    assert p.blocks <= max(sms, p.tiles)  # one wave
+    if p.splits == 1 and p.steps > 1:
+        assert 2 * p.tiles > sms  # a split would not fit the wave
 
 
 @pytest.mark.parametrize("n, k", MAIN_SHAPES)

@@ -91,13 +91,15 @@ class Lockstep:
     bookkeeping (slot phases, realign on resume, masked wrap compaction)."""
 
     def __init__(self, audio, bf16=False, quant_bits=None, kv_int8=False,
-                 phase=0, attn_block=False):
+                 phase=0, attn_block=False, mode=0):
         """quant_bits: Q8_0 (8) or Q4_0 (4) encoder matrices in both
         packages. kv_int8: int8 K/V caches; the JAX package reads its
         NEMOTRON_TPU_KV_INT8 at state allocation, so the caller sets it.
         phase: the group's starting phase (a fresh state is aligned at any
         phase). attn_block: the port's fused attention block (kernel B3);
-        the JAX package's is its module flag, which the caller patches."""
+        the JAX package's is its module flag, which the caller patches.
+        mode: the right context (0, 1, 6 or 13) of both packages' cache
+        configuration."""
         hp = tiny_hparams()
         self.bf16 = bf16
         self.jm = JaxModel.random(
@@ -109,9 +111,9 @@ class Lockstep:
             self.jm.params = j_quantize(self.jm.params, bits=quant_bits)
             self.tm.params = quantize_encoder_layers(self.tm.params,
                                                      bits=quant_bits)
-        self.cfg = self.tm.cache_config(0)
+        self.cfg = self.tm.cache_config(mode)
         assert dataclasses.asdict(self.cfg) \
-            == dataclasses.asdict(self.jm.cache_config(0))
+            == dataclasses.asdict(self.jm.cache_config(mode))
         self.audio, self.pos = audio, np.full(B, PRIME_SAMPLES)
         self.js = self.jm.init_stream_state(B, self.cfg)
         self.ts = self.tm.init_stream_state(B, self.cfg)
@@ -155,6 +157,7 @@ class Lockstep:
                 == j_tokens_to_list(jt, nv)
         for i in range(B):
             self.ids[i].extend(int(t) for t in tt[i].flatten() if t >= 0)
+        self.tokens = tt  # the port's tokens of the last tick
         self.n_ticks += 1
         if k > 1:  # wrap compaction ran inside the k-chunk tick
             self.phase = (self.phase + k) % cfg.n_phases
