@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke of nemotron_tpu_torch: builds the CUDA kernels from csrc/,
 holds each against its plain PyTorch version, runs the full-width streaming
-tick on the card against the CPU at right contexts 0, 1, 6 and 13, and
-serves TCP clients through the port's own server — all on one CUDA card.
+tick on the card against the CPU at right contexts 0, 1, 6 and 13, serves
+TCP clients through the port's own server, and transcribes files offline
+(the ragged batch encoder, the API and the offline CLI) — all on one CUDA
+card.
 
     python3 chip_smoke.py     # every phase; needs one CUDA card
 
@@ -24,10 +26,13 @@ Phases, one line each, any failure exits non-zero:
              exact float64 log-mel) and, untimed, on a loud tone and on
              silence, B4 (Q8_0) and B5 (Q4_0) in bf16 at M in {32, 141,
              256} and in f32 at M in {256, 141}, both also at M in {512,
-             1792, 3584} (a B=256 tick at right context 1 / 6 / 13), for
-             the four (N, K) of the encoder's matrices (dense_ms: cuBLAS on
-             the weight dequantized beforehand, its f32 FFMA product in
-             f32; B5's library_ms: torch._weight_int4pack_mm)
+             1792, 3584} (a B=256 tick at right context 1 / 6 / 13) and
+             at the offline rows M in {1032, 2048, 16384} (8 short files,
+             one segment, 8 segments), for the four (N, K) of the
+             encoder's matrices (dense_ms: cuBLAS on the weight
+             dequantized beforehand, its f32 FFMA product in f32; B5's
+             library_ms: torch._weight_int4pack_mm); B2 also at 1 x 16376
+             (one offline segment)
   4 tick     full-width random model (Hparams() defaults), 4 streams x 10
              fused ticks (through the slack-buffer wrap) on the card vs the
              same ticks on the CPU: f32 and bf16 dense; the same with the
@@ -50,7 +55,22 @@ Phases, one line each, any failure exits non-zero:
              int8 K/V with the block, all at right context 0, and in f32
              and bf16 + int8 K/V at right contexts 6 and 13; the kernels
              of each tick's decode half alone
-The second-to-last line is the kernels JSON, the last line the device JSON.
+  6 offline  full width, the random model's blank bias OFFLINE_BIAS: a
+             ragged batch of a 3 s and a 6 s file on the card vs the CPU
+             (f32 and f32 Q8_0: encode_batch within F32_ATOL, tokens and
+             texts equal; bf16 within 2x its own error); the launch counts
+             of transcribe_audios with Q8_0 and Q4_0 matrices (B2 once a
+             call, B4 / B5 264 a segment, B1 and B3 never); a 170 s file
+             (two segments) beside a 5 s one at CAP_BIAS: transcribe_audios
+             equal to transcribe_audio of each, with timestamps; the
+             offline CLI in a subprocess on an F16 GGUF, its stdout equal
+             to the in-process texts; times at B=1 and B=8 on 60 s files
+             in f32, bf16 and bf16 Q8_0 (host s, audio-s/s, RTF, decode
+             iterations and share, peak memory, device busy and idle
+             share, kernels per segment)
+The second-to-last line is the kernels JSON (launches: the streaming
+server runs; offline_launches: phase 6's counted run), the last line the
+device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
 """
@@ -76,7 +96,19 @@ BF16_VS_REF = 2.0  # card vs CPU in bf16, in units of bf16's own error
 GEMM_REL = {"f32": 1e-5, "bf16": 1e-2}  # B4/B5 vs plain, x max|y|
 RC_MODES = (1, 6, 13)  # right contexts past 0: chunk_len 2, 7, 14
 RC_ROWS = (512, 1792, 3584)  # B4/B5 rows of a B=256 tick at those modes
+# B4/B5 rows of the offline path: 8 short files x 129 frames, one full
+# segment, 8 full segments
+OFFLINE_ROWS = (1032, 2048, 16384)
 RC_TICKS = {1: 10, 6: 6, 13: 4}  # phase 4: single ticks past a wrap
+# phase 6: the random model's blank bias offline. With full attention over
+# a file its decode swings between no token and the 10-symbol cap on every
+# frame as the bias moves: at 1.5 the ragged batch's 3 s file emits (its
+# 60 s files do not), at 1.0 every frame is at the cap.
+OFFLINE_BIAS = 1.5
+CAP_BIAS = 1.0     # the long file: every frame emits, the decode's worst
+OFFLINE_SECS = 60  # the timed files
+# a file past one segment: 16,376 + 624 mel frames (170.0 s)
+LONG_SAMPLES = (16376 + 624) * 160 + 96
 
 
 def log(msg: str) -> None:
@@ -87,17 +119,34 @@ def cuda_ms(fn, launches: int = 50, repeats: int = 5) -> float:
     """Device ms per call of fn(): CUDA events around `launches` back-to-back
     calls, median over `repeats`. A device-side spin queued first keeps
     the device busy until every call is enqueued, so the events time the
-    device work and not the host's launch overhead."""
+    device work and not the host's launch overhead: it lasts twice the
+    host's time to enqueue them (measured on a warm-up call) plus 5 ms. A
+    call longer than 0.5 ms (the offline rows) is timed over fewer
+    launches, ~25 ms of them."""
     import torch
 
-    for _ in range(3):
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3  # ms to enqueue one call
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    one = start.elapsed_time(end)
+    if one > 0.5:
+        launches = max(4, min(launches, int(25.0 / one)))
+    spin = int(2e6 * (2.0 * host * launches + 5.0))  # ~1 ms per 2M cycles
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(100_000_000)  # ~50 ms of device spin
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(launches):
             fn()
@@ -383,8 +432,10 @@ def phase_kernels(torch, report):
             codes = qt.w_i8 if bits == 8 else qt.w_packed
             lib = _int4pack_mm(torch, qt, n, k) if bits == 4 else None
             for dname, dtype, batches in (
-                    ("bf16", torch.bfloat16, (32, 141, 256) + RC_ROWS),
-                    ("f32", torch.float32, (256, 141) + RC_ROWS)):
+                    ("bf16", torch.bfloat16,
+                     (32, 141, 256) + RC_ROWS + OFFLINE_ROWS),
+                    ("f32", torch.float32,
+                     (256, 141) + RC_ROWS + OFFLINE_ROWS)):
                 w_dense = deq(qt, dtype)  # cuBLAS's operand, made once
                 for m in batches:
                     x = torch.tensor(rng.standard_normal((m, k)).astype(
@@ -409,7 +460,8 @@ def phase_kernels(torch, report):
 
     # B2 at the shapes its paths run: B x frames in {256 x 8, 32 x 8, 1 x 8,
     # 1 x 6000} and, for the ticks at right context 1 / 6 / 13, {256 x 16,
-    # 256 x 56, 256 x 112, 1 x 112}, dense and slaney filterbanks; each
+    # 256 x 56, 256 x 112, 1 x 112}, and one offline segment, 1 x 16,376,
+    # dense and slaney filterbanks; each
     # also within 1e-4 of the exact float64 log-mel; bound: the least work of
     # the function, not of the kernel: per frame the window,
     # a 512-point FFT (2.5 N log2 N), the power, the filterbank's non-zero
@@ -726,26 +778,29 @@ def time_ticks(torch, model, b: int, n: int = 24, warmup: int = 4,
 
 def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
     """Device kernel time per call of fn() by kernel name (torch.profiler,
-    CUPTI): returns (total device ms per call, [(name, ms per call, calls
-    per call)] sorted by time), or None if the trace holds no device
-    time."""
+    CUPTI, CUDA activity only, summed from the raw trace: an offline call
+    issues tens of thousands of kernels, too many for key_averages):
+    returns (total device ms per call, [(name, ms per call, calls per
+    call)] sorted by time), or None if the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not rows:
-        return None
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ns, calls = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), calls + 1)
+    rows = sorted(((k, ns / 1e6 / n, calls / n)
+                   for k, (ns, calls) in by_name.items()),
+                  key=lambda r: -r[1])
+    return (sum(r[1] for r in rows), rows) if rows else None
 
 
 def profile_ticks(torch, model, b: int, n: int = 8, mode: int = 0):
@@ -816,15 +871,16 @@ def phase_server(torch, model, name: str, per_step: dict,
     return counts
 
 
-# Runs the streaming CLI as `python -m` would, and prints the kernels'
-# launch counts of that process on stderr when it exits.
+# Runs a CLI module (argv[1], e.g. transcribe_stream) as `python -m` would,
+# and prints the kernels' launch counts of that process on stderr when it
+# exits.
 CLI_RUNNER = """
 import atexit, json, runpy, sys
 from nemotron_tpu_torch import kernels
 atexit.register(lambda: print("KERNEL_LAUNCHES " + json.dumps(
     {k.name: k.launches for k in kernels.KERNELS}), file=sys.stderr))
-sys.argv = ["transcribe_stream", *sys.argv[1:]]
-runpy.run_module("nemotron_tpu_torch.cli.transcribe_stream",
+sys.argv = sys.argv[1:]
+runpy.run_module("nemotron_tpu_torch.cli." + sys.argv[0],
                  run_name="__main__", alter_sys=True)
 """
 
@@ -887,9 +943,9 @@ def phase_cli(torch, hp, dense, vocab):
                 env["NEMOTRON_TPU_PALLAS_ATTN_BLOCK"] = "1"
             t0 = time.perf_counter()
             out = subprocess.run(
-                [sys.executable, "-c", CLI_RUNNER, str(gguf), str(pcm), "80",
-                 str(mode)], cwd=root, env=env, capture_output=True,
-                text=True, timeout=600)
+                [sys.executable, "-c", CLI_RUNNER, "transcribe_stream",
+                 str(gguf), str(pcm), "80", str(mode)], cwd=root, env=env,
+                capture_output=True, text=True, timeout=600)
             runs[i] += (out, time.perf_counter() - t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1015,8 +1071,336 @@ def phase_tick_times(torch, models, card: str):
                 f"({wbytes / 1e9:.3f} GB per tick) ({card})")
 
 
+def offline_model(model, bias: float):
+    """`model` with the joint's blank bias at `bias` instead of BLANK_BIAS
+    (a copy of that one bias; every other weight shared)."""
+    from nemotron_tpu_torch.api import ASRModel
+
+    p = model.params
+    ob = p.joint.out_b.clone()
+    ob[model.hp.blank_id] += bias - BLANK_BIAS
+    params = dataclasses.replace(
+        p, joint=dataclasses.replace(p.joint, out_b=ob))
+    return ASRModel(model.hp, params, model.tokenizer.vocab,
+                    device=model.device)
+
+
+def ragged_batch(model, audios):
+    """The mels of `audios` through `model`'s frontend, zero-padded to the
+    longest (no bucket): (mel [B, T, n_mels], n_mel [B], n_sub [B]) as
+    numpy."""
+    from nemotron_tpu_torch.audio.frontend import (StreamPreprocessor,
+                                                   process_many)
+
+    pre = model.params.preproc
+    mels = process_many([StreamPreprocessor(pre.filterbank, pre.window)
+                         for _ in audios], audios)
+    n_mel = np.array([m.shape[0] for m in mels], np.int32)
+    x = np.zeros((len(mels), n_mel.max(), mels[0].shape[1]), np.float32)
+    for i, m in enumerate(mels):
+        x[i, :m.shape[0]] = m
+    return x, n_mel, np.array([model.hp.subsampled_len(n) for n in n_mel],
+                              np.int32)
+
+
+def offline_outputs(model, x, n_mel, n_sub):
+    """encode_batch's valid rows (one f32 CPU tensor, row after row) and
+    the tokens (numpy) of the greedy decode with its exit, as
+    transcribe_batch runs them, of one ragged batch."""
+    import torch
+
+    from nemotron_tpu_torch.models.asr import DECODE_EXIT_EVERY
+    from nemotron_tpu_torch.models.decoder import (greedy_decode,
+                                                   init_decode_state)
+    from nemotron_tpu_torch.models.encoder import encode_batch
+
+    n_valid = model.put_batch(n_sub)
+    enc = encode_batch(model.params, model.hp, model.put_batch(x),
+                       n_frames=n_valid, n_mel_frames=model.put_batch(n_mel))
+    _, tokens = greedy_decode(
+        model.params, model.hp, enc,
+        init_decode_state(len(n_sub), model.hp, dtype=enc.dtype,
+                          device=enc.device), n_valid=n_valid,
+        exit_every=DECODE_EXIT_EVERY)
+    enc = enc.float().cpu()
+    return (torch.cat([enc[i, :n] for i, n in enumerate(n_sub)]),
+            tokens.cpu().numpy())
+
+
+def phase_offline_parity(torch, cpu, gpu):
+    """The offline path at full width, card against CPU, on a ragged batch
+    of a 3 s and a 6 s file (the same host mel on both, from the CPU's
+    frontend): f32 encode_batch's valid rows within F32_ATOL and tokens
+    equal, and transcribe_audios' texts (each device's own frontend, B2 on
+    the card) equal; bf16 within BF16_VS_REF x bf16's own error (the CPU's
+    bf16 run against its f32 run); f32 Q8_0 (B4 on the card, the plain
+    version on the CPU) within F32_ATOL with tokens equal. cpu and gpu map
+    "f32", "bf16", "f32 Q8_0" to models."""
+    audios = [stream_audio(1, 48000, SEED + 4)[0],
+              stream_audio(1, 96000, SEED + 5)[0]]
+    x, n_mel, n_sub = ragged_batch(cpu["f32"], audios)
+    outs, bad = {}, []
+    for name in ("f32", "bf16", "f32 Q8_0"):
+        t0 = time.perf_counter()
+        outs[name] = [offline_outputs(m[name], x, n_mel, n_sub)
+                      for m in (cpu, gpu)]
+        (enc_c, tok_c), (enc_g, tok_g) = outs[name]
+        err = float((enc_g - enc_c).abs().max())
+        finite = bool(torch.isfinite(enc_g).all())
+        n_diff = int((tok_g != tok_c).sum())
+        if name == "bf16":
+            own = float((enc_c - outs["f32"][0][0]).abs().max())
+            rule = f"<= {BF16_VS_REF:g} x bf16's own {own:.3e}"
+            good = finite and err <= BF16_VS_REF * own
+            tok_note = (f"token cells equal to the f32 CPU run: card "
+                        f"{float((tok_g == outs['f32'][0][1]).mean()):.3f}, "
+                        f"cpu {float((tok_c == outs['f32'][0][1]).mean()):.3f}")
+        else:
+            rule = f"<= {F32_ATOL:g}"
+            good = finite and err <= F32_ATOL and n_diff == 0
+            tok_note = f"token cells differing {n_diff} of {tok_c.size} (want 0)"
+        if not good:
+            bad.append(f"{name}: {err:.3e} {rule}, {tok_note}")
+        log(f"[6 offline] {name} ragged batch of {n_mel.tolist()} mel frames "
+            f"({n_sub.tolist()} encoder frames): encode_batch max|card - cpu| "
+            f"{err:.3e} ({rule}); {tok_note}; "
+            f"{int((tok_c >= 0).sum())} tokens on the CPU; "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    texts = [m["f32"].transcribe_audios(audios) for m in (cpu, gpu)]
+    log(f"[6 offline] f32 transcribe_audios of the same two files: texts "
+        f"equal card and CPU: {texts[0] == texts[1]} (chars "
+        f"{[len(t) for t in texts[1]]}); {time.perf_counter() - t0:.1f} s")
+    if texts[0] != texts[1] or not any(texts[0]):
+        bad.append(f"texts {texts}")
+    if bad:
+        raise SystemExit(f"phase 6 (offline): card and CPU disagree: {bad}")
+    return audios
+
+
+def phase_offline_launches(torch, models, audios) -> dict:
+    """The offline main path's launch counts: transcribe_audios of two
+    files with Q8_0 and with Q4_0 encoder matrices (bf16), the counts set
+    to 0 just before and read just after: B2 once per call, B4 and B5 264
+    (11 matrices x 24 layers) per segment, B1 and B3 never."""
+    from nemotron_tpu_torch import kernels
+
+    kernels.reset_counts()
+    for name in ("bf16 Q8_0", "bf16 Q4_0"):
+        models[name].transcribe_audios(audios)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    n_q = 11 * models["bf16 Q8_0"].hp.n_layers
+    want = {"mel_frames": 2, "q8_matmul": n_q, "q4_matmul": n_q,
+            "t1_attention": 0, "t1_attention_block": 0}
+    log(f"[6 offline] launches of transcribe_audios, one segment each, "
+        f"bf16 Q8_0 then bf16 Q4_0: {counts} (want {want})")
+    if counts != want:
+        raise SystemExit(f"phase 6 (offline): launches {counts}, want {want}")
+    return counts
+
+
+def phase_offline_long(torch, model):
+    """A file past one segment (LONG_SAMPLES, 17,000 mel frames: 16,376 +
+    624) beside a 5 s one, on the card: transcribe_audios of the two equal
+    to transcribe_audio of each, with word timestamps (the decoder state
+    carried across the segment boundary, the short file's rows padded);
+    the model at CAP_BIAS, where every frame emits."""
+    from nemotron_tpu_torch import kernels
+
+    long = stream_audio(1, LONG_SAMPLES, SEED + 6)[0]
+    short = stream_audio(1, 80000, SEED + 7)[0]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    batch = model.transcribe_audios([long, short], timestamp_words=True)
+    torch.cuda.synchronize()
+    t_batch, segs = time.perf_counter() - t0, model.offline_stats
+    t0 = time.perf_counter()
+    per = [model.transcribe_audio(a, timestamp_words=True)
+           for a in (long, short)]
+    torch.cuda.synchronize()
+    t_per = time.perf_counter() - t0
+    mel = kernels.MEL_FRAMES.launches
+    its = sum(s["iterations"] for s in segs)
+    log(f"[6 offline] f32 {LONG_SAMPLES / 16000:.1f} s + 5.0 s files, "
+        f"blank bias {CAP_BIAS:g}: transcribe_audios in {t_batch:.2f} s "
+        f"(segments {segs}; {t_batch / its * 1e3:.3f} ms of host per decode "
+        f"iteration at most) equal to transcribe_audio of each "
+        f"({t_per:.2f} s): {batch == per}; chars {[len(t) for t in batch]}, "
+        f"timestamps {[t.count('{') for t in batch]}; B2 launches {mel} "
+        f"(want 3)")
+    if batch != per or len(segs) != 2 or mel != 3 \
+            or not all("{" in t for t in batch):
+        raise SystemExit(f"phase 6 (offline, long file): batch {batch!r:.300}"
+                         f" != per file {per!r:.300}, segments {segs}, "
+                         f"B2 launches {mel}")
+
+
+def phase_offline_cli(torch, hp, dense, vocab, audios):
+    """The offline CLI on the card: the phase's model (OFFLINE_BIAS) as an
+    F16 GGUF (into the git-ignored _smoke/, deleted afterwards), two files
+    through `python -m nemotron_tpu_torch.cli.transcribe` in a subprocess;
+    its stdout must equal `name<TAB>text` of an in-process
+    transcribe_audios of the same GGUF, its stderr show the RTF line, and
+    its B2 launch once."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import save_gguf
+
+    root = Path(__file__).resolve().parent
+    work = root / "_smoke"
+    work.mkdir(exist_ok=True)
+    try:
+        gguf = work / "offline_f16.gguf"
+        save_gguf(str(gguf), hp, offline_model(
+            ASRModel(hp, dense, vocab, device="cpu"), OFFLINE_BIAS).params,
+            vocab)
+        names = []
+        for i, a in enumerate(audios):
+            names.append(str(work / f"file{i}.pcm"))
+            Path(names[-1]).write_bytes(a.astype("<i2").tobytes())
+        model = ASRModel.from_gguf(str(gguf), device="cuda")
+        want = "".join(f"{n}\t{t}\n" for n, t in
+                       zip(names, model.transcribe_audios(audios)))
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", CLI_RUNNER, "transcribe", str(gguf),
+             *names], cwd=root, env=dict(os.environ), capture_output=True,
+            text=True, timeout=600)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rtf = [ln for ln in out.stderr.splitlines() if "RTF: " in ln]
+    got = [ln for ln in out.stderr.splitlines()
+           if ln.startswith("KERNEL_LAUNCHES ")]
+    sub = json.loads(got[-1].split(" ", 1)[1]) if got else {}
+    log(f"[6 cli] python -m nemotron_tpu_torch.cli.transcribe <F16 gguf> "
+        f"<2 files>: rc {out.returncode} in {secs:.1f} s; stdout equal to "
+        f"the in-process transcribe_audios: {out.stdout == want}; "
+        f"{rtf[-1].strip() if rtf else 'no RTF line'}; launches {sub}")
+    if out.returncode != 0 or out.stdout != want or not rtf \
+            or sub.get("mel_frames") != 1 or sub.get("t1_attention") != 0 \
+            or "\t" not in want or not want.replace("\t", "").strip():
+        raise SystemExit(f"phase 6 (offline cli): stdout {out.stdout!r}\n"
+                         f"want {want!r}\nstderr {out.stderr[-3000:]}")
+
+
+def time_offline(torch, model, audios, card: str, name: str, n: int = 3):
+    """Host seconds of one synchronised transcribe_audios call (median of
+    n after one warm-up), the decode's iterations, peak device memory (and
+    its part above what was allocated before the call: the other models of
+    the smoke stay resident); the
+    encoder and decode halves of the first segment timed apart on the same
+    ragged batch (the decode's share); the device busy ms and kernels of
+    one more call (idle share = 1 - busy / host time)."""
+    from nemotron_tpu_torch.models.asr import DECODE_EXIT_EVERY
+    from nemotron_tpu_torch.models.decoder import (greedy_decode,
+                                                   init_decode_state)
+    from nemotron_tpu_torch.models.encoder import encode_batch
+
+    hp = model.hp
+    secs = len(audios) * len(audios[0]) / 16000.0
+    model.transcribe_audios(audios)
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        model.transcribe_audios(audios)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() / 1e9
+    host = statistics.median(times)
+    stats = model.offline_stats
+    # the two halves of the first segment apart, at the call's own
+    # (bucketed) shape
+    x, n_mel, _ = ragged_batch(model, audios)
+    t_pad = stats[0]["mel_frames"]
+    n_mel = np.minimum(n_mel, model.max_seg_mel_frames)
+    n_sub = np.array([hp.subsampled_len(v) for v in n_mel], np.int32)
+    xp = np.zeros((x.shape[0], t_pad, x.shape[2]), np.float32)
+    xp[:, :n_mel.max()] = x[:, :n_mel.max()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = encode_batch(model.params, hp, model.put_batch(xp),
+                       n_frames=model.put_batch(n_sub),
+                       n_mel_frames=model.put_batch(n_mel))
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    greedy_decode(model.params, hp, enc,
+                  init_decode_state(len(audios), hp, dtype=enc.dtype,
+                                    device=enc.device),
+                  n_valid=model.put_batch(n_sub),
+                  exit_every=DECODE_EXIT_EVERY)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0 - t_enc
+    del enc
+    prof = profile_rows(torch, lambda: model.transcribe_audios(audios), n=1,
+                        warmup=0)
+    busy = ("device time not measured" if prof is None else
+            f"device busy {prof[0]:.1f} ms (idle share "
+            f"{max(0.0, 1 - prof[0] / 1e3 / host):.2f}), "
+            f"{sum(r[2] for r in prof[1]) / len(stats):.0f} kernels per "
+            f"segment")
+    log(f"[6 offline time] {name} B={len(audios)} x "
+        f"{len(audios[0]) / 16000:.0f} s: {host:.3f} s per call "
+        f"({', '.join(f'{t:.3f}' for t in times)}), {secs / host:.1f} "
+        f"audio-s/s, RTF {host / secs:.4f}; decode iterations "
+        f"{[s['iterations'] for s in stats]} per segment; encoder "
+        f"{t_enc:.3f} s + decode {t_dec:.3f} s apart (decode share "
+        f"{t_dec / (t_enc + t_dec):.2f}); peak {peak:.2f} GB "
+        f"({peak - resident:.2f} GB above the resident {resident:.2f}); "
+        f"{busy} ({card})")
+
+
+def phase_offline(torch, hp, dense, q8, vocab, gpu, card: str):
+    """Phase 6, the offline path at full width: card against CPU, the
+    main path's launch counts, a file past one segment, the CLI, times.
+    The card's models share the weights of phase 4-5's (`gpu`; their int8
+    K/V option does not touch the offline path); dense and q8 are the CPU's
+    f32 and Q8_0 weights."""
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import params_to
+
+    base = {"f32": gpu["f32"], "bf16": gpu["bf16"],
+            "f32 Q8_0": gpu["f32 Q8_0 int8-KV"],
+            "bf16 Q8_0": gpu["bf16 Q8_0 int8-KV"],
+            "bf16 Q4_0": gpu["bf16 Q4_0"]}
+    card_m = {k: offline_model(m, OFFLINE_BIAS) for k, m in base.items()}
+
+    def cpu_m(params, dtype=None):
+        return offline_model(ASRModel(hp, params_to(params, "cpu", dtype),
+                                      vocab, device="cpu"), OFFLINE_BIAS)
+    cpu = {"f32": cpu_m(dense), "bf16": cpu_m(dense, torch.bfloat16),
+           "f32 Q8_0": cpu_m(q8)}
+    audios = phase_offline_parity(torch, cpu, card_m)
+    del cpu
+    counts = phase_offline_launches(torch, card_m, audios)
+    phase_offline_long(torch, offline_model(gpu["f32"], CAP_BIAS))
+    phase_offline_cli(torch, hp, dense, vocab, audios)
+    for name in ("f32", "bf16", "bf16 Q8_0"):
+        for b in (1, 8):
+            time_offline(torch, card_m[name],
+                         list(stream_audio(b, OFFLINE_SECS * 16000,
+                                           SEED + 10)), card, name)
+    return counts
+
+
 def main() -> int:
     import torch
+
+    t_main = time.perf_counter()
+
+    def elapsed(done: str) -> None:
+        log(f"[time] {done} after {time.perf_counter() - t_main:.0f} s")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1046,6 +1430,7 @@ def main() -> int:
             log(f"[2 build] {line.strip()}")
 
     phase_kernels(torch, report)
+    elapsed("phases 1-3")
 
     t0 = time.perf_counter()
     cpu_model = ASRModel.random(Hparams(), seed=SEED, device="cpu")
@@ -1105,6 +1490,7 @@ def main() -> int:
                gpu["bf16 Q8_0 int8-KV"], "(c) bf16 Q8_0 int8-KV", ref,
                mode=13, n_ticks=n13)
     del ref
+    elapsed("phase 4")
     gpu["bf16 int8-KV"] = ASRModel(hp, gpu["bf16"].params, vocab,
                                    device="cuda", kv_int8=True)
     gpu["bf16 Q4_0"] = model(q4, "cuda", bf16)
@@ -1135,7 +1521,13 @@ def main() -> int:
     for k in kernels.KERNELS:
         report[k.name]["launches"] = counts[k.name]
     phase_cli(torch, hp, dense, vocab)
+    elapsed("phase 5 server and cli")
     phase_tick_times(torch, gpu, card)
+    elapsed("phase 5 times")
+    offline_counts = phase_offline(torch, hp, dense, q8, vocab, gpu, card)
+    elapsed("phase 6")
+    for k in kernels.KERNELS:
+        report[k.name]["offline_launches"] = offline_counts[k.name]
 
     kernel_line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -1,5 +1,6 @@
-"""Model handle for the streaming engine and the single-stream session
-(port of the serving surface and `stream_step` of
+"""Model handle for the streaming engine, the single-stream session and
+offline transcription (port of the serving surface, `stream_step` and
+`transcribe_mel` / `transcribe_audio` / `transcribe_audios` of
 nemotron_tpu/api.py:ASRModel).
 
 The model lives on `device`, the card unless the caller asks for the CPU
@@ -26,7 +27,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from .audio.frontend import StreamPreprocessor, process_many
 from .models import asr
+from .models.decoder import init_decode_state
 from .models.encoder import (check_attn_block_weights, compact_cache,
                              realign_cache)
 from .params import ModelParams, device_of, load_model, random_params
@@ -39,6 +42,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 # Multilingual default prompt index 101 = "auto".
 DEFAULT_PROMPT_INDEX = 101
+
+MEL_BUCKET = 1024  # offline segments are padded to a multiple of this
 
 
 class ASRModel:
@@ -61,6 +66,15 @@ class ASRModel:
             DEFAULT_PROMPT_INDEX if hp.num_prompts > 0 else -1)
         if hp.num_prompts > 0 and self.default_prompt_index >= hp.num_prompts:
             self.default_prompt_index = 0
+        # the longest offline segment whose subsampled length fits the
+        # pos table
+        t = 8 * hp.max_pos_len
+        while hp.subsampled_len(t) > hp.max_pos_len:
+            t -= 8
+        self.max_seg_mel_frames = t
+        # per segment of the last offline call: batch, padded mel frames,
+        # the decode's iterations
+        self.offline_stats: list[dict] = []
 
     @classmethod
     def from_gguf(cls, path: str, dtype=torch.float32, device="cuda",
@@ -189,6 +203,86 @@ class ASRModel:
         k, v = realign_cache(cfg, self.hp, state.k_cache, state.v_cache,
                              delta, self.put_batch(mask))
         return dataclasses.replace(state, k_cache=k, v_cache=v)
+
+    def _preprocessor(self):
+        return StreamPreprocessor(self.params.preproc.filterbank,
+                                  self.params.preproc.window)
+
+    def _transcribe_mels(self, mels, prompt_index):
+        """Offline transcription of mels ([T_i, n_mels] host arrays) as one
+        zero-padded batch per segment of max_seg_mel_frames (each padded
+        to a multiple of MEL_BUCKET), the decoder state carried from one
+        segment to the next. Returns [(token_ids, frame_indices)] per
+        mel."""
+        hp, dev = self.hp, self.device
+        b = len(mels)
+        if prompt_index is None:
+            prompt_index = self.default_prompt_index
+        pidx = (torch.full((b,), max(prompt_index, 0), dtype=torch.int32,
+                           device=dev) if hp.num_prompts > 0 else None)
+        dec_state = init_decode_state(b, hp, dtype=self.params.pos_emb.dtype,
+                                      device=dev)
+        out = [([], []) for _ in range(b)]
+        offsets = [0] * b
+        seg = self.max_seg_mel_frames
+        self.offline_stats = []
+        for start in range(0, max(max(m.shape[0] for m in mels), 1), seg):
+            parts = [m[start:start + seg] for m in mels]
+            t_max = max(p.shape[0] for p in parts)
+            if t_max == 0:
+                break
+            t_pad = min(-(-t_max // MEL_BUCKET) * MEL_BUCKET, seg)
+            padded = np.zeros((b, t_pad, hp.n_mels), dtype=np.float32)
+            n_mel = np.array([p.shape[0] for p in parts], dtype=np.int32)
+            n_sub = np.array([hp.subsampled_len(n) if n else 0
+                              for n in n_mel], dtype=np.int32)
+            for i, p in enumerate(parts):
+                padded[i, :p.shape[0]] = p
+            stats = {"batch": b, "mel_frames": t_pad}
+            tokens, dec_state = asr.transcribe_batch(
+                self.params, self.put_batch(padded), hp=hp, prompt_idx=pidx,
+                n_frames=self.put_batch(n_sub), dec_state=dec_state,
+                n_mel_frames=self.put_batch(n_mel),
+                confidence=self.confidence, stats=stats)
+            self.offline_stats.append(stats)
+            seqs = asr.tokens_to_list(
+                tokens, n_sub,
+                vocab_size=hp.vocab_size if self.confidence else None)
+            for i, seq in enumerate(seqs):
+                for tok, t in seq:
+                    out[i][0].append(tok)
+                    out[i][1].append(offsets[i] + t)
+                offsets[i] += int(n_sub[i])
+        return out
+
+    def transcribe_mel(self, mel: np.ndarray,
+                       prompt_index: int | None = None):
+        """Offline transcription of one mel sequence [T, n_mels]; long
+        audio runs in segments at the pos table's cap with the decoder
+        state carried across them. Returns (token_ids, frame_indices)."""
+        return self._transcribe_mels([np.asarray(mel)], prompt_index)[0]
+
+    def transcribe_audio(self, audio_i16, prompt_index: int | None = None,
+                         timestamp_words: bool = False) -> str:
+        """PCM (s16le 16 kHz mono) -> text: the file's mel in one call of
+        kernel B2, then transcribe_mel."""
+        mel = self._preprocessor().process(audio_i16)
+        token_ids, frames = self.transcribe_mel(mel, prompt_index)
+        return self.tokenizer.decode(token_ids, timestamp_words, frames)
+
+    def transcribe_audios(self, audios, prompt_index: int | None = None,
+                          timestamp_words: bool = False) -> list[str]:
+        """Several files as one ragged batch: every file's mel in one call
+        of kernel B2 (frontend.process_many; each file's values as its own
+        preprocessor gives them), then one padded batch per segment window
+        (ragged lengths through the key mask and the subsampling's masks),
+        each file's decoder state carried across segments as in
+        transcribe_mel. Equal to transcribe_audio file by file."""
+        if not len(audios):
+            return []
+        mels = process_many([self._preprocessor() for _ in audios], audios)
+        return [self.tokenizer.decode(ids, timestamp_words, frames)
+                for ids, frames in self._transcribe_mels(mels, prompt_index)]
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (block_until_ready)."""

@@ -8,7 +8,8 @@ fused attention block B3 with `attn_block`) -> greedy RNNT. `stream_step`
 does the same from a mel chunk (the single-stream session computes its mel
 on the host side). The caches are updated in place (see models/encoder.py).
 `confidence` packs per-token confidences into the tokens
-(models/decoder.py).
+(models/decoder.py). `transcribe_batch` is the offline path: the batch
+encoder over whole utterances, then the decode with its exit.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ import torch
 from ..ops import mel as melops
 from ..config import CacheConfig, Hparams
 from ..streaming.state import StreamState
-from .decoder import greedy_decode, unpack_tokens
-from .encoder import compact_cache, stream_encode_step
+from .decoder import greedy_decode, init_decode_state, unpack_tokens
+from .encoder import compact_cache, encode_batch, stream_encode_step
 
 
 def _gate0(active, new, old):
@@ -158,6 +159,35 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
         k2, v2 = compact_cache(cfg, hp, state.k_cache, state.v_cache)
         state = dataclasses.replace(state, k_cache=k2, v_cache=v2)
     return state, torch.cat(toks, dim=1)
+
+
+# the offline decode tests its exit on the host every this many iterations
+DECODE_EXIT_EVERY = 16
+
+
+def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
+                     n_frames=None, dec_state=None, n_mel_frames=None,
+                     confidence: bool = False, stats: dict | None = None):
+    """Offline path (nemotron_tpu/models/asr.py:transcribe_batch): mel
+    [B, T, n_mels] -> (tokens [B, T', S], dec_state'), the full-context
+    encoder over each utterance, then the greedy decode with its exit.
+
+    n_frames ([B] subsampled frames) and n_mel_frames ([B] mel frames)
+    make a zero-padded ragged batch equal to exact-length runs (see
+    encode_batch); dec_state carries the decoder across the segments of
+    a long file. stats, where given, gets the decode's "iterations".
+    """
+    enc = encode_batch(params, hp, mel,
+                       prompt_onehot=_prompt_onehot(params, prompt_idx, hp),
+                       n_frames=n_frames, n_mel_frames=n_mel_frames)
+    if dec_state is None:
+        dec_state = init_decode_state(enc.shape[0], hp, dtype=enc.dtype,
+                                      device=enc.device)
+    n_valid = None if n_frames is None else n_frames.to(torch.int32)
+    dec_state, tokens = greedy_decode(
+        params, hp, enc, dec_state, n_valid=n_valid, confidence=confidence,
+        exit_every=DECODE_EXIT_EVERY, stats=stats)
+    return tokens, dec_state
 
 
 def tokens_to_list(tokens, n_valid=None, vocab_size=None,

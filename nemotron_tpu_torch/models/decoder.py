@@ -8,9 +8,11 @@ the frame cap) moves a stream to its next frame.
 
 The JAX loop exits once every stream has passed its n_valid frames
 (`any(frame_idx < n_valid)`, decoder.py:222). In eager PyTorch that test
-would be a host sync per iteration, so the port runs the loop's fixed bound
-t*(s_max+1)+1 instead: an iteration in which no stream is active changes
-nothing, so the tokens are the same.
+is a host sync, so the streaming tick runs the loop's fixed bound
+t*(s_max+1)+1 (a bound a CUDA graph of the tick can keep), and the offline
+path (`exit_every`) tests it every few iterations, from the first one at
+which every stream could be done (max n_valid): an iteration in which no
+stream is active changes nothing, so both give the same tokens and state.
 
 Per-token confidence: with `confidence=True` each emitted value carries a
 7-bit quantized softmax probability of the chosen token, packed as
@@ -83,7 +85,8 @@ def joint_from_proj(jp, enc_proj, dec_out):
 
 
 def greedy_decode(params, hp: Hparams, enc_out, state: DecodeState,
-                  n_valid=None, confidence: bool = False):
+                  n_valid=None, confidence: bool = False,
+                  exit_every: int = 0, stats: dict | None = None):
     """Loop-labels greedy RNNT decode.
 
     enc_out: [B, T, D]; n_valid: [B] int — frames >= n_valid are skipped
@@ -91,6 +94,11 @@ def greedy_decode(params, hp: Hparams, enc_out, state: DecodeState,
     [B, T, S] int32 with -1 = no emission); a token at [b, t, s] was emitted
     at absolute frame state.frame_offset[b] + t. confidence: the tokens
     carry packed confidences (see unpack_tokens).
+
+    exit_every > 0 stops the loop once no stream has a frame left, tested
+    on the host every exit_every iterations from iteration max(n_valid)
+    on (one sync each); 0 runs the fixed bound t*(s_max+1)+1. stats (a
+    dict), where given, gets the iterations run under "iterations".
     """
     b, t, _ = enc_out.shape
     dev = enc_out.device
@@ -106,7 +114,14 @@ def greedy_decode(params, hp: Hparams, enc_out, state: DecodeState,
     frame_idx = torch.zeros((b,), dtype=torch.int32, device=dev)
     sym_idx = torch.zeros((b,), dtype=torch.int32, device=dev)
     acc = torch.zeros((b, t * s_max), dtype=torch.int32, device=dev)
-    for _ in range(t * (s_max + 1) + 1):
+    bound = t * (s_max + 1) + 1
+    first_test = int(n_valid.max()) if exit_every and b else bound
+    it = 0
+    while it < bound:
+        if it >= first_test and (it - first_test) % exit_every == 0 \
+                and not bool((frame_idx < n_valid).any()):
+            break
+        it += 1
         active = frame_idx < n_valid
         enc_t = enc_proj[rows, frame_idx.clamp(max=t - 1).long()]  # [B, J]
         emb = emb_table[prev.long()]
@@ -130,6 +145,8 @@ def greedy_decode(params, hp: Hparams, enc_out, state: DecodeState,
         prev = torch.where(emit, tok, prev)
         frame_idx = frame_idx + advance.to(torch.int32)
         sym_idx = torch.where(advance, 0, sym_idx + emit.to(torch.int32))
+    if stats is not None:
+        stats["iterations"] = it
     tokens = acc.view(b, t, s_max) - 1  # 0 (never written) -> -1 sentinel
     new_state = DecodeState(h=h, c=c, prev_token=prev,
                             frame_offset=state.frame_offset + n_valid)

@@ -1,5 +1,7 @@
-"""Cache-aware streaming FastConformer encoder (port of the all-active and
-masked fast paths of nemotron_tpu/models/encoder.py).
+"""FastConformer encoder (port of nemotron_tpu/models/encoder.py): the
+cache-aware streaming step (its all-active and masked fast paths) and the
+offline batch encoder `encode_batch` (full attention over each utterance
+of a ragged, zero-padded batch; no caches).
 
 The K/V caches are head-major [L, B, H, S_buf, Dh] phased slack buffers
 (dense, or int8 `QuantKV` codes with per-frame scales [L, B, H, S_buf]):
@@ -39,34 +41,25 @@ from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
 from ..ops.kvquant import (is_quant, kv_parts, kv_slice, kv_update_slice_,
                            kv_where, quantize_kv)
 from ..ops.quant import is_quantized
-from ..ops.rel_attention import rel_pos_mha_fullbuf
+from ..ops.rel_attention import rel_pos_mha, rel_pos_mha_fullbuf
 from ..params import layer_slice
 from ..config import CacheConfig, Hparams
 
 
-def conformer_layer(x, pos_emb, lp, hp: Hparams, k_buf, v_buf, conv_cache,
-                    attn_mask, pos_index, attn_block=None):
-    """One cached conformer layer (full-slack-buffer attention).
+def conformer_layer(x, lp, hp: Hparams, attention, conv_cache=None):
+    """One conformer layer.
 
-    x + .5*FFN1 -> +MHA -> +Conv -> +.5*FFN2 -> final LN. Returns
-    (y, k_new, v_new [B, H, T, Dh], conv_cache' [B, K-1, D]).
-
-    attn_block: optional replacement of the whole attention sub-block (LN +
-    MHA + residual), a callable res -> (res', k_new, v_new).
+    x + .5*FFN1 -> +MHA -> +Conv -> +.5*FFN2 -> final LN. `attention` is
+    the attention sub-block (LN + MHA + residual), a callable res ->
+    (res', k_new, v_new): `attention_sublayer` of the streaming or the
+    offline MHA, or one call of kernel B3. conv_cache [B, K-1, D] is the
+    streaming conv's carried left context; None zero-pads (offline).
+    Returns (y, k_new, v_new, conv_cache' [B, K-1, D]).
     """
     res = x
     cur = layer_norm(res, lp.norm_ff1_w, lp.norm_ff1_b)
     res = res + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
-
-    if attn_block is not None:
-        res, k_new, v_new = attn_block(res)
-    else:
-        cur = layer_norm(res, lp.norm_attn_w, lp.norm_attn_b)
-        cur, k_new, v_new = rel_pos_mha_fullbuf(
-            cur, pos_emb, lp.attn_q_w, lp.attn_k_w, lp.attn_v_w,
-            lp.attn_pos_w, lp.attn_out_w, lp.pos_bias_u, lp.pos_bias_v,
-            hp.n_heads, hp.d_head, k_buf, v_buf, pos_index, attn_mask)
-        res = res + cur
+    res, k_new, v_new = attention(res)
 
     # conv module: LN -> pw1 -> GLU -> causal dw conv -> LN -> SiLU -> pw2
     cur = layer_norm(res, lp.norm_conv_w, lp.norm_conv_b)
@@ -80,6 +73,21 @@ def conformer_layer(x, pos_emb, lp, hp: Hparams, k_buf, v_buf, conv_cache,
     res = res + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2)
     y = layer_norm(res, lp.norm_final_w, lp.norm_final_b)
     return y, k_new, v_new, conv_out
+
+
+def attention_sublayer(lp, mha):
+    """LN + MHA + residual as conformer_layer's `attention`; mha: LN(res)
+    -> (out, k_new, v_new)."""
+    def call(res):
+        out, k_new, v_new = mha(layer_norm(res, lp.norm_attn_w,
+                                           lp.norm_attn_b))
+        return res + out, k_new, v_new
+    return call
+
+
+def _attn_weights(lp):
+    return (lp.attn_q_w, lp.attn_k_w, lp.attn_v_w, lp.attn_pos_w,
+            lp.attn_out_w, lp.pos_bias_u, lp.pos_bias_v)
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,6 +170,39 @@ def prompt_fusion(pk, enc, prompt_onehot):
     return linear(h, pk.fc2_w, pk.fc2_b)
 
 
+def encode_batch(params, hp: Hparams, mel, prompt_onehot=None,
+                 n_frames=None, n_mel_frames=None):
+    """Offline encoder (nemotron_tpu/models/encoder.py:encode_batch):
+    mel [B, T, n_mels] -> [B, T', d_model], full attention over each
+    utterance, T' = subsampled_len(T) <= hp.max_pos_len (the pos table).
+
+    n_frames ([B], valid subsampled frames) masks the padded keys;
+    n_mel_frames ([B], valid mel frames) masks each subsampling level at
+    its exact-length width. With both, each row's valid prefix equals its
+    exact-length run: every conv is causal, so the zero padding reaches no
+    valid frame (a ragged batch, or a segment padded to its bucket).
+    """
+    x = conv_subsampling(params.subsampling, mel, n_frames=n_mel_frames)
+    t = x.shape[1]
+    pe = pos_emb_slice(params.pos_emb, 2 * t - 1)
+    attn_mask = None
+    if n_frames is not None:
+        pos = torch.arange(t, device=x.device)
+        attn_mask = torch.where(pos[None, :] >= n_frames[:, None].to(pos.dtype),
+                                -1e9, 0.0).to(x.dtype)
+
+    for layer in range(hp.n_layers):
+        lp = layer_slice(params.layers, layer)
+        attention = attention_sublayer(
+            lp, lambda cur, lp=lp: (rel_pos_mha(
+                cur, pe, *_attn_weights(lp), hp.n_heads, hp.d_head,
+                attn_mask), None, None))
+        x = conformer_layer(x, lp, hp, attention)[0]
+    if params.prompt is not None and prompt_onehot is not None:
+        x = prompt_fusion(params.prompt, x, prompt_onehot)
+    return x
+
+
 def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
                        k_cache, v_cache, conv_cache, cache_valid,
                        prompt_onehot=None, phase: int = 0, active_mask=None,
@@ -207,12 +248,15 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     for layer in range(hp.n_layers):
         lp = layer_slice(params.layers, layer)
         kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
-        ab = None
         if use_block:
-            ab = _block_call(lp, hp, linear(pe, lp.attn_pos_w), pos_index[0],
-                             mask_full, kl, vl)
-        x, k_new, v_new, cc2 = conformer_layer(
-            x, pe, lp, hp, kl, vl, cl, mask_full, pos_index, attn_block=ab)
+            attention = _block_call(lp, hp, linear(pe, lp.attn_pos_w),
+                                    pos_index[0], mask_full, kl, vl)
+        else:
+            attention = attention_sublayer(
+                lp, lambda cur, lp=lp, kl=kl, vl=vl: rel_pos_mha_fullbuf(
+                    cur, pe, *_attn_weights(lp), hp.n_heads, hp.d_head, kl,
+                    vl, pos_index, mask_full))
+        x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl)
         if is_quant(kl):
             k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
         if am is not None:

@@ -34,19 +34,49 @@ def causal_dw_conv2d(x, w, b, stride: int):
                     groups=w.shape[0])
 
 
-def conv_subsampling(sub, mel):
+def _mask_valid_h(x, valid):
+    """Zero the time positions >= valid ([B] int) of x [B, C, H=T, W].
+
+    Each stride-2 level's right pad is (s-1) = 1, so the last output frame
+    of an exact-length run reads one position past its end: a pad zero. In
+    a zero-padded ragged batch that position holds a computed value (the
+    conv bias and relu turn zero input into constants), so without this
+    mask the boundary frame differs from the exact-length run and attention
+    spreads the difference to every frame. Zeroing each level at its
+    exact-length width makes the valid prefix bit-equal to that run
+    (nemotron_tpu/ops/conv.py:_mask_valid_h, in NHWC there)."""
+    pos = torch.arange(x.shape[2], device=x.device)
+    keep = pos[None, :] < valid[:, None].to(pos.dtype)
+    return torch.where(keep[:, None, :, None], x, x.new_zeros(()))
+
+
+def conv_subsampling(sub, mel, n_frames=None):
     """Depthwise-separable 8x subsampling. mel: [B, T, n_mels] -> [B, T', d_model].
 
     Flatten order matches the reference: flat index = c * W_out + w
-    (nemotron_tpu/ops/conv.py:129-131). Streaming chunks are always exact
-    length, so the ragged-batch masking of the offline path is not needed.
+    (nemotron_tpu/ops/conv.py:129-131).
+
+    n_frames: optional [B] valid MEL frames of a zero-padded ragged batch
+    (the offline path). Each stride-2 level is then masked to its
+    exact-length output width (t -> t // 2 + 1, `_mask_valid_h`), so each
+    row's valid prefix equals its exact-length run. Streaming chunks are
+    always exact length and pass None.
     """
+    valid = None if n_frames is None else n_frames.to(torch.int64)
+
+    def level(x):
+        nonlocal valid
+        if valid is None:
+            return x
+        valid = valid // 2 + 1
+        return _mask_valid_h(x, valid)
+
     x = mel.to(sub.conv0_w.dtype)[:, None]  # [B, 1, H=T, W=mels]
-    x = torch.relu(causal_conv2d(x, sub.conv0_w, sub.conv0_b, 2))
+    x = level(torch.relu(causal_conv2d(x, sub.conv0_w, sub.conv0_b, 2)))
     x = causal_dw_conv2d(x, sub.conv2_w, sub.conv2_b, 2)
-    x = torch.relu(F.conv2d(x, sub.conv3_w, sub.conv3_b))  # pointwise
+    x = level(torch.relu(F.conv2d(x, sub.conv3_w, sub.conv3_b)))  # pointwise
     x = causal_dw_conv2d(x, sub.conv5_w, sub.conv5_b, 2)
-    x = torch.relu(F.conv2d(x, sub.conv6_w, sub.conv6_b))
+    x = level(torch.relu(F.conv2d(x, sub.conv6_w, sub.conv6_b)))
     b, c, ho, wo = x.shape
     flat = x.permute(0, 2, 1, 3).reshape(b, ho, c * wo)
     return linear(flat, sub.out_w, sub.out_b)

@@ -1,5 +1,6 @@
-"""Relative-position multi-head attention over the phased slack buffer
-(port of nemotron_tpu/ops/rel_attention.py:rel_pos_mha_fullbuf).
+"""Relative-position multi-head attention: streaming over the phased slack
+buffer (port of nemotron_tpu/ops/rel_attention.py:rel_pos_mha_fullbuf) and
+offline over a whole utterance (`rel_pos_mha`, its no-cache batch form).
 
 Scores are computed against ALL S_buf cache slots plus the T new frames;
 the phase's (query, slot) -> relative-position map arrives as `pos_index`
@@ -11,7 +12,9 @@ At T=1 (right context 0) the attention runs in kernel B1 with an f32
 softmax, as the JAX package's Pallas path. At T>1 (right contexts 1, 6
 and 13) the JAX package computes it as einsums outside any Pallas kernel,
 in the activation type throughout (the 1/sqrt(Dh) scale and the softmax
-included), and so does the port, with torch.matmul.
+included), and so does the port, with torch.matmul. The offline form is
+the same einsums in the JAX package and torch.matmul here; its rel-shift
+(`rel_shift_gather`) is a strided view of the position scores.
 """
 
 from __future__ import annotations
@@ -95,3 +98,49 @@ def _mha_t1(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u, bias_v,
     ctx = t1_attention_core(q_u, k_new, v_new, pos_mask, k_buf, v_buf)
     out = linear(ctx.to(x.dtype).reshape(B, 1, D), out_w)
     return out, k_new[:, :, None, :], v_new[:, :, None, :]
+
+
+def rel_shift_gather(pos_raw, klen: int):
+    """pos_raw [..., qlen, pos_len] -> [..., qlen, klen] with
+    out[..., i, j] = pos_raw[..., i, j + qlen - 1 - i] (pos_len = 2 klen - 1,
+    qlen <= klen), as a strided view of pos_raw: row i starts at i x
+    (pos_len - 1) + qlen - 1 of the flat rows, so the shift moves no data
+    (the values of the JAX package's one-hot product and pad-reshape
+    trick, rel_attention.py:87-117)."""
+    pos_raw = pos_raw.contiguous()
+    *lead, qlen, pos_len = pos_raw.shape
+    if qlen > klen or pos_len < klen + qlen - 1:
+        raise ValueError(f"rel_shift_gather: qlen {qlen}, pos_len {pos_len} "
+                         f"do not cover klen {klen}")
+    stride = list(pos_raw.stride())
+    return pos_raw.as_strided(
+        (*lead, qlen, klen), (*stride[:-2], pos_len - 1, 1),
+        pos_raw.storage_offset() + qlen - 1)
+
+
+def rel_pos_mha(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u, bias_v,
+                n_heads: int, d_head: int, attn_mask=None):
+    """Rel-pos MHA over a whole batch of utterances, no cache (the offline
+    encoder; nemotron_tpu/ops/rel_attention.py:rel_pos_mha without caches).
+
+    x: [B, T, D]; pos_emb: [2T - 1, D] (descending NeMo order);
+    attn_mask: [B, T] additive (0 valid, -1e9 padded keys) or None. The
+    scale and the softmax stay in the activation type, as the JAX
+    package's einsums. Returns out [B, T, D].
+    """
+    B, T, D = x.shape
+    q = linear(x, q_w).view(B, T, n_heads, d_head)
+    k = linear(x, k_w).view(B, T, n_heads, d_head).transpose(1, 2)
+    v = linear(x, v_w).view(B, T, n_heads, d_head).transpose(1, 2)
+    pos = linear(pos_emb, pos_w).view(-1, n_heads, d_head)  # [2T-1, H, Dh]
+    scale = 1.0 / torch.sqrt(torch.tensor(float(d_head), dtype=x.dtype))
+    content = torch.matmul((q + bias_u).transpose(1, 2), k.transpose(-1, -2))
+    pos_raw = torch.einsum("bthd,phd->bhtp", q + bias_v, pos)
+    scores = (content + rel_shift_gather(pos_raw, T)) * scale
+    del content, pos_raw
+    if attn_mask is not None:
+        scores = scores + attn_mask[:, None, None, :]
+    weights = torch.softmax(scores, dim=-1)  # [B, H, T, T]
+    del scores
+    ctx = torch.matmul(weights, v)  # [B, H, T, Dh]
+    return linear(ctx.transpose(1, 2).reshape(B, T, D), out_w)

@@ -23,9 +23,8 @@ fused tick at full width and B=256 (random weights from seed 0; the tick
 synchronised before and after, median of 48 after 8 warm-up ticks) in bf16,
 in f32, bf16 and bf16 with int8 K/V through the attention block, and in
 f32 with Q8_0 encoder weights (B4 in f32) and int8 K/V. `mel`: B2 at
-the shapes its paths run, B x frames in {256 x 8 (the tick's headline),
-32 x 8, 1 x 8 (the session's chunk), 1 x 6000 (mel_full of 60 s)}, 128
-mels, white noise, with the dense uniform filterbank of random_params and
+the shapes its paths run (MEL_SHAPES: B x frames 256 x 8, the tick's
+headline, to 1 x 16,376, one offline segment), 128 mels, white noise, with the dense uniform filterbank of random_params and
 a slaney one (`slaney_filterbank`), each beside
 `rfft_ms`: torch.fft.rfft of the unfolded windowed frames, the power, the
 filterbank by torch.matmul and the log (cuFFT; a yardstick, not called by
@@ -187,9 +186,10 @@ def mel_exact(torch, buf, window512, filterbank, n_frames: int):
 
 
 # (B, frames): the tick's headline, a tick of 32 streams, the session's
-# chunk, mel_full of 60 s
+# chunk, mel_full of 60 s, the ticks at right context 1 / 6 / 13 and the
+# session's chunk at 13, one offline segment (16,376 frames, 163.76 s)
 MEL_SHAPES = ((256, 8), (32, 8), (1, 8), (1, 6000), (256, 16), (256, 56),
-              (256, 112), (1, 112))
+              (256, 112), (1, 112), (1, 16376))
 
 
 def mel_cases(torch, dev, rng):

@@ -1,7 +1,9 @@
 """The port's loop-labels greedy RNNT decode against the JAX package's: the
-tokens exactly equal, the decoder state within 5e-5 (f32). The port runs
-the loop's fixed bound instead of the JAX early exit; the tokens must not
-change. With bf16 weights, encoder frames and state in both packages the
+tokens exactly equal, the decoder state within 5e-5 (f32). The streaming
+tick runs the loop's fixed bound instead of the JAX early exit, the
+offline path an exit tested every few iterations; neither may change the
+tokens, and the exit must equal the fixed bound bit for bit and the JAX
+package's frame-scan form too. With bf16 weights, encoder frames and state in both packages the
 tokens are exactly equal too, and the state within 7.8e-3, one bf16 ulp of
 a value in [1, 2)."""
 
@@ -130,3 +132,76 @@ def test_joint_step_and_packed_confidences_match(monkeypatch):
                              td.init_decode_state(3, hp, device="cpu"), torch.tensor(nv))[1]
     assert t_list(plain, nv) == [[(tok % hp.vocab_size, t) for tok, t in seq]
                                  for seq in t_list(tt, nv)]
+
+
+# (T, blank bias, n_valid): ragged, a stream with no frame, the 10-symbol
+# cap hit on every frame, and a batch with no frame at all
+EXIT_CASES = [
+    (6, 0.5, [6, 2, 0, 5]),
+    (5, -3.0, [5, 3, 1, 0]),
+    (3, 2.0, [0, 0, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("t, blank_bias, n_valid", EXIT_CASES)
+@pytest.mark.parametrize("exit_every", [1, 16])
+def test_decode_exit_equals_the_fixed_bound_and_both_jax_forms(
+        monkeypatch, t, blank_bias, n_valid, exit_every):
+    """greedy_decode with the exit (the offline path's) against its fixed
+    bound: tokens and state bit-equal, in fewer iterations where streams
+    blank early (tested every iteration); and against the JAX package's loop-labels form and its
+    frame-scan form (LOOP_LABELS off): tokens equal, state within 5e-5."""
+    hp = tiny_hparams()
+    jp, tp = j_random(hp, seed=9), t_random(hp, seed=9, device="cpu")
+    jp.joint.out_b = jp.joint.out_b.at[hp.blank_id].add(blank_bias)
+    tp.joint.out_b[hp.blank_id] += blank_bias
+    b = len(n_valid)
+    enc = rand(b, t, hp.d_model, seed=10)
+    h, c = rand(b, 2, hp.decoder_dim, seed=11), rand(b, 2, hp.decoder_dim,
+                                                     seed=12)
+    prev = np.array([hp.blank_id, 3, 5, 7], np.int32)
+    off = np.array([0, 4, 9, 2], np.int32)
+    nv = np.asarray(n_valid, np.int32)
+
+    def port(**kw):
+        ts = td.DecodeState(h=torch.tensor(h), c=torch.tensor(c),
+                            prev_token=torch.tensor(prev),
+                            frame_offset=torch.tensor(off))
+        stats = {}
+        st, tok = td.greedy_decode(tp, hp, torch.tensor(enc), ts,
+                                   torch.tensor(nv), stats=stats, **kw)
+        return st, tok.numpy(), stats["iterations"]
+
+    fixed, fixed_tok, n_fixed = port()
+    st, tok, n_exit = port(exit_every=exit_every)
+    assert n_fixed == t * 11 + 1
+    np.testing.assert_array_equal(tok, fixed_tok)
+    for name in ("h", "c", "prev_token", "frame_offset"):
+        assert torch.equal(getattr(st, name), getattr(fixed, name)), name
+    emitted = (tok >= 0).sum()
+    if blank_bias < 0:  # every frame of every stream at the cap
+        assert ((tok >= 0).sum(-1) == 10 * (np.arange(t) < nv[:, None])
+                ).all()
+    if not nv.any():
+        assert n_exit == 0 and emitted == 0
+    elif blank_bias > 0 and exit_every == 1:
+        assert n_exit < n_fixed and emitted
+    # a stream takes an iteration per frame and per emission
+    least = (nv + (tok >= 0).sum(axis=(1, 2))).max()
+    assert least <= n_exit <= n_fixed
+
+    js = jd.DecodeState(h=jnp.asarray(h), c=jnp.asarray(c),
+                        prev_token=jnp.asarray(prev),
+                        frame_offset=jnp.asarray(off))
+    for loop_labels in (True, False):
+        monkeypatch.setattr(jd, "LOOP_LABELS", loop_labels)
+        js2, jt = jd.greedy_decode(jp, hp, jnp.asarray(enc), js,
+                                   jnp.asarray(nv))
+        np.testing.assert_array_equal(tok, np.asarray(jt))
+        for name in ("h", "c"):
+            np.testing.assert_allclose(
+                getattr(st, name).numpy(), np.asarray(getattr(js2, name)),
+                atol=5e-5, rtol=0)
+        for name in ("prev_token", "frame_offset"):
+            np.testing.assert_array_equal(getattr(st, name).numpy(),
+                                          np.asarray(getattr(js2, name)))

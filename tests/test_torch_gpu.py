@@ -285,6 +285,24 @@ def test_quantized_linears_at_right_context_rows(cuda, bits, dtype, rel, n,
     gemm_plan / f32_plan give them: within rel x max|y| of the plain
     version, two calls bit-equal, one launch each; in f32 the workspace
     f32_scratch makes holds every split's partial of every tile."""
+    _quantized_linears_at_rows(cuda, bits, dtype, rel, n, k, RC_ROWS)
+
+
+# M = B x T' of the offline path: 8 short files x 129 frames (one 1024-frame
+# bucket), one full segment (2,048), 8 full segments (16,384)
+OFFLINE_ROWS = (1032, 2048, 16384)
+
+
+@pytest.mark.parametrize("n, k", F32_SHAPES[:4])
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linears_at_offline_rows(cuda, bits, dtype, rel, n, k):
+    """B4 / B5 at the offline path's rows, as at the right-context rows."""
+    _quantized_linears_at_rows(cuda, bits, dtype, rel, n, k, OFFLINE_ROWS)
+
+
+def _quantized_linears_at_rows(cuda, bits, dtype, rel, n, k, rows):
     rng = np.random.default_rng(n + k + bits + 7)
     w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
     qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w).to(cuda)
@@ -292,7 +310,7 @@ def test_quantized_linears_at_right_context_rows(cuda, bits, dtype, rel, n,
     fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
                else (quant.linear_q4, quant.linear_q4_ref))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    for m in RC_ROWS:
+    for m in rows:
         if dtype == torch.float32:
             plan = quant.f32_plan(m, n, k, sms)
             ws, cnt = quant.f32_scratch(plan, cuda)
@@ -381,9 +399,10 @@ def _mel_case(dev, b, n_frames, n_mels=128, fb_kind="dense",
 
 # (B, frames): the tick's headline, a tick of 32 streams, the session's
 # chunk, mel_full of 60 s; the ticks at right context 1, 6 and 13 (16 / 56
-# / 112 new frames per stream) and the session's chunk at 13
+# / 112 new frames per stream) and the session's chunk at 13; one offline
+# segment (16,376 frames)
 MEL_SHAPES = [(256, 8), (32, 8), (1, 8), (1, 6000), (256, 16), (256, 56),
-              (256, 112), (1, 112)]
+              (256, 112), (1, 112), (1, 16376)]
 
 
 @pytest.mark.parametrize("b, n_frames", MEL_SHAPES)
@@ -690,3 +709,51 @@ def _tiny_tick_on_card_matches_cpu(cuda, int8, block, mode):
                                        atol=1, rtol=0)
             got, want = got.s, want.s
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_tiny_offline_batch_on_card_matches_cpu(cuda, q8):
+    """The offline path at the tiny geometry (a segment cap of ~500 mel
+    frames), three files in one ragged batch, one past the cap: encode_batch
+    within 1e-4 of the CPU's, texts equal to the CPU's and to the card's
+    per-file runs; B2 once per transcribe_audios call, B4 11 x n_layers per
+    segment with Q8_0 weights, B1 and B3 never."""
+    from nemotron_tpu_torch.models.encoder import encode_batch
+
+    hp = Hparams(n_mels=32, d_model=64, n_heads=4, d_head=16, d_ff=96,
+                 n_layers=2, kernel_size=5, vocab_size=33, decoder_dim=32,
+                 joint_dim=32, subsampling_channels=16, att_left_context=8,
+                 max_pos_len=64)
+    cpu = ASRModel.random(hp, seed=1, device="cpu")
+    if q8:
+        cpu.params = quantize_encoder_layers(cpu.params)
+    gpu = ASRModel(hp, params_to(cpu.params, cuda), cpu.tokenizer.vocab,
+                   device=cuda)
+    rng = np.random.default_rng(4)
+    audios = [(rng.standard_normal(n) * 3000).astype(np.int16)
+              for n in (7000, 96000, 12800)]
+    lengths = (83, 41, 64)
+    mel = rng.standard_normal((3, 96, hp.n_mels)).astype(np.float32)
+    n_mel = np.asarray(lengths, np.int32)
+    n_sub = np.asarray([hp.subsampled_len(n) for n in lengths], np.int32)
+    encs = [encode_batch(m.params, hp, m.put_batch(mel),
+                         n_frames=m.put_batch(n_sub),
+                         n_mel_frames=m.put_batch(n_mel)).cpu()
+            for m in (cpu, gpu)]
+    for i, n in enumerate(n_sub):
+        torch.testing.assert_close(encs[1][i, :n], encs[0][i, :n],
+                                   atol=1e-4, rtol=0)
+    want = cpu.transcribe_audios(audios, timestamp_words=True)
+    kernels.reset_counts()
+    got = gpu.transcribe_audios(audios, timestamp_words=True)
+    torch.cuda.synchronize()
+    segments = len(gpu.offline_stats)
+    assert segments == 2
+    assert got == want and all(want)
+    assert kernels.MEL_FRAMES.launches == 1
+    assert kernels.Q8_MATMUL.launches == (11 * hp.n_layers * segments
+                                          if q8 else 0)
+    assert kernels.T1_ATTENTION.launches == 0
+    assert kernels.T1_ATTENTION_BLOCK.launches == 0
+    assert [gpu.transcribe_audio(a, timestamp_words=True)
+            for a in audios] == want

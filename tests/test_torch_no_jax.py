@@ -4,7 +4,7 @@ module of nemotron_tpu_torch and chip_smoke import in a process in which
 `nemotron_tpu` in sys.modules; no source file of the port names jax; the
 kernel wrappers given CPU tensors take their plain versions without
 building or launching. The walk covers every module of the port, the
-session, frontend and CLI modules included. No file of the port or
+session, frontend and both CLI modules included. No file of the port or
 chip_smoke.py names a path into `nemotron_tpu/` or `native/` (the port
 keeps its own copies of the modules it shares with the JAX package), and
 the port's entry points default to the card: without one, a model that
@@ -37,6 +37,7 @@ CHILD = textwrap.dedent("""
     import nemotron_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         nemotron_tpu_torch.__path__, "nemotron_tpu_torch.")]
+    assert "nemotron_tpu_torch.cli.transcribe" in names
     for name in names:
         importlib.import_module(name)
     import chip_smoke
@@ -78,6 +79,8 @@ CHILD = textwrap.dedent("""
     assert mel_full(np.zeros(1600, np.int16), np.ones((4, 257), np.float32),
                     np.ones(400, np.float32)).shape == (9, 4)
     assert parse_args(["m.gguf", "-"])["device"] == "cuda"
+    from nemotron_tpu_torch.cli import transcribe
+    assert transcribe.parse_args(["m.gguf", "-"])["device"] == "cuda"
     assert len(kernels.KERNELS) == 5
     assert [k.launches for k in kernels.KERNELS] == [0] * 5
     assert kernels._lib is None  # nothing was built or loaded
