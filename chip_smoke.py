@@ -2,9 +2,10 @@
 """GPU smoke of nemotron_tpu_torch: builds the CUDA kernels from csrc/,
 holds each against its plain PyTorch version, runs the full-width streaming
 tick on the card against the CPU at right contexts 0, 1, 6 and 13, serves
-TCP clients through the port's own server, and transcribes files offline
-(the ragged batch encoder, the API and the offline CLI) — all on one CUDA
-card.
+TCP clients through the port's own server, transcribes files offline
+(the ragged batch encoder, the API and the offline CLI), and drives the
+engine's migration, hot swap, events, legacy flow and phase timers — all
+on one CUDA card.
 
     python3 chip_smoke.py     # every phase; needs one CUDA card
 
@@ -38,7 +39,7 @@ Phases, one line each, any failure exits non-zero:
              same ticks on the CPU: f32 and bf16 dense; the same with the
              attention block (B3), and f32 int8 K/V with it; (a) f32 Q8_0
              + int8 K/V, (b) f32 Q4_0, (c) bf16 Q8_0 + int8 K/V; at right
-             contexts 1 / 6 / 13 one k = n_phases tick and 10 / 6 / 4
+             contexts 1 / 6 / 13 one k = n_phases tick and 9 / 5 / 3
              single ticks: f32 dense at each, (a) and (c) at 13
   5 server   StreamServer on a free localhost port (batch 8), 4 concurrent
              clients x ~3 s of PCM, five times: f32 dense, bf16 Q8_0 +
@@ -68,9 +69,28 @@ Phases, one line each, any failure exits non-zero:
              in f32, bf16 and bf16 Q8_0 (host s, audio-s/s, RTF, decode
              iterations and share, peak memory, device busy and idle
              share, kernels per segment)
+  7 surface  the engine's remaining surface at full width: two streams of
+             a batch-8 engine exported mid-flight at a phase other than 0
+             through snapshot_to_bytes / snapshot_from_bytes into an
+             engine at another phase, every stream's text equal to an
+             unmigrated run (f32, bf16, f32 int8 K/V, f32 Q8_0, bf16 Q4_0
+             at R=0; f32 at R=13 after a k = n_phases backlog tick),
+             launches B2 once and B4 / B5 264 per chunk step, B1 24 at
+             R=0; snapshot bytes per stream; a confidence=True engine's
+             events (at_sec never decreasing, conf in (0, 1], texts equal
+             to a plain engine's);
+             the fast flow, the legacy flow (gated_realign=False) and the
+             phase timers on a staggered schedule at batch 8 (equal texts,
+             B1 on no legacy gated tick); StreamServer.hot_swap with live
+             clients in f32 at batch 64 (to the same weights: texts equal
+             to no swap, byte for byte; to other weights: every stream
+             ends) and 256 (stall, export and import seconds, snapshot
+             bytes); encoder / decoder seconds per tick of a
+             phase_timers=True engine at batch 256 in f32 and bf16 with
+             each half's device busy share
 The second-to-last line is the kernels JSON (launches: the streaming
-server runs; offline_launches: phase 6's counted run), the last line the
-device JSON.
+server runs; offline_launches: phase 6's counted run), the line before
+it phase 7's launch counts, the last line the device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
 """
@@ -99,7 +119,7 @@ RC_ROWS = (512, 1792, 3584)  # B4/B5 rows of a B=256 tick at those modes
 # B4/B5 rows of the offline path: 8 short files x 129 frames, one full
 # segment, 8 full segments
 OFFLINE_ROWS = (1032, 2048, 16384)
-RC_TICKS = {1: 10, 6: 6, 13: 4}  # phase 4: single ticks past a wrap
+RC_TICKS = {1: 9, 6: 5, 13: 3}  # phase 4: single ticks, one past a wrap
 # phase 6: the random model's blank bias offline. With full attention over
 # a file its decode swings between no token and the 10-symbol cap on every
 # frame as the bias moves: at 1.5 the ragged batch's 3 s file emits (its
@@ -1010,7 +1030,7 @@ def phase_tick_times(torch, models, card: str):
         period = cfg.shift_mel_frames * 10.0
         # past R=0 a tick issues 3-6x the kernels: fewer ticks, timed and
         # traced, keep the phase inside its time
-        n_time, n_prof = (24, 8) if mode == 0 else (8, 2)
+        n_time, n_prof = (16, 8) if mode == 0 else (8, 2)
         ms = time_ticks(torch, model, b, n=n_time, mode=mode)
         log(f"[5 tick time] B={b} R={mode} all-active {name}: {ms:.2f} "
             f"ms/tick, {period / ms * b:.0f} real-time {period:.0f} ms "
@@ -1394,6 +1414,506 @@ def phase_offline(torch, hp, dense, q8, vocab, gpu, card: str):
     return counts
 
 
+# phase 7: the engine's surface at full width
+SURF_B = 8          # the migration, event and legacy-flow engines' batch
+SWAP_BATCHES = (64, 256)
+TIMER_B, TIMER_WARM, TIMER_TICKS = 256, 4, 16
+
+
+class Streams:
+    """Streams of `audios` on engines, each pushing `first` samples on its
+    first tick and `per_tick` after; texts and event checks by stream."""
+
+    def __init__(self, audios, first: int, per_tick: int):
+        self.audios, self.first, self.per_tick = audios, first, per_tick
+        self.pos = [0] * len(audios)
+        self.texts = [""] * len(audios)
+        self.events = [[] for _ in audios]
+
+    def push(self, engine, sids, which) -> None:
+        for i in which:
+            n = self.first if self.pos[i] == 0 else self.per_tick
+            a = self.audios[i][self.pos[i]:self.pos[i] + n]
+            if len(a):
+                engine.push_audio(sids[i], a)
+            self.pos[i] += n
+
+    def take(self, events, sids) -> None:
+        index = {sid: i for i, sid in enumerate(sids) if sid is not None}
+        for e in events:
+            i = index.get(e.stream_id)
+            if i is not None:
+                self.texts[i] += e.text
+                self.events[i].append(e)
+
+    def tick(self, engine, sids, which) -> None:
+        self.push(engine, sids, which)
+        self.take(engine.tick()[0], sids)
+
+    def done(self, i) -> bool:
+        return self.pos[i] >= len(self.audios[i])
+
+    def finish(self, engine, sids, which) -> None:
+        """Push what is left of `which`, end them and run the engine idle."""
+        while not all(self.done(i) for i in which):
+            self.tick(engine, sids, [i for i in which if not self.done(i)])
+        for i in which:
+            engine.end_stream(sids[i])
+        for _ in range(400):
+            events, more = engine.tick()
+            self.take(events, sids)
+            if not more:
+                return
+        raise SystemExit("phase 7: an engine did not go idle")
+
+
+def kernel_counts() -> dict:
+    from nemotron_tpu_torch import kernels
+
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+def check_launches(name, counts, engines, model, b1_per_step: int):
+    """B2 once per chunk step (a k-chunk dispatch is k steps), B1
+    b1_per_step per step of the fast flow, B4 (Q8_0) and B5 (Q4_0) once
+    per step for each quantized layer matrix (11 x 24 at full width)."""
+    from nemotron_tpu_torch.ops.quant import QuantizedTensor, QuantizedTensor4
+
+    steps = sum(g.total_chunk_steps for e in engines
+                for g in e.groups.values())
+    layers = model.params.layers
+    ws = [getattr(layers, f.name) for f in dataclasses.fields(layers)]
+    per = model.hp.n_layers * steps
+    want = {"mel_frames": steps, "t1_attention": b1_per_step * steps,
+            "q8_matmul": per * sum(isinstance(w, QuantizedTensor)
+                                   for w in ws),
+            "q4_matmul": per * sum(isinstance(w, QuantizedTensor4)
+                                   for w in ws),
+            "t1_attention_block": 0}
+    if counts != want:
+        raise SystemExit(f"phase 7 ({name}): launches {counts} over {steps} "
+                         f"chunk steps, want {want}")
+    return steps
+
+
+def phase_migrate(torch, model, name, mode, L, sizes):
+    """Two streams of engine A (batch SURF_B) exported mid-flight at a phase
+    other than 0, through snapshot_to_bytes / snapshot_from_bytes, into
+    engine B, whose two decoys sit at another phase; every stream on
+    either engine ends with the text of an unmigrated engine U run on the
+    same pushes. At right context 13 A's batch is full and a k = n_phases
+    backlog tick runs before the export."""
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.streaming.engine import (BatchedEngine,
+                                                     PRIME_SAMPLES,
+                                                     snapshot_from_bytes,
+                                                     snapshot_to_bytes)
+
+    cfg = model.cache_config(mode)
+    shift = cfg.shift_samples
+    n = SURF_B if mode else 4
+    first = PRIME_SAMPLES + (cfg.n_phases if mode else 1) * shift
+    n_before, n_after = (2, 3) if mode else (3, 12)  # ticks around export
+    length = first + (n_before + n_after) * shift + 700
+    audios = list(stream_audio(n, length, SEED + 20))
+    decoys = list(stream_audio(2, first + 6 * shift, SEED + 21))
+    s_u, s_a = Streams(audios, first, shift), Streams(audios, first, shift)
+    # the importer's streams: its two decoys, then the two migrated ones
+    s_b = Streams(decoys + audios[:2], PRIME_SAMPLES + shift, shift)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    eng_u, eng_a, eng_b = (BatchedEngine(model, SURF_B) for _ in range(3))
+    sid_u = [eng_u.start_stream(mode) for _ in range(n)]
+    sid_a = [eng_a.start_stream(mode) for _ in range(n)]
+    sid_b = [eng_b.start_stream(mode) for _ in range(2)] + [None, None]
+    for _ in range(2):
+        s_b.tick(eng_b, sid_b, range(2))
+    for _ in range(n_before):
+        s_u.tick(eng_u, sid_u, range(n))
+        s_a.tick(eng_a, sid_a, range(n))
+    phase_a = eng_a.groups[mode].phase
+    futs = [eng_a.request_export(sid_a[i]) for i in (0, 1)]
+    t1 = time.perf_counter()
+    s_a.take(eng_a.tick()[0], sid_a)  # the export tick
+    t_export = time.perf_counter() - t1
+    blobs = [snapshot_to_bytes(f.result(timeout=60)) for f in futs]
+    snaps = [snapshot_from_bytes(b, model) for b in blobs]
+    phase_b = eng_b.groups[mode].phase
+    if {int(s["phase"]) for s in snaps} != {phase_a} or phase_a == 0 \
+            or phase_a == phase_b:
+        raise SystemExit(f"phase 7 ({name} R={mode}): export phase "
+                         f"{phase_a}, importer phase {phase_b}")
+    futs = [eng_b.request_import(s) for s in snaps]
+    t1 = time.perf_counter()
+    events = eng_b.tick()[0]  # the import tick
+    t_import = time.perf_counter() - t1
+    sid_b[2:] = [f.result(timeout=60) for f in futs]
+    s_b.pos[2:], s_b.texts[2:] = s_a.pos[:2], s_a.texts[:2]
+    s_b.take(events, sid_b)
+    s_u.finish(eng_u, sid_u, range(n))
+    s_a.finish(eng_a, sid_a, range(2, n))
+    s_b.finish(eng_b, sid_b, range(4))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = s_b.texts[2:] + s_a.texts[2:]
+    bad = [i for i in range(n) if got[i] != s_u.texts[i]]
+    left = eng_a.stats()["streams"] + eng_b.stats()["streams"]
+    counts = kernel_counts()
+    steps = check_launches(f"{name} R={mode}", counts, (eng_u, eng_a, eng_b),
+                           model, 0 if mode else L)
+    sizes[f"{name} R={mode}"] = len(blobs[0])
+    log(f"[7 migrate] {name} R={mode} B={SURF_B}: 2 of {n} streams exported "
+        f"at phase {phase_a} ({len(blobs[0])} snapshot bytes per stream, "
+        f"export tick {t_export * 1e3:.1f} ms, import tick "
+        f"{t_import * 1e3:.1f} ms for both) into an engine at phase "
+        f"{phase_b}; texts equal to the unmigrated run: {n - len(bad)} of "
+        f"{n} ({sum(len(t) for t in got)} chars); launches {counts} over "
+        f"{steps} chunk steps; {secs:.1f} s")
+    if bad or left or not all(s_u.texts):
+        raise SystemExit(f"phase 7 ({name} R={mode}): streams {bad} differ "
+                         f"from the unmigrated run, {left} left over, or one "
+                         f"is empty: {[len(t) for t in s_u.texts]}")
+    return counts
+
+
+def snapshot_sizes(torch, models, sizes):
+    """snapshot_to_bytes' size of one stream of each form at right
+    contexts 0 and 13 (fixed by the shapes)."""
+    from nemotron_tpu_torch.streaming.engine import snapshot_to_bytes
+    from nemotron_tpu_torch.streaming.state import extract_slot
+
+    for name, model in models.items():
+        for mode in (0, 13):
+            key = f"{name} R={mode}"
+            if key in sizes:
+                continue
+            state = model.init_stream_state(1, model.cache_config(mode))
+            snap = {"version": 1, "state": extract_slot(state, 0),
+                    "stage": np.zeros(0, np.int16), "tokens": [],
+                    "token_frames": []}
+            sizes[key] = len(snapshot_to_bytes(snap))
+            del state
+
+
+async def _swap_clients(model, new_models, audios, batch, push=3200):
+    """len(audios) streams on one connection to a server of `batch` slots:
+    each pushes the first half of its audio, the server hot-swaps to each
+    of `new_models` in turn (none: no swap), the rest is pushed and every
+    stream ends. Returns (texts, [(migrated, stall s, last_swap)])."""
+    from nemotron_tpu_torch.serving import protocol as P
+    from nemotron_tpu_torch.serving.client import StreamClient
+    from nemotron_tpu_torch.serving.server import StreamServer
+
+    srv = StreamServer(model, batch_per_group=batch)
+    server = await srv.start("127.0.0.1", 0)
+    port = server.sockets[0].getsockname()[1]
+    try:
+        client = await StreamClient.connect("127.0.0.1", port)
+        sids = [await client.start_stream() for _ in audios]
+        texts = {sid: "" for sid in sids}
+        ended = set()
+
+        async def receiver():
+            while len(ended) < len(sids):
+                op, sid, payload = await asyncio.wait_for(client.recv(),
+                                                          timeout=300)
+                if op in (P.OP_TEXT, P.OP_ENDED):
+                    texts[sid] += payload.decode("utf-8", "replace")
+                    if op == P.OP_ENDED:
+                        ended.add(sid)
+                elif op == P.OP_ERROR:
+                    raise RuntimeError(payload.decode())
+
+        recv = asyncio.ensure_future(receiver())
+        cuts = np.linspace(0, len(audios[0]), len(new_models) + 2).astype(int)
+        cuts = [c // push * push for c in cuts[1:-1]] + [len(audios[0])]
+        swaps, lo = [], 0
+        for k, hi in enumerate(cuts):
+            for off in range(lo, hi, push):
+                for sid, a in zip(sids, audios):
+                    await client.push(sid, a[off:min(off + push, hi)])
+            lo = hi
+            if k < len(new_models):
+                await asyncio.sleep(1.0)  # the engine takes up the audio
+                t0 = time.perf_counter()
+                n = await asyncio.wait_for(srv.hot_swap(new_models[k]),
+                                           timeout=300)
+                swaps.append((n, time.perf_counter() - t0,
+                              dict(srv.last_swap)))
+        for sid in sids:
+            await client.send(P.OP_STREAM_END, sid)
+        await asyncio.wait_for(recv, timeout=300)
+        client.close()
+        return [texts[s] for s in sids], swaps
+    finally:
+        await srv.stop(server)
+
+
+def phase_hot_swap(torch, model, same, other, card):
+    """Hot swap at full width in f32, R=0: at B=64 live clients get the same
+    transcripts byte for byte through a swap to the same weights; a swap
+    to other weights still ends every stream; at B=256 one swap to the
+    same weights is timed. Stall: host seconds from hot_swap's call to
+    its return."""
+    out = {}
+    for b in SWAP_BATCHES:
+        audios = list(stream_audio(b, 48000, SEED + 30))
+        runs = ((None, []), ("same", [same]), ("other", [other])) \
+            if b == SWAP_BATCHES[0] else (("same", [same]),)
+        texts = {}
+        for kind, news in runs:
+            t0 = time.perf_counter()
+            texts[kind], swaps = asyncio.run(
+                _swap_clients(model, news, audios, b))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for n, stall, info in swaps:
+                log(f"[7 swap] B={b} f32 R=0 to the {kind} weights: {n} "
+                    f"streams migrated, stall {stall * 1e3:.0f} ms (export "
+                    f"{info['export_seconds'] * 1e3:.0f} ms, import "
+                    f"{info['import_seconds'] * 1e3:.0f} ms), "
+                    f"{info['snapshot_bytes'] / 1e9:.3f} GB of snapshots "
+                    f"({info['snapshot_bytes'] / max(n, 1) / 1e6:.2f} MB "
+                    f"per stream) ({card})")
+                out[f"B={b} {kind}"] = {"streams": n, "stall_s": stall,
+                                       **info}
+                if n != b:
+                    raise SystemExit(f"phase 7 (swap B={b}): {n} of {b} "
+                                     f"streams migrated")
+            log(f"[7 swap] B={b} {kind or 'no swap'}: {b} streams ended, "
+                f"{sum(len(t) for t in texts[kind])} chars in {secs:.1f} s")
+        if None in texts and texts["same"] != texts[None]:
+            bad = [i for i, (x, y) in enumerate(zip(texts["same"],
+                                                     texts[None])) if x != y]
+            raise SystemExit(f"phase 7 (swap B={b}): streams {bad} differ "
+                             f"from the run without a swap")
+        if None in texts and not all(texts[None]):
+            raise SystemExit(f"phase 7 (swap B={b}): empty transcripts")
+    return out
+
+
+def phase_events(torch, model, conf_model):
+    """Events of a confidence=True engine: at_sec >= 0 and non-decreasing
+    per stream, conf in (0, 1] on every text event; the texts equal a
+    confidence=False engine's."""
+    from nemotron_tpu_torch.streaming.engine import (BatchedEngine,
+                                                     PRIME_SAMPLES)
+
+    audios = list(stream_audio(4, 40000, SEED + 40))
+    runs = {}
+    for m in (model, conf_model):
+        s = Streams(audios, PRIME_SAMPLES + 1280, 1600)
+        engine = BatchedEngine(m, SURF_B)
+        sids = [engine.start_stream(0) for _ in audios]
+        s.finish(engine, sids, range(len(audios)))
+        runs[m.confidence] = s
+    bad = []
+    confs = []
+    for i, evs in enumerate(runs[True].events):
+        last = 0.0
+        for e in evs:
+            if e.text:
+                confs.append(e.conf)
+                if not (0.0 < e.conf <= 1.0 and e.at_sec >= last):
+                    bad.append((i, e.at_sec, e.conf))
+                last = e.at_sec
+    log(f"[7 events] confidence=True engine, 4 streams x 2.5 s, B={SURF_B}: "
+        f"{len(confs)} text events, conf min {min(confs, default=-1):.4f} "
+        f"median {float(np.median(confs)) if confs else -1:.4f}; texts "
+        f"equal to the confidence=False engine's: "
+        f"{runs[True].texts == runs[False].texts}")
+    if bad or not confs or runs[True].texts != runs[False].texts \
+            or any(e.conf != -1.0 for evs in runs[False].events
+                   for e in evs):
+        raise SystemExit(f"phase 7 (events): {bad[:5]} or texts differ")
+
+
+# per round, the chunks each of 4 patterns pushes (0: it starves, pauses);
+# stream i of SURF_B follows pattern i % 4
+STAGGER = [(1, 0, 0, 0), (1, 1, 0, 0), (1, 0, 1, 1), (0, 0, 1, 1),
+           (1, 1, 1, 1), (2, 0, 1, 0), (1, 3, 0, 2), (0, 2, 2, 1),
+           (1, 1, 1, 1), (3, 3, 3, 3)]
+
+
+def phase_flows(torch, model, L):
+    """The fast flow, the legacy flow (gated_realign=False) and the phase
+    timers (phase_timers=True) on one staggered join / pause schedule of
+    SURF_B streams at B=SURF_B, f32, R=0: equal texts; B1 on every chunk
+    step of the fast flow, and in the other two on the all-active ones
+    only (none on a legacy gated tick); B2 once per chunk step."""
+    from nemotron_tpu_torch.streaming.engine import (BatchedEngine,
+                                                     PRIME_SAMPLES)
+
+    audios = list(stream_audio(SURF_B, 30000, SEED + 50))
+    texts, lines = {}, []
+    for flow, kw in (("fast", {}), ("legacy", {"gated_realign": False}),
+                     ("phase timers", {"phase_timers": True})):
+        engine = BatchedEngine(model, SURF_B, **kw)
+        calls = []  # (all active, B1, B2 launches) per dispatch
+        for fn in ("fused_tick_packed", "fused_tick_profiled"):
+            orig = getattr(model, fn)
+
+            def spy(cfg, state, x, *a, _orig=orig, _fn=fn, **k):
+                c0 = kernel_counts()
+                out = _orig(cfg, state, x, *a, **k)
+                c1 = kernel_counts()
+                all_active = (a[0] if _fn == "fused_tick_packed"
+                              else a[1] is None)
+                calls.append((all_active,
+                              c1["t1_attention"] - c0["t1_attention"],
+                              c1["mel_frames"] - c0["mel_frames"]))
+                return out
+            setattr(model, fn, spy)
+        try:
+            s = Streams(audios, PRIME_SAMPLES, 1280)
+            sids = [None] * SURF_B
+            for rnd in STAGGER:
+                for i in range(SURF_B):
+                    k = rnd[i % 4]
+                    if k and sids[i] is None:
+                        sids[i] = engine.start_stream(0)
+                    if k:
+                        n = k * 1280 + (PRIME_SAMPLES if s.pos[i] == 0
+                                        else 0)
+                        engine.push_audio(sids[i],
+                                          s.audios[i][s.pos[i]:s.pos[i] + n])
+                        s.pos[i] += n
+                for _ in range(2):
+                    s.take(engine.tick()[0], sids)
+            s.finish(engine, sids, range(SURF_B))
+        finally:
+            for fn in ("fused_tick_packed", "fused_tick_profiled"):
+                delattr(model, fn)
+        texts[flow] = s.texts
+        g = engine.groups[0]
+        gated = [c for c in calls if not c[0]]
+        b1_gated = sum(c[1] for c in gated)
+        b1_all = sum(c[1] for c in calls)
+        b2 = sum(c[2] for c in calls)
+        lines.append(f"{flow}: {len(calls)} dispatches ({len(gated)} with "
+                     f"paused slots), {g.total_chunk_steps} chunk steps, B1 "
+                     f"{b1_all} ({b1_gated} on the ticks with paused slots), "
+                     f"B2 {b2}")
+        all_steps = g.total_chunk_steps - len(gated)
+        want_b1 = L * (g.total_chunk_steps if flow == "fast" else all_steps)
+        if b2 != g.total_chunk_steps or b1_all != want_b1 or not gated \
+                or not all_steps:
+            raise SystemExit(f"phase 7 (flows): {lines[-1]}; want B1 "
+                             f"{want_b1}")
+    log(f"[7 flows] f32 R=0 B={SURF_B}, {SURF_B} streams joining and "
+        f"pausing: " + "; ".join(lines) + "; texts equal to the fast "
+        f"flow's: " + str([texts[f] == texts["fast"] for f in texts]))
+    if any(texts[f] != texts["fast"] for f in texts) \
+            or not all(texts["fast"]):
+        raise SystemExit("phase 7 (flows): the legacy flow or the phase "
+                         "timers change a transcript")
+
+
+def phase_timers(torch, model, name, card):
+    """phase_timers=True at B=TIMER_B, R=0, every slot busy: the engine's
+    encoder_seconds / decoder_seconds per tick over TIMER_TICKS ticks
+    after TIMER_WARM, then each half's device busy share: its kernels'
+    device time (profile_rows of the half alone on the same shapes) over
+    its host time."""
+    from nemotron_tpu_torch.models import asr
+    from nemotron_tpu_torch.streaming.engine import (BatchedEngine,
+                                                     PRIME_SAMPLES)
+
+    cfg = model.cache_config(0)
+    n_ticks = TIMER_WARM + TIMER_TICKS
+    audios = stream_audio(TIMER_B, PRIME_SAMPLES + n_ticks * 1280 + 100,
+                          SEED + 60)
+    engine = BatchedEngine(model, TIMER_B, phase_timers=True)
+    sids = [engine.start_stream(0) for _ in range(TIMER_B)]
+    for sid, a in zip(sids, audios):
+        engine.push_audio(sid, a)
+    g = None
+    for i in range(n_ticks):
+        if i == TIMER_WARM:
+            g = engine.groups[0]
+            base = (g.total_encoder_seconds, g.total_decoder_seconds,
+                    g.total_steps, g.total_tick_seconds)
+        engine.tick()
+    steps = g.total_steps - base[2]
+    enc = (g.total_encoder_seconds - base[0]) / steps * 1e3
+    dec = (g.total_decoder_seconds - base[1]) / steps * 1e3
+    tick = (g.total_tick_seconds - base[3]) / steps * 1e3
+    st = engine.stats()["groups"][0]
+    del engine
+    torch.cuda.empty_cache()
+
+    hp = model.hp
+    state = model.init_stream_state(TIMER_B, cfg)
+    x = torch.tensor(audios[:, :1280], device=model.device)
+    nv = torch.full((TIMER_B,), cfg.valid_out_len, dtype=torch.int32,
+                    device=model.device)
+    holder = {}
+
+    def enc_half():
+        holder["s"], holder["e"] = asr.fused_encode_tick(
+            model.params, state, x, None, hp=hp, cfg=cfg, phase=0)
+
+    def dec_half():
+        asr.decode_tick(model.params, holder["s"], holder["e"], nv, hp=hp)
+    enc_half()
+    shares = []
+    for fn, host in ((enc_half, enc), (dec_half, dec)):
+        prof = profile_rows(torch, fn, 4, 2)
+        shares.append("not measured" if prof is None else
+                      f"{prof[0]:.2f} ms device ({prof[0] / host:.2f} busy, "
+                      f"{sum(r[2] for r in prof[1]):.0f} kernels)")
+    del state, holder
+    torch.cuda.empty_cache()
+    log(f"[7 timers] {name} B={TIMER_B} R=0 phase_timers=True, {steps} "
+        f"ticks after {TIMER_WARM}: encoder {enc:.2f} ms/tick ({shares[0]}), "
+        f"decoder {dec:.2f} ms/tick ({shares[1]}); decoder share "
+        f"{dec / (enc + dec):.2f}; engine tick {tick:.2f} ms; stats "
+        f"encoder_seconds {st['encoder_seconds']} decoder_seconds "
+        f"{st['decoder_seconds']} ({card})")
+    if not (enc > 0 and dec > 0):
+        raise SystemExit(f"phase 7 (timers {name}): {enc}, {dec}")
+    return {"encoder_ms": enc, "decoder_ms": dec}
+
+
+def phase_surface(torch, hp, gpu, vocab, card):
+    """Phase 7: the engine's surface at full width on the card."""
+    from nemotron_tpu_torch.api import ASRModel
+
+    L = hp.n_layers
+
+    def share(name, **kw):
+        return ASRModel(hp, gpu[name].params, vocab, device=gpu[name].device,
+                        **kw)
+
+    forms = {"f32": gpu["f32"], "bf16": gpu["bf16"],
+             "f32 int8-KV": share("f32", kv_int8=True),
+             "f32 Q8_0": share("f32 Q8_0 int8-KV"),
+             "bf16 Q4_0": gpu["bf16 Q4_0"]}
+    sizes, launches = {}, {}
+    for name, m in forms.items():
+        launches[name] = phase_migrate(torch, m, name, 0, L, sizes)
+    launches["f32 R=13"] = phase_migrate(torch, gpu["f32"], "f32", 13, L,
+                                         sizes)
+    snapshot_sizes(torch, {k: forms[k] for k in ("f32", "bf16",
+                                                 "f32 int8-KV")}, sizes)
+    log(f"[7 migrate] snapshot bytes per stream {json.dumps(sizes)}")
+
+    phase_events(torch, gpu["f32"], share("f32", confidence=True))
+    phase_flows(torch, gpu["f32"], L)
+    # other weights: the f32 model's with the joint's output rows reversed
+    p = gpu["f32"].params
+    other = ASRModel(hp, dataclasses.replace(p, joint=dataclasses.replace(
+        p.joint, out_w=p.joint.out_w.flip(0).contiguous(),
+        out_b=p.joint.out_b.flip(0).contiguous())), vocab,
+        device=gpu["f32"].device)
+    swaps = phase_hot_swap(torch, gpu["f32"], share("f32"), other, card)
+    del other
+    timers = {name: phase_timers(torch, gpu[name], name, card)
+              for name in ("f32", "bf16")}
+    return {"launches": launches, "snapshot_bytes": sizes, "swaps": swaps,
+            "timers": timers}
+
+
 def main() -> int:
     import torch
 
@@ -1526,6 +2046,9 @@ def main() -> int:
     elapsed("phase 5 times")
     offline_counts = phase_offline(torch, hp, dense, q8, vocab, gpu, card)
     elapsed("phase 6")
+    surface = phase_surface(torch, hp, gpu, vocab, card)
+    elapsed("phase 7")
+    log(f"[7 launches] {json.dumps(surface['launches'])}")
     for k in kernels.KERNELS:
         report[k.name]["offline_launches"] = offline_counts[k.name]
 

@@ -1,7 +1,7 @@
 """Model handle for the streaming engine, the single-stream session and
-offline transcription (port of the serving surface, `stream_step` and
-`transcribe_mel` / `transcribe_audio` / `transcribe_audios` of
-nemotron_tpu/api.py:ASRModel).
+offline transcription (port of the serving surface, `stream_step`,
+`fused_tick_profiled`, `weights_fingerprint` and `transcribe_mel` /
+`transcribe_audio` / `transcribe_audios` of nemotron_tpu/api.py:ASRModel).
 
 The model lives on `device`, the card unless the caller asks for the CPU
 (`device="cpu"`); where no card is found, a model on "cuda" raises, and
@@ -32,7 +32,8 @@ from .models import asr
 from .models.decoder import init_decode_state
 from .models.encoder import (check_attn_block_weights, compact_cache,
                              realign_cache)
-from .params import ModelParams, device_of, load_model, random_params
+from .params import (ModelParams, device_of, load_model, param_leaves,
+                     random_params)
 from .config import CacheConfig, Hparams, LatencyMode
 from .text.tokenizer import Tokenizer
 from .streaming import state as state_mod
@@ -75,6 +76,7 @@ class ASRModel:
         # per segment of the last offline call: batch, padded mel frames,
         # the decode's iterations
         self.offline_stats: list[dict] = []
+        self._weights_fp: str | None = None  # see weights_fingerprint
 
     @classmethod
     def from_gguf(cls, path: str, dtype=torch.float32, device="cuda",
@@ -104,6 +106,33 @@ class ASRModel:
     @property
     def backend_name(self) -> str:
         return f"{self.device.type}:{self.device.index or 0}"
+
+    @property
+    def weights_fingerprint(self) -> str:
+        """Content fingerprint of the model, stamped into live-stream
+        snapshots and checked when one is imported: sha256 of repr(hp), the
+        vocabulary, the sorted prompt table, then "shape:dtype;" of every
+        weight leaf and the first 64 elements of each, upcast to f32 (exact
+        for f32, bf16 and int8). The leaves go in the JAX package's pytree
+        order with numpy dtype names, so the same weights give the same
+        digest in both packages (nemotron_tpu/api.py:weights_fingerprint)
+        and snapshots cross between them. Computed once per model, with one
+        host copy."""
+        if self._weights_fp is None:
+            import hashlib
+
+            h = hashlib.sha256()
+            h.update(repr(self.hp).encode("utf-8"))
+            h.update("\x00".join(self.tokenizer.vocab).encode("utf-8"))
+            h.update(repr(sorted(self.prompt_dict.items())).encode("utf-8"))
+            leaves = param_leaves(self.params)
+            for x in leaves:
+                dt = str(x.dtype).removeprefix("torch.")
+                h.update(f"{tuple(x.shape)}:{dt};".encode("utf-8"))
+            sample = torch.cat([x.flatten()[:64].float() for x in leaves])
+            h.update(sample.cpu().numpy().tobytes())
+            self._weights_fp = h.hexdigest()
+        return self._weights_fp
 
     def resolve_language(self, lang: str) -> int | None:
         if self.hp.num_prompts <= 0:
@@ -138,14 +167,12 @@ class ASRModel:
         state's caches are updated in place. k > 1 (all-active only)
         advances every stream by k chunks, wrap compaction included; the
         caller's phase then advances by k mod n_phases. A partially active
-        batch runs the masked fast path (fast_gated): the engine realigns
-        paused slots on resume."""
+        batch runs the masked fast path with fast_gated (the engine
+        realigns paused slots on resume), else the legacy gated tick,
+        phase-stationary (the caller keeps its phase; the JAX package runs
+        it at phase 0 only, after a compaction)."""
         if k > 1 and not all_active:
             raise ValueError("multi-chunk ticks are all-active only")
-        if not all_active and not fast_gated:
-            raise NotImplementedError(
-                "the phase-stationary gated tick is not ported; use the "
-                "masked fast path (fast_gated=True)")
         hp = self.hp
         shift = cfg.shift_samples
         audio = packed_dev[:, :k * shift]
@@ -160,15 +187,45 @@ class ASRModel:
         act = None if all_active else packed_dev[:, k * shift + 2] != 0
         return asr.fused_serve_tick(
             self.params, state, audio, n_valid, act, prompt, hp=hp, cfg=cfg,
-            phase=phase, **flags)
+            phase=phase, fast_gated=fast_gated, **flags)
+
+    def fused_tick_profiled(self, cfg, state, audio_block, n_valid, active,
+                            prompt_idx=None, phase: int = 0):
+        """The fused tick in two halves, each timed on the host clock up to
+        a device synchronisation: the encoder half (the frontend, kernel B2,
+        and the encoder; fused_encode_tick) and the decoder half
+        (decode_tick); the reference's encoder/decoder attribution
+        (nemo-stream.h:237-244), nemotron_tpu/api.py:fused_tick_profiled.
+        active None is the all-active fast path at `phase`, else the legacy
+        gated tick. Tensors on the model's device. Returns (state, tokens,
+        encoder_seconds, decoder_seconds)."""
+        import time
+
+        b = audio_block.shape[0]
+        if prompt_idx is None:
+            prompt_idx = torch.full((b,), max(self.default_prompt_index, 0),
+                                    dtype=torch.int32, device=self.device)
+        prompt = prompt_idx if self.hp.num_prompts > 0 else None
+        t0 = time.perf_counter()
+        state, enc = asr.fused_encode_tick(
+            self.params, state, audio_block, active, prompt, hp=self.hp,
+            cfg=cfg, phase=phase, attn_block=self.attn_block)
+        self.synchronize()
+        t1 = time.perf_counter()
+        state, tokens = asr.decode_tick(
+            self.params, state, enc, n_valid, active, hp=self.hp,
+            confidence=self.confidence)
+        self.synchronize()
+        return state, tokens, t1 - t0, time.perf_counter() - t1
 
     def stream_step(self, cfg, state, mel_chunk, n_valid, active,
                     prompt_idx=None, phase: int = 0):
         """One chunk of mel frames [B, chunk_mel_frames, n_mels] for every
-        stream (tensors on the model's device). active must be None: the
-        all-active fast path, after which the caller advances the phase and
-        calls compact_state at the wrap (the gated path is not ported).
-        The state's caches are updated in place."""
+        stream (tensors on the model's device). active None: the all-active
+        fast path, after which the caller advances the phase and calls
+        compact_state at the wrap; active [B] bool: the legacy gated step
+        (phase-stationary, inactive slots untouched). The state's caches
+        are updated in place."""
         b = mel_chunk.shape[0]
         if prompt_idx is None:
             prompt_idx = torch.full((b,), max(self.default_prompt_index, 0),

@@ -1,5 +1,5 @@
-"""The streaming steps (port of nemotron_tpu/models/asr.py: the fused path
-and the all-active `stream_step`).
+"""The streaming steps (port of nemotron_tpu/models/asr.py: the fused path,
+its masked and legacy gated forms, and `stream_step`).
 
 `fused_serve_tick` advances a batch of streams by one chunk: int16 PCM ->
 mel frontend (the mel kernel on the card) -> causal subsampling -> 24
@@ -41,27 +41,29 @@ def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
                 prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
                 phase: int = 0, attn_block: bool = False,
                 confidence: bool = False):
-    """Advance a batch of streams by one chunk of mel frames, all active
-    (the phased fast path: the caller advances the phase and compacts at
-    the wrap). The frontend carries are not touched.
+    """Advance a batch of streams by one chunk of mel frames. The frontend
+    carries are not touched.
 
     mel_chunk: [B, chunk_mel_frames, n_mels], cast to the activation type
     as the fused tick casts its mel; n_valid: [B] encoder frames to decode
-    (fewer on the zero-padded final chunk). Returns (state', tokens [B,
-    chunk_len, S] int32, -1 = no emission).
+    (fewer on the zero-padded final chunk). active None: every stream
+    advances on the phased fast path (the caller advances the phase and
+    compacts at the wrap). active [B] bool: the legacy gated step, phase-
+    stationary (the caller keeps its phase), inactive slots keeping their
+    state bit for bit (their n_valid is 0, so the decode leaves them too).
+    Returns (state', tokens [B, chunk_len, S] int32, -1 = no emission).
     """
-    if active is not None:
-        raise NotImplementedError(
-            "the phase-stationary gated stream step is not ported; call "
-            "stream_step with active=None (all streams advance)")
+    act = None if active is None else active.to(torch.bool)
+    n_valid = n_valid.to(torch.int32)
+    if act is not None:
+        n_valid = torch.where(act, n_valid, 0)
     enc, k2, v2, c2, valid2 = stream_encode_step(
         params, hp, cfg, mel_chunk.to(params.pos_emb.dtype), state.k_cache,
         state.v_cache, state.conv_cache, state.cache_valid,
         prompt_onehot=_prompt_onehot(params, prompt_idx, hp), phase=phase,
-        attn_block=attn_block)
+        active_mask=act, attn_block=attn_block, advance_phase=act is None)
     dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
-                                      n_valid=n_valid.to(torch.int32),
-                                      confidence=confidence)
+                                      n_valid=n_valid, confidence=confidence)
     return dataclasses.replace(
         state, k_cache=k2, v_cache=v2, conv_cache=c2, cache_valid=valid2,
         decode=dec_state), tokens
@@ -69,13 +71,17 @@ def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
 
 def fused_encode_tick(params, state: StreamState, audio_block, active,
                       prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
-                      phase: int = 0, attn_block: bool = False):
+                      phase: int = 0, fast_gated: bool = False,
+                      attn_block: bool = False):
     """Frontend + encoder half of the tick: raw PCM blocks in, encoder frames
     out, the frontend carries and caches advanced (decode state untouched).
 
     audio_block: [B, shift_samples] int16 (or f32 in [-1, 1]). active: None
-    (all streams advance) or [B] bool — the masked fast path: inactive slots
-    keep every carry and cache slot bit for bit.
+    (all streams advance on the phased fast path) or [B] bool, where
+    inactive slots keep every carry and cache bit for bit: with fast_gated
+    the masked fast path (the engine realigns paused slots on resume),
+    else the legacy gated step, phase-stationary (stream_encode_step's
+    advance_phase=False).
     """
     x = audio_block.to(torch.float32)
     if not audio_block.is_floating_point():
@@ -93,7 +99,8 @@ def fused_encode_tick(params, state: StreamState, audio_block, active,
         params, hp, cfg, mel_chunk.to(params.pos_emb.dtype),
         state.k_cache, state.v_cache, state.conv_cache, state.cache_valid,
         prompt_onehot=_prompt_onehot(params, prompt_idx, hp), phase=phase,
-        active_mask=act, attn_block=attn_block)
+        active_mask=act, attn_block=attn_block,
+        advance_phase=act is None or fast_gated)
     if act is not None:
         tail2 = _gate0(act, tail2, state.pp_tail)
         last2 = torch.where(act, last2, state.pp_last)
@@ -117,9 +124,10 @@ def decode_tick(params, state: StreamState, enc, n_valid, active=None, *,
 
 def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
                      prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
-                     phase: int = 0, attn_block: bool = False,
-                     confidence: bool = False):
-    """Whole serving step: raw PCM in -> tokens [B, chunk_len, S] out.
+                     phase: int = 0, fast_gated: bool = False,
+                     attn_block: bool = False, confidence: bool = False):
+    """Whole serving step: raw PCM in -> tokens [B, chunk_len, S] out
+    (fused_encode_tick, then decode_tick).
 
     Finalize: the host zero-pads the last partial block and passes the
     reduced n_valid; the junk mel frames of the padding lie past the last
@@ -128,6 +136,7 @@ def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
     """
     state, enc = fused_encode_tick(params, state, audio_block, active,
                                    prompt_idx, hp=hp, cfg=cfg, phase=phase,
+                                   fast_gated=fast_gated,
                                    attn_block=attn_block)
     return decode_tick(params, state, enc, n_valid, active, hp=hp,
                        confidence=confidence)

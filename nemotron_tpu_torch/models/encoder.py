@@ -38,10 +38,11 @@ import torch.nn.functional as F
 from ..ops.attn_block import t1_attention_block
 from ..ops.basic import ffn, glu, layer_norm, linear
 from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
-from ..ops.kvquant import (is_quant, kv_parts, kv_slice, kv_update_slice_,
-                           kv_where, quantize_kv)
+from ..ops.kvquant import (is_quant, kv_cat, kv_parts, kv_slice,
+                           kv_update_slice_, kv_where, quantize_kv)
 from ..ops.quant import is_quantized
-from ..ops.rel_attention import rel_pos_mha, rel_pos_mha_fullbuf
+from ..ops.rel_attention import (rel_pos_mha, rel_pos_mha_fullbuf,
+                                 rel_pos_mha_window)
 from ..params import layer_slice
 from ..config import CacheConfig, Hparams
 
@@ -206,8 +207,9 @@ def encode_batch(params, hp: Hparams, mel, prompt_onehot=None,
 def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
                        k_cache, v_cache, conv_cache, cache_valid,
                        prompt_onehot=None, phase: int = 0, active_mask=None,
-                       attn_block: bool = False):
-    """One streaming encoder chunk on the phased fast path.
+                       attn_block: bool = False, advance_phase: bool = True):
+    """One streaming encoder chunk: the phased fast path, or with
+    advance_phase=False the legacy phase-stationary step.
 
     mel_chunk: [B, chunk_mel_frames, n_mels]; k_cache/v_cache: [L, B, H,
     S_buf, Dh], dense or QuantKV (the new frames are quantized as they are
@@ -226,23 +228,86 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     of kernel B3. It takes dense attention weights only; api.ASRModel
     refuses quantized ones when it is built (check_attn_block_weights).
 
+    advance_phase=False (the legacy gated tick, nemotron_tpu/models/
+    encoder.py:444-453): the layers attend to the live window [phase *
+    chunk_len, phase * chunk_len + lc) alone (`rel_pos_mha_window`, never
+    B1 or B3), and the window is rewritten shifted in place at the SAME
+    phase (its last lc frames after the new ones), so a paused slot's
+    window never moves. With active_mask, inactive slots keep their window,
+    conv cache and cache_valid: the JAX package gates the whole buffers
+    after the step, and only the window differs between the two.
+
     Returns (enc_out [B, chunk_len, D], k_cache, v_cache, conv_cache,
     cache_valid').
     """
     lc = cfg.att_left_context
     chunk_len = cfg.chunk_len(hp)
-    win_hi = phase * chunk_len + lc
-
     x = conv_subsampling(params.subsampling, mel_chunk)
     x = x[:, cfg.drop_extra_pre_encoded:, :]
     pe = pos_emb_slice(params.pos_emb, 2 * (lc + chunk_len) - 1)
+    am = None if active_mask is None else active_mask.to(torch.bool)
+    if not advance_phase:
+        x = _gated_layers(params, hp, x, pe, k_cache, v_cache, conv_cache,
+                          cache_valid, am, phase * chunk_len, lc)
+    else:
+        x = _phased_layers(params, hp, x, pe, k_cache, v_cache, conv_cache,
+                           cache_valid, am, phase, lc, chunk_len,
+                           attn_block)
+    if params.prompt is not None and prompt_onehot is not None:
+        x = prompt_fusion(params.prompt, x, prompt_onehot)
+    valid2 = torch.clamp(cache_valid + chunk_len, max=lc)
+    if am is not None:
+        valid2 = torch.where(am, valid2, cache_valid)
+    return x, k_cache, v_cache, conv_cache, valid2
 
+
+def _gated_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
+                  cache_valid, am, win_lo: int, lc: int):
+    """The layers of the legacy phase-stationary step (see
+    stream_encode_step), the caches rewritten in place."""
+    pos = torch.arange(lc + x.shape[1], device=x.device)
+    mask = torch.where(pos[None, :] < (lc - cache_valid)[:, None], -1e9,
+                       0.0).to(x.dtype)  # [B, lc + T]
+    for layer in range(hp.n_layers):
+        lp = layer_slice(params.layers, layer)
+        kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
+        kw = kv_slice(kl, win_lo, win_lo + lc, 2)
+        vw = kv_slice(vl, win_lo, win_lo + lc, 2)
+        attention = attention_sublayer(
+            lp, lambda cur, lp=lp, kw=kw, vw=vw: rel_pos_mha_window(
+                cur, pe, *_attn_weights(lp), hp.n_heads, hp.d_head, kw, vw,
+                mask))
+        x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl)
+        if is_quant(kl):
+            k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
+        # the window's last lc frames after the new ones (a copy: the
+        # writes below overwrite the window it was read from)
+        k_win = kv_cat([kw, k_new], 2)
+        v_win = kv_cat([vw, v_new], 2)
+        n = kv_parts(k_win)[0].shape[2]
+        k_win, v_win = kv_slice(k_win, n - lc, n, 2), kv_slice(v_win, n - lc,
+                                                               n, 2)
+        if am is not None:
+            k_win = kv_where(am, k_win, kw, 0)
+            v_win = kv_where(am, v_win, vw, 0)
+            cc2 = torch.where(am[:, None, None], cc2, cl)
+        kv_update_slice_(kl, k_win, win_lo, 2)
+        kv_update_slice_(vl, v_win, win_lo, 2)
+        cl.copy_(cc2)
+    return x
+
+
+def _phased_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
+                   cache_valid, am, phase: int, lc: int, chunk_len: int,
+                   attn_block: bool):
+    """The layers of the phased fast path (see stream_encode_step), the new
+    frames appended in place."""
+    win_hi = phase * chunk_len + lc
     s_buf = kv_parts(k_cache)[0].shape[3]
     j_of_s, pos_index = _phase_tensors(lc, chunk_len, s_buf, phase, x.device)
     offset = lc - cache_valid  # [B]: slots with j < offset hold no history
     mask_full = torch.where(j_of_s[None, :] < offset[:, None], -1e9, 0.0
                             ).to(x.dtype)
-    am = None if active_mask is None else active_mask.to(torch.bool)
     use_block = attn_block and chunk_len == 1
 
     for layer in range(hp.n_layers):
@@ -267,13 +332,7 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
         kv_update_slice_(kl, k_new, win_hi, 2)
         kv_update_slice_(vl, v_new, win_hi, 2)
         cl.copy_(cc2)
-
-    if params.prompt is not None and prompt_onehot is not None:
-        x = prompt_fusion(params.prompt, x, prompt_onehot)
-    valid2 = torch.clamp(cache_valid + chunk_len, max=lc)
-    if am is not None:
-        valid2 = torch.where(am, valid2, cache_valid)
-    return x, k_cache, v_cache, conv_cache, valid2
+    return x
 
 
 def _rows(mask):

@@ -69,6 +69,14 @@ def kv_slice(buf, lo: int, hi: int, axis: int):
     return buf.narrow(axis, lo, hi - lo)
 
 
+def kv_cat(bufs, axis: int):
+    """Concatenation along `axis` (a new buffer)."""
+    if is_quant(bufs[0]):
+        return QuantKV(torch.cat([b.q for b in bufs], dim=axis),
+                       torch.cat([b.s for b in bufs], dim=axis))
+    return torch.cat(bufs, dim=axis)
+
+
 def kv_update_slice_(buf, new, lo: int, axis: int) -> None:
     """Write `new` into `buf` at [lo, lo + len) along `axis`, in place."""
     for t, n in zip(kv_parts(buf), kv_parts(new)):

@@ -128,6 +128,20 @@ def layer_slice(layers: ConformerLayerParams, i: int) -> ConformerLayerParams:
            for f in dataclasses.fields(layers)})
 
 
+def param_leaves(tree) -> list:
+    """The tensors of a parameter tree in the JAX package's
+    `jax.tree.leaves` order: dataclass fields in order, a quantized
+    weight as its codes then its scales, None fields skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    out = []
+    for f in dataclasses.fields(tree):
+        out.extend(param_leaves(getattr(tree, f.name)))
+    return out
+
+
 def device_of(device) -> torch.device:
     """`device` as a torch.device. A CUDA device on a machine without one
     raises: the port never falls back to the CPU."""

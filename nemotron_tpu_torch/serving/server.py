@@ -8,9 +8,15 @@ Concurrency model, as the JAX server:
     while work exists; its event batches are posted to the loop;
   - a global queued-PCM budget gives admission control, and PUSH payloads
     are split into <= 8000-sample segments for fairness;
-  - fail-stop: if the engine thread dies, the listener shuts down.
+  - fail-stop: if the engine thread dies, the listener shuts down;
+  - `hot_swap` replaces the model under live streams: every stream is
+    exported from the engine and imported, with its id, into a fresh
+    engine on the new model, while stream opcodes wait on a gate.
 
-Not ported yet: diarization, hot swap and the native ingest server.
+The engine's flow arguments (`gated_realign`, `phase_timers`) come from
+NEMOTRON_TPU_GATED_REALIGN and NEMOTRON_TPU_PHASE_TIMERS in main(), as the
+JAX engine reads them. Not ported yet: diarization and the native ingest
+server.
 """
 
 from __future__ import annotations
@@ -20,19 +26,24 @@ import json
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 
 from . import protocol as P
 from ..streaming.engine import BatchedEngine
+from ..streaming.state import state_leaves
 
 SUPPORTED_RIGHT_CONTEXTS = (0, 1, 6, 13)
 
 
 class StreamServer:
     def __init__(self, model, batch_per_group: int = 32,
-                 mem_budget: int = P.DEFAULT_MEM_BUDGET):
-        self.engine = BatchedEngine(model, batch_per_group)
+                 mem_budget: int = P.DEFAULT_MEM_BUDGET,
+                 gated_realign: bool = True, phase_timers: bool = False):
+        self.engine = BatchedEngine(model, batch_per_group,
+                                    gated_realign=gated_realign,
+                                    phase_timers=phase_timers)
         self.mem_budget = mem_budget
         self.mem_used = 0
         self.mem_free = asyncio.Condition()
@@ -42,6 +53,14 @@ class StreamServer:
         self._engine_task: asyncio.Task | None = None
         self._stop = False
         self._queued_samples: dict[int, int] = {}
+        # hot swap (see hot_swap): while one is in flight, stream opcodes
+        # wait on this gate, so no PUSH lands between a stream's export
+        # from the old engine and the new engine taking over
+        self._swap_gate: asyncio.Event | None = None
+        self._pending_swap: tuple | None = None  # (new model, Future)
+        # the last swap's streams, host seconds of its export and import
+        # loops, and the bytes of its snapshots' state and staged audio
+        self.last_swap: dict = {}
 
     async def _send(self, writer: asyncio.StreamWriter, frame: bytes) -> None:
         try:
@@ -77,6 +96,9 @@ class StreamServer:
 
     async def _dispatch(self, writer, opcode: int, stream_id: int,
                         payload: bytes) -> None:
+        if self._swap_gate is not None and opcode in (
+                P.OP_STREAM_START, P.OP_PUSH, P.OP_STREAM_END, P.OP_SET_LANG):
+            await self._swap_gate.wait()  # clients see delayed replies
         if opcode == P.OP_STREAM_START:
             cfg = {}
             if payload:
@@ -84,6 +106,8 @@ class StreamServer:
                     cfg = json.loads(payload.decode("utf-8"))
                 except (ValueError, UnicodeDecodeError):
                     cfg = {}
+            # (the JAX server's diarization branch goes here once
+            # diarization is ported)
             if cfg.get("diarize"):
                 await self._send(writer, P.pack(
                     P.OP_ERROR, 0,
@@ -159,6 +183,101 @@ class StreamServer:
             await self._send(writer, P.pack(
                 P.OP_ERROR, stream_id, f"bad opcode {opcode}"))
 
+    async def hot_swap(self, new_model) -> int:
+        """Replace the serving model under live streams. Every stream is
+        exported from the current engine and imported into a fresh
+        BatchedEngine on `new_model` (same batch and flow) with its stream
+        id, so clients go on as before; with the same weights the
+        transcripts are those of no swap, byte for byte, and under new
+        weights the carried caches are the old model's (an operator's
+        choice). Stream opcodes wait on a gate meanwhile, so no audio is
+        lost. Returns the number of migrated streams."""
+        if self._swap_gate is not None:
+            raise RuntimeError("a hot swap is already in progress")
+        import concurrent.futures
+
+        self._swap_gate = asyncio.Event()
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._pending_swap = (new_model, fut)
+        self.wake.set()
+        try:
+            return await asyncio.wrap_future(fut)
+        finally:
+            gate, self._swap_gate = self._swap_gate, None
+            gate.set()  # release the parked opcodes
+
+    def _maybe_swap(self, loop, out_q) -> None:
+        """Engine thread: run a queued hot swap between ticks."""
+        swap, self._pending_swap = self._pending_swap, None
+        if swap is None:
+            return
+        new_model, fut = swap
+        try:
+            fut.set_result(self._do_swap(new_model, loop, out_q))
+        except BaseException as e:  # surfaced to the hot_swap caller
+            fut.set_exception(e)
+
+    def _do_swap(self, new_model, loop, out_q) -> int:
+        """Export every live stream from the current engine (ticking it
+        until its finalizing streams have ended, 200 ticks at most), import
+        each into a fresh engine on new_model with the same id, then switch
+        self.engine and release the old engine's consumed budget. Runs on
+        the engine thread, which owns every device mutation."""
+        old = self.engine
+        new = BatchedEngine(new_model, old.batch,
+                            gated_realign=old.gated_realign,
+                            phase_timers=old.phase_timers)
+
+        def post(events, consumed):
+            if events or consumed:
+                try:
+                    loop.call_soon_threadsafe(out_q.put_nowait,
+                                              (events, consumed))
+                except RuntimeError:
+                    pass  # loop closed: shutting down
+
+        snaps: dict[int, dict] = {}
+        t0 = time.perf_counter()
+        for _ in range(200):
+            futs = {}
+            for sid in [s for s in list(old._route) if s not in snaps]:
+                try:
+                    futs[sid] = old.request_export(sid)
+                except KeyError:
+                    continue  # ended meanwhile
+            events, more = old.tick()
+            post(events, old.drain_consumed())
+            for sid, f in futs.items():
+                if f.done() and f.exception() is None:
+                    snaps[sid] = f.result()
+            if not old._route and not more:
+                break
+        else:
+            raise RuntimeError("hot swap: old engine did not drain")
+
+        t1 = time.perf_counter()
+        im_futs = {sid: new.request_import(snap, stream_id=sid,
+                                           trust_model=True)
+                   for sid, snap in snaps.items()}
+        for _ in range(200):
+            if all(f.done() for f in im_futs.values()):
+                break
+            events, _more = new.tick()
+            post(events, new.drain_consumed())
+        for sid, f in im_futs.items():
+            got = f.result()  # raises on a failed install
+            if got != sid:
+                raise RuntimeError(f"import renumbered stream {sid} -> {got}")
+        self.engine = new
+        post([], old.drain_consumed())  # the old engine's last releases
+        self.last_swap = {
+            "streams": len(snaps), "export_seconds": t1 - t0,
+            "import_seconds": time.perf_counter() - t1,
+            "snapshot_bytes": sum(
+                sum(np.asarray(x).nbytes for x in state_leaves(s["state"]))
+                + np.asarray(s["stage"]).nbytes for s in snaps.values())}
+        return len(snaps)
+
     def _engine_thread(self, loop: asyncio.AbstractEventLoop,
                        out_q: asyncio.Queue) -> None:
         """Tick loop on its own thread: back-to-back ticks while work exists
@@ -169,6 +288,7 @@ class StreamServer:
                 self.wake.clear()
                 more = True
                 while more and not self._stop:
+                    self._maybe_swap(loop, out_q)
                     events, more = self.engine.tick()
                     consumed = self.engine.drain_consumed()
                     if events or consumed:
@@ -351,8 +471,12 @@ def main(argv=None) -> int:
     if args.blank_bias:
         model.params.joint.out_b[model.hp.blank_id] += args.blank_bias
 
-    srv = StreamServer(model, batch_per_group=args.batch,
-                       mem_budget=args.mem_budget)
+    # the JAX engine's switches of its flow, as arguments here
+    srv = StreamServer(
+        model, batch_per_group=args.batch, mem_budget=args.mem_budget,
+        gated_realign=os.environ.get("NEMOTRON_TPU_GATED_REALIGN",
+                                     "1") == "1",
+        phase_timers=os.environ.get("NEMOTRON_TPU_PHASE_TIMERS", "") == "1")
     if args.prewarm:
         print("prewarming tick variants...", file=sys.stderr)
         srv.engine.prewarm()

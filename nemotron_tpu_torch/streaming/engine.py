@@ -11,22 +11,32 @@ has been queued.
 
 Threading contract (as the JAX engine): `tick()` runs on the engine thread,
 which owns every device mutation, while the server's event loop calls
-claim / push_audio / end_stream / drop. claim only queues a slot reset,
-push_audio appends to a queue that tick drains with an atomic list swap,
-and drops are applied at the top of the next tick.
+claim / push_audio / end_stream / drop / request_export / request_import.
+claim only queues a slot reset, push_audio appends to a queue that tick
+drains with an atomic list swap, and drops, exports and imports are
+applied at the top of the next tick. (The JAX engine's DEVICE_LOCK guards
+a hazard of its TPU runtime and has no counterpart here.)
 
 Ported: start, push, end and drop; the all-active tick; the masked fast
 tick with realign-on-resume; wrap compaction (masked when slots are paused
 mid-cycle); finalize with reduced n_valid; the k-chunk backlog tick; the
-readback FIFO; transcript and stats. Not ported yet: live-stream migration
-and snapshots, native ingest, phase timers, the legacy phase-stationary
-gated tick, and per-token confidences in events (a model built with
-confidence=True is refused).
+readback FIFO; transcript and stats; events with their decode position
+(`at_sec`) and minimum token confidence (`conf`, a model built with
+confidence=True); live-stream migration (`request_export` /
+`request_import`, `snapshot_to_bytes` / `snapshot_from_bytes` in the JAX
+package's byte format); and the legacy flow (`gated_realign=False`: a
+tick with paused slots compacts to phase 0 and runs the phase-stationary
+gated tick) with its phase timers (`phase_timers=True`: the encoder and
+decoder halves timed apart, `encoder_seconds` / `decoder_seconds` in
+stats). The JAX package reads the last two from NEMOTRON_TPU_GATED_REALIGN
+and NEMOTRON_TPU_PHASE_TIMERS; here they are arguments, and the server
+maps the variables onto them. Not ported yet: native ingest.
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import itertools
 import threading
@@ -35,7 +45,10 @@ import time
 import numpy as np
 import torch
 
-from ..streaming.state import PP_TAIL_LEN, reset_slots
+from ..models.decoder import unpack_tokens
+from ..ops.kvquant import QuantKV, is_quant
+from ..streaming.state import (PP_TAIL_LEN, extract_slots, install_slot,
+                               reset_slots, state_from_leaves, state_leaves)
 
 # Token readbacks lag dispatch by up to this many ticks.
 READBACK_DEPTH = 2
@@ -83,7 +96,9 @@ class _Pending:
     ready: object = None        # torch.cuda.Event recorded after the copy
     result: object = None
     active: object = None
+    n_valid: object = None
     finalizing: object = None
+    frame_base: object = None
     stream_ids: object = None
     slot_idx: int = -1
     stream_id: int = -1
@@ -95,16 +110,26 @@ class Event:
     stream_id: int
     kind: str  # "text" | "ended"
     text: str
+    # decode position of the emitting step in stream seconds: the end of
+    # its valid subsampled-frame window; -1.0 where unknown (an "ended"
+    # sentinel with no text)
+    at_sec: float = -1.0
+    # minimum per-token confidence over the event's tokens (a model built
+    # with confidence=True), else -1.0
+    conf: float = -1.0
 
 
 class _Slot:
     __slots__ = (
-        "stream_id", "transcript", "prompt_index", "ending", "finalize_sent",
-        "audio_queue", "stage", "staged", "primed", "total_pushed", "steps",
+        "stream_id", "tokens", "token_frames", "transcript", "prompt_index",
+        "ending", "finalize_sent", "audio_queue", "stage", "staged",
+        "primed", "total_pushed", "steps",
     )
 
     def __init__(self, stream_id: int, prompt_index: int):
         self.stream_id = stream_id
+        self.tokens: list[int] = []
+        self.token_frames: list[int] = []
         self.transcript = ""
         self.prompt_index = prompt_index
         self.ending = False
@@ -134,16 +159,29 @@ class _Slot:
 
 
 class EngineGroup:
-    """All streams of one latency mode, stepped as one batch."""
+    """All streams of one latency mode, stepped as one batch.
 
-    def __init__(self, model, cfg, batch: int):
+    gated_realign (default) rides every tick with paused slots on the masked
+    fast path and realigns a paused slot's window on resume; False is the
+    legacy flow: such a tick first compacts the window back to phase 0 and
+    runs the phase-stationary gated tick there. phase_timers times the
+    encoder and decoder halves of each tick apart (api.fused_tick_profiled)
+    and forces the legacy flow and single-chunk ticks, as the JAX
+    package's PHASE_TIMERS does."""
+
+    def __init__(self, model, cfg, batch: int, gated_realign: bool = True,
+                 phase_timers: bool = False):
         self.model = model
         self.cfg = cfg
         self.batch = batch
         self.hp = model.hp
+        self.phase_timers = phase_timers
+        self.use_realign = gated_realign and not phase_timers
         self.state = model.init_stream_state(batch, cfg)
         self.slots: list[_Slot | None] = [None] * batch
         self.n_active_streams = 0
+        # host mirror of each slot's decode frame offset
+        self.frame_offsets = np.zeros(batch, dtype=np.int64)
         self.phase = 0  # slack-buffer phase of the group
         # phase each slot's window sits at (paused slots fall behind)
         self.slot_phase = np.zeros(batch, dtype=np.int64)
@@ -151,6 +189,11 @@ class EngineGroup:
         self._lock = threading.Lock()
         self._pending_resets: list[int] = []
         self._pending_drops: list[tuple[int, int]] = []
+        # migration requests from the event loop, fulfilled at the top of
+        # the next tick: (stream id, Future[snapshot]) and (snapshot,
+        # stream id, trust_model, Future[slot])
+        self._pending_exports: list[tuple] = []
+        self._pending_imports: list[tuple] = []
         self.consumed_samples: dict[int, int] = {}
         self.total_ticks = 0
         self.total_steps = 0        # dispatches
@@ -162,36 +205,53 @@ class EngineGroup:
         self.total_dispatch_seconds = 0.0
         self.total_pack_seconds = 0.0
         self.total_scatter_seconds = 0.0
+        self.total_encoder_seconds = 0.0  # phase_timers only
+        self.total_decoder_seconds = 0.0  # phase_timers only
         self.total_audio_seconds = 0.0
         self.total_chunks = 0
         self.emit_latencies: collections.deque[float] = collections.deque(
             maxlen=4096)
 
     def prewarm(self) -> None:
-        """Run each tick variant once on garbage state (builds the kernels,
-        warms cuBLAS/cuDNN and the allocator), then reset every slot."""
-        b, cfg = self.batch, self.cfg
+        """Run each tick variant of the group's flow once on garbage state
+        (builds the kernels, warms cuBLAS/cuDNN and the allocator), then
+        reset every slot."""
+        b, cfg, model = self.batch, self.cfg, self.model
         k_cap = max_safe_tick_chunks(cfg.n_phases)
         half = np.zeros(b, dtype=bool)
         half[:max(1, b // 2)] = True
-        self.state = self.model.prime_frontend(
+        self.state = model.prime_frontend(
             self.state, half, np.zeros((b, PP_TAIL_LEN), np.float32),
             np.zeros(b, np.float32))
         nv = np.full(b, cfg.valid_out_len, np.int16)
         zeros = np.zeros(b, np.int16)
-        for k, active in ((1, None), (1, half), (k_cap, None)):
-            packed = self.model.pack_tick_inputs(
-                np.zeros((b, k * cfg.shift_samples), np.int16), nv, zeros,
-                active)
-            self.state, _ = self.model.fused_tick_packed(
-                cfg, self.state, self.model.put_batch(packed), active is None,
-                phase=0, k=k, fast_gated=active is not None)
-        self.state = self.model.realign_state(cfg, self.state, 1, half)
-        self.state = self.model.compact_state(cfg, self.state, mask=half)
+        if self.phase_timers:
+            for active in (None, half):
+                self.state, _, _, _ = model.fused_tick_profiled(
+                    cfg, self.state,
+                    model.put_batch(np.zeros((b, cfg.shift_samples),
+                                             np.int16)),
+                    model.put_batch(nv.astype(np.int32)),
+                    None if active is None else model.put_batch(active),
+                    model.put_batch(zeros.astype(np.int32)), phase=0)
+        else:
+            for k, active in ((1, None), (1, half), (k_cap, None)):
+                packed = model.pack_tick_inputs(
+                    np.zeros((b, k * cfg.shift_samples), np.int16), nv,
+                    zeros, active)
+                self.state, _ = model.fused_tick_packed(
+                    cfg, self.state, model.put_batch(packed), active is None,
+                    phase=0, k=k, fast_gated=self.use_realign)
+        if self.use_realign:
+            self.state = model.realign_state(cfg, self.state, 1, half)
+            self.state = model.compact_state(cfg, self.state, mask=half)
+        else:
+            self.state = model.compact_state(cfg, self.state, phase=1)
         self.state = reset_slots(self.state, np.ones(b, dtype=bool), self.hp)
-        self.model.synchronize()
+        model.synchronize()
         self.phase = 0
         self.slot_phase[:] = 0
+        self.frame_offsets[:] = 0
 
     def claim(self, stream_id: int, prompt_index: int) -> int | None:
         """Assign a slot (host bookkeeping only); the device reset is queued
@@ -225,6 +285,164 @@ class EngineGroup:
                     self.slots[idx] = None
                     self.n_active_streams -= 1
 
+    def find(self, stream_id: int) -> int | None:
+        for i, s in enumerate(self.slots):
+            if s is not None and s.stream_id == stream_id:
+                return i
+        return None
+
+    # --- live-stream migration ---------------------------------------------
+    def queue_export(self, stream_id: int) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            self._pending_exports.append((stream_id, fut))
+        return fut
+
+    def queue_import(self, snapshot: dict, stream_id: int,
+                     trust_model: bool = False) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            self._pending_imports.append((snapshot, stream_id, trust_model,
+                                          fut))
+        return fut
+
+    def _apply_pending_migrations(self) -> list[Event]:
+        """Fulfil queued exports and imports (tick thread). An export first
+        drains every in-flight readback, so the slot's tokens are complete
+        and no queued step still refers to it; the drained events are
+        returned to the tick."""
+        with self._lock:
+            if not (self._pending_exports or self._pending_imports):
+                return []
+            exports, self._pending_exports = self._pending_exports, []
+            imports, self._pending_imports = self._pending_imports, []
+        events: list[Event] = []
+        if exports:
+            events.extend(self._drain_pending(force_all=True))
+            self._drain_queues()
+            found = []
+            for sid, fut in exports:
+                idx = self.find(sid)
+                if idx is None or idx in (i for i, _ in found):
+                    fut.set_exception(KeyError(sid))  # a repeat: it has left
+                elif self.slots[idx].finalize_sent:
+                    fut.set_exception(RuntimeError(
+                        f"stream {sid} is finalizing; too late to export"))
+                else:
+                    found.append((idx, fut))
+            if found:  # one gather and one host copy per leaf for all
+                states = extract_slots(self.state, [i for i, _ in found])
+                for (idx, fut), snap_state in zip(found, states):
+                    fut.set_result(self._export_slot(idx, snap_state))
+        for snap, sid, trust, fut in imports:
+            try:
+                fut.set_result(self._import_slot(snap, sid, trust))
+            except Exception as e:  # noqa: BLE001
+                fut.set_exception(e)
+        return events
+
+    def _export_slot(self, idx: int, snap_state) -> dict:
+        """Snapshot one live slot (its device state, extracted, its host
+        bookkeeping and staged audio) and release it. The caller must have
+        stopped pushing audio for the stream: a push racing the export may
+        be lost."""
+        slot = self.slots[idx]
+        stage = (np.concatenate(slot.stage).astype(np.int16)
+                 if slot.stage else np.zeros(0, np.int16))
+        snap = {
+            "version": 1,
+            "right_context": int(self.cfg.att_right_context),
+            "n_phases": int(self.cfg.n_phases),
+            "kv_int8": bool(is_quant(snap_state.k_cache)),
+            "model_fp": self.model.weights_fingerprint,
+            "phase": int(self.slot_phase[idx]),
+            "frame_offset": int(self.frame_offsets[idx]),
+            "state": snap_state,
+            "stage": stage,
+            "tokens": list(slot.tokens),
+            "token_frames": list(slot.token_frames),
+            "transcript": slot.transcript,
+            "prompt_index": int(slot.prompt_index),
+            "total_pushed": int(slot.total_pushed),
+            "steps": int(slot.steps),
+            "primed": bool(slot.primed),
+            "ending": bool(slot.ending),
+        }
+        self.release(idx)
+        return snap
+
+    def _import_slot(self, snap: dict, stream_id: int,
+                     trust_model: bool = False) -> int:
+        """Install a snapshot into a free slot; returns the slot index.
+
+        The snapshot's K/V window is realigned from the exporter's phase to
+        this group's on the host, a numpy roll of the S axis of every K/V
+        leaf (a QuantKV's scales too; the same roll as realign_cache), so
+        engines at different points of their compaction cycle interoperate.
+        A group with no live slot takes the snapshot's phase instead (its
+        phase is free then), so a hot swap's imports roll nothing."""
+        if snap.get("version") != 1:
+            raise ValueError(f"unknown snapshot version {snap.get('version')}")
+        if int(snap["right_context"]) != int(self.cfg.att_right_context):
+            raise ValueError("snapshot latency mode differs from this group")
+        if int(snap["n_phases"]) != int(self.cfg.n_phases):
+            raise ValueError("snapshot n_phases differs from this group")
+        if bool(snap["kv_int8"]) != bool(is_quant(self.state.k_cache)):
+            raise ValueError("snapshot kv-int8 mode differs from this group")
+        fp = snap.get("model_fp")
+        if (not trust_model and fp is not None
+                and fp != self.model.weights_fingerprint):
+            raise ValueError(
+                "snapshot model fingerprint differs from this engine's "
+                "weights (same shapes, different checkpoint/vocab -- "
+                "installing it would silently produce garbage transcripts)")
+        with self._lock:
+            idx = next((i for i, s in enumerate(self.slots) if s is None),
+                       None)
+            if idx is None:
+                raise RuntimeError("no free stream slots")
+            if self.n_active_streams == 0:
+                self.phase = int(snap["phase"])
+                self.slot_phase[:] = self.phase
+            slot = _Slot(stream_id, int(snap["prompt_index"]))
+            self.slots[idx] = slot
+            self.n_active_streams += 1
+        snap_state = snap["state"]
+        delta = self.phase - int(snap["phase"])
+        if delta:
+            shift = delta * self.cfg.chunk_len(self.hp)
+
+            def roll(buf):
+                if is_quant(buf):
+                    return QuantKV(np.roll(buf.q, shift, axis=3),
+                                   np.roll(buf.s, shift, axis=3))
+                return np.roll(np.asarray(buf), shift, axis=3)
+
+            snap_state = dataclasses.replace(
+                snap_state, k_cache=roll(snap_state.k_cache),
+                v_cache=roll(snap_state.v_cache))
+        try:
+            self.state = install_slot(self.state, idx, snap_state)
+        except Exception:
+            # e.g. a foreign shape: nothing was written; free the slot
+            self.release(idx)
+            raise
+        self.slot_phase[idx] = self.phase
+        self.frame_offsets[idx] = int(snap["frame_offset"])
+        slot.tokens = list(snap["tokens"])
+        slot.token_frames = list(snap["token_frames"])
+        slot.transcript = snap["transcript"]
+        slot.total_pushed = int(snap["total_pushed"])
+        slot.steps = int(snap["steps"])
+        slot.primed = bool(snap["primed"])
+        slot.ending = bool(snap["ending"])
+        st = np.asarray(snap["stage"], np.int16)
+        if st.size:
+            slot.stage.append(st)
+            slot.staged = int(st.size)
+        return idx
+
+    # -----------------------------------------------------------------------
     def push_audio(self, idx: int, audio: np.ndarray) -> None:
         slot = self.slots[idx]
         if slot is not None:
@@ -243,6 +461,7 @@ class EngineGroup:
         mask = np.zeros(self.batch, dtype=bool)
         mask[resets] = True
         self.state = reset_slots(self.state, mask, self.hp)
+        self.frame_offsets[resets] = 0
         self.slot_phase[resets] = self.phase  # no history: trivially aligned
 
     def _drain_queues(self) -> None:
@@ -332,7 +551,8 @@ class EngineGroup:
         return events
 
     def _process_pending(self, pending: _Pending) -> list[Event]:
-        """Scatter one step's tokens into the slots' transcripts."""
+        """Scatter one step's tokens into the slots' tokens and transcripts,
+        with each event's decode position and minimum confidence."""
         tok_np = pending.result
         events: list[Event] = []
         for i in np.nonzero(pending.active)[0]:
@@ -340,14 +560,29 @@ class EngineGroup:
             if slot is None or slot.stream_id != pending.stream_ids[i]:
                 continue  # slot dropped / reused since dispatch
             emitted = tok_np[i]  # [T, S]
-            ids = emitted[emitted >= 0].tolist()  # frame-major order
-            text = self.model.tokenizer.decode(ids)
-            slot.transcript += text
+            mask = emitted >= 0
+            # the end of the step's VALID frame window: a finalize row
+            # decodes only its n_valid leftover frames, and the buffer's
+            # width would place its text past the end of the audio
+            at = float(pending.frame_base[i] + pending.n_valid[i]) \
+                * self.cfg.subsampling_factor * 160.0 / 16000.0
+            conf, text = -1.0, ""
+            if mask.any():
+                ids = emitted[mask]  # frame-major order
+                if self.model.confidence:
+                    ids, confs = unpack_tokens(ids, self.hp.vocab_size)
+                    conf = float(confs.min())
+                ids = ids.tolist()
+                slot.tokens.extend(ids)
+                slot.token_frames.extend(
+                    (pending.frame_base[i] + np.nonzero(mask)[0]).tolist())
+                text = self.model.tokenizer.decode(ids)
+                slot.transcript += text
             if i in pending.finalizing:
-                events.append(Event(slot.stream_id, "ended", text))
+                events.append(Event(slot.stream_id, "ended", text, at, conf))
                 self.release(i)
             elif text:
-                events.append(Event(slot.stream_id, "text", text))
+                events.append(Event(slot.stream_id, "text", text, at, conf))
         return events
 
     def _start_readback(self, tokens: torch.Tensor, entry: _Pending) -> None:
@@ -371,6 +606,7 @@ class EngineGroup:
 
         self._apply_pending_drops()
         self._apply_pending_resets()
+        events.extend(self._apply_pending_migrations())
         self._drain_queues()
         self._prime_new_slots()
 
@@ -403,7 +639,8 @@ class EngineGroup:
         # k_cap chunks staged; starts only at phases divisible by k_cap
         k = 1
         k_cap = max_safe_tick_chunks(cfg.n_phases)
-        if (k_cap > 1 and not fin_nv and not ended_now and bool(ready.all())
+        if (k_cap > 1 and not self.phase_timers and not fin_nv
+                and not ended_now and bool(ready.all())
                 and self.phase % k_cap == 0
                 and min(s.staged // shift for s in self.slots) >= k_cap):
             k = k_cap
@@ -431,43 +668,73 @@ class EngineGroup:
             self.total_chunks += n_act * k
             self.total_audio_seconds += n_act * k * shift / cfg.sample_rate
             all_active = bool(active.all())
-            # realign-on-resume: slots whose window fell behind the group
-            # phase get one masked roll per distinct delta
-            deltas: dict[int, list[int]] = {}
-            for i in np.nonzero(active)[0]:
-                d = self.phase - int(self.slot_phase[i])
-                if d:
-                    deltas.setdefault(d, []).append(i)
-            for d, idxs in deltas.items():
-                m = np.zeros(b, dtype=bool)
-                m[idxs] = True
-                self.state = self.model.realign_state(cfg, self.state, d, m)
-                self.slot_phase[idxs] = self.phase
+            frame_base = self.frame_offsets.copy()
+            if self.use_realign:
+                # realign-on-resume: slots whose window fell behind the
+                # group phase get one masked roll per distinct delta
+                deltas: dict[int, list[int]] = {}
+                for i in np.nonzero(active)[0]:
+                    d = self.phase - int(self.slot_phase[i])
+                    if d:
+                        deltas.setdefault(d, []).append(i)
+                for d, idxs in deltas.items():
+                    m = np.zeros(b, dtype=bool)
+                    m[idxs] = True
+                    self.state = self.model.realign_state(cfg, self.state, d,
+                                                          m)
+                    self.slot_phase[idxs] = self.phase
+            elif not all_active and self.phase != 0:
+                # legacy flow: gated ticks run at phase 0; move the live
+                # windows (all at the group's phase) back there first
+                self.state = self.model.compact_state(cfg, self.state,
+                                                      phase=self.phase)
+                self.phase = 0
+                # every window moved (an export reads its phase here; the
+                # JAX engine leaves slot_phase stale at this point)
+                self.slot_phase[:] = 0
             stream_ids = np.full(b, -1, dtype=np.int64)
             for i in np.nonzero(active)[0]:
                 stream_ids[i] = self.slots[i].stream_id
 
-            t_pack = time.perf_counter()
-            packed = self.model.pack_tick_inputs(
-                block, n_valid, prompt_idx, None if all_active else active)
-            self.total_pack_seconds += time.perf_counter() - t_pack
-            t_up = time.perf_counter()
-            packed_dev = self.model.put_batch(packed)
-            self.total_upload_seconds += time.perf_counter() - t_up
-            t_disp = time.perf_counter()
-            self.state, tokens = self.model.fused_tick_packed(
-                cfg, self.state, packed_dev, all_active, phase=self.phase,
-                k=k, fast_gated=not all_active)
-            self.total_dispatch_seconds += time.perf_counter() - t_disp
+            if self.phase_timers:
+                t_up = time.perf_counter()
+                put = self.model.put_batch
+                block_dev, nv_dev, prompt_dev = (
+                    put(block), put(n_valid), put(prompt_idx))
+                active_dev = None if all_active else put(active)
+                self.total_upload_seconds += time.perf_counter() - t_up
+                t_disp = time.perf_counter()
+                self.state, tokens, t_enc, t_dec = \
+                    self.model.fused_tick_profiled(
+                        cfg, self.state, block_dev, nv_dev, active_dev,
+                        prompt_dev, phase=self.phase)
+                self.total_encoder_seconds += t_enc
+                self.total_decoder_seconds += t_dec
+                self.total_dispatch_seconds += time.perf_counter() - t_disp
+            else:
+                t_pack = time.perf_counter()
+                packed = self.model.pack_tick_inputs(
+                    block, n_valid, prompt_idx,
+                    None if all_active else active)
+                self.total_pack_seconds += time.perf_counter() - t_pack
+                t_up = time.perf_counter()
+                packed_dev = self.model.put_batch(packed)
+                self.total_upload_seconds += time.perf_counter() - t_up
+                t_disp = time.perf_counter()
+                self.state, tokens = self.model.fused_tick_packed(
+                    cfg, self.state, packed_dev, all_active, phase=self.phase,
+                    k=k, fast_gated=self.use_realign)
+                self.total_dispatch_seconds += time.perf_counter() - t_disp
             entry = _Pending(
-                kind="tokens", active=active, finalizing=finalizing,
+                kind="tokens", active=active, n_valid=n_valid,
+                finalizing=finalizing, frame_base=frame_base,
                 stream_ids=stream_ids, t_dispatch=time.perf_counter())
             self._start_readback(tokens, entry)
 
             if k > 1:  # wrap compaction already ran inside the k-chunk tick
                 self.phase = (self.phase + k) % cfg.n_phases
                 self.slot_phase[:] = self.phase
-            else:
+            elif all_active or self.use_realign:
                 self.slot_phase[active] = self.phase + 1
                 self.phase += 1
                 if self.phase >= cfg.n_phases:
@@ -479,6 +746,8 @@ class EngineGroup:
                         mask=None if bool(aligned.all()) else aligned)
                     self.slot_phase[aligned] = 0
                     self.phase = 0
+            # (a legacy gated tick is phase-stationary: no phase moves)
+            self.frame_offsets[active] += k * n_valid[active]
             self._pending_q.append(entry)
             for i, sid in ended_now:
                 self._pending_q.append(_Pending(
@@ -491,7 +760,9 @@ class EngineGroup:
                     kind="ended", slot_idx=i, stream_id=sid))
             events.extend(self._drain_pending(force_all=True))
 
-        more = bool(self._pending_q) or any(
+        with self._lock:
+            migrations = bool(self._pending_exports or self._pending_imports)
+        more = bool(self._pending_q) or migrations or any(
             s is not None and not s.finalize_sent
             and ((s.primed and s.staged >= shift) or s.audio_queue
                  or s.ending)
@@ -501,15 +772,15 @@ class EngineGroup:
 
 
 class BatchedEngine:
-    """Multi-latency-mode engine; owns one EngineGroup per right_context."""
+    """Multi-latency-mode engine; owns one EngineGroup per right_context.
+    gated_realign and phase_timers select each group's flow (EngineGroup)."""
 
-    def __init__(self, model, batch_per_group: int = 32):
-        if model.confidence:
-            raise ValueError(
-                "BatchedEngine: engine events do not unpack per-token "
-                "confidences yet; build the model with confidence=False")
+    def __init__(self, model, batch_per_group: int = 32,
+                 gated_realign: bool = True, phase_timers: bool = False):
         self.model = model
         self.batch = batch_per_group
+        self.gated_realign = gated_realign
+        self.phase_timers = phase_timers
         self.groups: dict[int, EngineGroup] = {}
         self._groups_lock = threading.Lock()
         self._ids = itertools.count(1)
@@ -521,8 +792,10 @@ class BatchedEngine:
             with self._groups_lock:
                 group = self.groups.get(rc)
                 if group is None:
-                    group = EngineGroup(self.model, self.model.cache_config(rc),
-                                        self.batch)
+                    group = EngineGroup(
+                        self.model, self.model.cache_config(rc), self.batch,
+                        gated_realign=self.gated_realign,
+                        phase_timers=self.phase_timers)
                     self.groups[rc] = group
         return group
 
@@ -583,13 +856,72 @@ class BatchedEngine:
                 out[sid] = out.get(sid, 0) + n
         return out
 
+    # --- live-stream migration ---------------------------------------------
+    def request_export(self, stream_id: int) -> concurrent.futures.Future:
+        """Queue a live-stream export. The Future resolves on the tick
+        thread, at the top of its next tick, to a snapshot dict: the slot's
+        device state (numpy leaves), its staged audio and its transcript
+        bookkeeping; the stream then leaves this engine. The caller must
+        stop pushing audio for the stream first. snapshot_to_bytes /
+        snapshot_from_bytes carry a snapshot across processes and between
+        this package and the JAX one. KeyError for an unknown stream."""
+        route = self._route.get(stream_id)
+        if route is None:
+            raise KeyError(stream_id)
+        fut = self.groups[route[0]].queue_export(stream_id)
+
+        def done(f: concurrent.futures.Future) -> None:
+            if not f.cancelled() and f.exception() is None:
+                self._route.pop(stream_id, None)
+
+        fut.add_done_callback(done)
+        return fut
+
+    def request_import(self, snapshot: dict, stream_id: int | None = None,
+                       trust_model: bool = False) -> concurrent.futures.Future:
+        """Queue a snapshot for adoption. The Future resolves to the stream
+        id once the tick thread has installed the slot (its K/V window
+        realigned to this engine's slack-buffer phase).
+
+        stream_id: keep this id instead of a fresh one (a hot swap: the wire
+        protocol pins ids); an id live on this engine raises ValueError, and
+        the id counter skips past it. trust_model: skip the snapshot's
+        weights-fingerprint check, for deliberate operator actions only (a
+        hot swap to new weights installs the old model's caches by design)."""
+        rc = int(snapshot["right_context"])
+        group = self._group(rc)
+        if stream_id is None:
+            stream_id = next(self._ids)
+        else:
+            if stream_id in self._route:
+                raise ValueError(
+                    f"stream id {stream_id} is already live on this engine")
+            nxt = next(self._ids)
+            if stream_id >= nxt:
+                self._ids = itertools.count(stream_id + 1)
+        slot_fut = group.queue_import(snapshot, stream_id, trust_model)
+        out: concurrent.futures.Future = concurrent.futures.Future()
+
+        def done(f: concurrent.futures.Future) -> None:
+            if f.cancelled():
+                out.cancel()
+            elif f.exception() is not None:
+                out.set_exception(f.exception())
+            else:
+                self._route[stream_id] = (rc, f.result())
+                out.set_result(stream_id)
+
+        slot_fut.add_done_callback(done)
+        return out
+
     def transcript(self, stream_id: int) -> str:
         rc, slot = self._route[stream_id]
         s = self.groups[rc].slots[slot]
         return s.transcript if s else ""
 
     def stats(self) -> dict:
-        """Engine counters per latency group (host clock, seconds)."""
+        """Engine counters per latency group (host clock, seconds); with
+        phase_timers also each group's encoder_seconds / decoder_seconds."""
         out = {"streams": len(self._route),
                "device": self.model.backend_name, "groups": {}}
         for rc, g in list(self.groups.items()):
@@ -617,6 +949,11 @@ class BatchedEngine:
                 out["groups"][rc]["emit_latency_ms"] = {
                     "p50": round(float(p50), 1), "p90": round(float(p90), 1),
                     "p99": round(float(p99), 1), "n": int(lat.size)}
+            if g.phase_timers:
+                out["groups"][rc]["encoder_seconds"] = round(
+                    g.total_encoder_seconds, 3)
+                out["groups"][rc]["decoder_seconds"] = round(
+                    g.total_decoder_seconds, 3)
         return out
 
     def tick(self) -> tuple[list[Event], bool]:
@@ -630,3 +967,65 @@ class BatchedEngine:
             if e.kind == "ended":
                 self._route.pop(e.stream_id, None)
         return events, more
+
+
+def snapshot_to_bytes(snap: dict) -> bytes:
+    """Serialize a live-stream snapshot (BatchedEngine.request_export) in
+    the JAX package's byte format (nemotron_tpu/streaming/engine.py:
+    snapshot_to_bytes), so either package loads the other's: an np.savez
+    of `meta` (the snapshot's other keys as JSON, plus leaf_dtypes),
+    `stage`, `tokens`, `token_frames`, `n_leaves` and `leaf_{i}` in the
+    JAX pytree order (streaming/state.state_leaves), bf16 leaves as uint16
+    bit patterns named "bfloat16" in meta["leaf_dtypes"]."""
+    import io
+    import json
+
+    leaves = [np.asarray(x) for x in state_leaves(snap["state"])]
+    meta = {k: v for k, v in snap.items()
+            if k not in ("state", "stage", "tokens", "token_frames")}
+    # a uint16 leaf is a bf16 bit pattern (streaming/state.to_numpy)
+    meta["leaf_dtypes"] = ["bfloat16" if x.dtype == np.uint16 else
+                           str(x.dtype) for x in leaves]
+    buf = io.BytesIO()
+    np.savez(
+        buf,
+        meta=np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8),
+        stage=np.asarray(snap["stage"], np.int16),
+        tokens=np.asarray(snap["tokens"], np.int64),
+        token_frames=np.asarray(snap["token_frames"], np.int64),
+        n_leaves=len(leaves),
+        **{f"leaf_{i}": x for i, x in enumerate(leaves)},
+    )
+    return buf.getvalue()
+
+
+def snapshot_from_bytes(data: bytes, model) -> dict:
+    """Rebuild a snapshot dict from snapshot_to_bytes' bytes (either
+    package's). Its kv-int8 mode must match `model.kv_int8` (the number of
+    K/V leaves depends on it); bf16 leaves stay uint16 bit patterns, as
+    extract_slot gives them."""
+    import io
+    import json
+
+    z = np.load(io.BytesIO(data))
+    meta = json.loads(bytes(z["meta"]).decode("utf-8"))
+    if bool(meta["kv_int8"]) != bool(model.kv_int8):
+        raise ValueError(
+            "snapshot kv-int8 mode differs from this model's (build the "
+            "model with kv_int8 matching the exporter)")
+    n = int(z["n_leaves"])
+    dtypes = meta.pop("leaf_dtypes", None) or [None] * n
+    leaves = []
+    for i in range(n):
+        a = z[f"leaf_{i}"]
+        if dtypes[i] == "bfloat16":
+            a = a.view(np.uint16)
+        elif dtypes[i] is not None and dtypes[i] != str(a.dtype):
+            a = a.view(np.dtype(dtypes[i]))
+        leaves.append(a)
+    snap = dict(meta)
+    snap["state"] = state_from_leaves(leaves, bool(meta["kv_int8"]))
+    snap["stage"] = z["stage"]
+    snap["tokens"] = [int(t) for t in z["tokens"]]
+    snap["token_frames"] = [int(t) for t in z["token_frames"]]
+    return snap

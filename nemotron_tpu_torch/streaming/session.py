@@ -27,6 +27,7 @@ import torch
 from ..audio.frontend import StreamPreprocessor
 from ..models.asr import tokens_to_list
 from ..config import CacheConfig, LatencyMode
+from .state import from_numpy, state_leaves
 
 
 def _leaves(obj, prefix=""):
@@ -175,8 +176,8 @@ class StreamSession:
         """Checkpoint the whole streaming context (the device state's
         leaves, the host mel and sample buffers, tokens, confidences and
         transcript) so that a dropped stream resumes where it stopped. The
-        npz holds the port's own leaves (bf16 ones as f32, exactly); it is
-        not the JAX package's format."""
+        npz is the port's own format (named leaves, bf16 ones as f32,
+        exactly), not the JAX package's; restore_state reads both."""
         leaves = {}
         for name, t in _leaves(self.state).items():
             t = t.detach().cpu()
@@ -197,17 +198,40 @@ class StreamSession:
             phase=np.int64(self.phase))
 
     def restore_state(self, path: str) -> None:
+        """Resume from save_state's checkpoint, or from the JAX package's
+        StreamSession.save_state (its state as `leaf_{i}` in its pytree
+        order, bf16 leaves as 2-byte records; no confidences)."""
         z = np.load(path)
         fresh = self.model.init_stream_state(1, self.cfg)
-        for name, t in _leaves(fresh).items():
-            t.copy_(torch.from_numpy(z["state." + name]).to(t.dtype))
+        if "n_leaves" in z.files:  # the JAX package's checkpoint
+            dst = state_leaves(fresh)
+            n = int(z["n_leaves"])
+            if n != len(dst):
+                raise ValueError(
+                    f"checkpoint has {n} state leaves, this session's state "
+                    f"{len(dst)} (mismatched kv-int8 mode?)")
+            src = [z[f"leaf_{i}"] for i in range(n)]
+            # np.savez keeps an ml_dtypes bfloat16 leaf as void records
+            src = [a.view(np.uint16) if a.dtype.kind == "V" else a
+                   for a in src]
+            confs = []
+        else:
+            named = _leaves(fresh)
+            dst = list(named.values())
+            src = [z["state." + name] for name in named]
+            confs = [float(x) for x in z["token_confs"]]
+        for t, a in zip(dst, src):
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint leaf shape {a.shape} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(from_numpy(a, t.dtype))
         self.state = fresh
         self.mel_buffer = z["mel_buffer"]
         self.preprocessor.buf = z["pp_buf"]
         self.preprocessor.last_sample = float(z["pp_last"])
         self.tokens = [int(x) for x in z["tokens"]]
         self.token_frames = [int(x) for x in z["token_frames"]]
-        self.token_confs = [float(x) for x in z["token_confs"]]
+        self.token_confs = confs
         self.transcript = bytes(z["transcript"]).decode("utf-8")
         self.prompt_index = int(z["prompt_index"])
         self.total_audio_seconds = float(z["total_audio_seconds"])

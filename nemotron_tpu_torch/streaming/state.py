@@ -1,15 +1,23 @@
 """Per-stream device-resident state for cache-aware streaming (port of
 nemotron_tpu/streaming/state.py): the same fields, layouts and phase
-semantics, so the two packages' states compare leaf by leaf."""
+semantics, so the two packages' states compare leaf by leaf.
+
+`state_leaves` flattens a state in the JAX package's pytree order (the
+dataclass fields in order, a `QuantKV` cache as q then s, the decode
+state's four fields), the order of its snapshots and session checkpoints;
+`state_from_leaves` is the inverse. `extract_slot` / `install_slot` move one
+slot between a batched state on the device and a batch-1 state of numpy
+leaves (live-stream migration)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..models.decoder import DecodeState, init_decode_state
-from ..ops.kvquant import kv_parts, kv_zeros
+from ..ops.kvquant import QuantKV, is_quant, kv_parts, kv_zeros
 from ..config import CacheConfig, Hparams
 
 # Steady-state preprocessor tail: with the carry primed as [256 centre-pad
@@ -83,3 +91,115 @@ def prime_frontend(state: StreamState, mask, tails, lasts) -> StreamState:
         pp_last=torch.where(m, lasts, state.pp_last),
     )
 
+
+# fields of StreamState with the batch at axis 1 (the caches); the others
+# carry it at axis 0
+_BATCH_AXIS1 = ("k_cache", "v_cache", "conv_cache")
+
+
+def state_leaves(state: StreamState) -> list:
+    """The leaves in the JAX package's `jax.tree.leaves(StreamState)`
+    order."""
+    out = []
+    for f in dataclasses.fields(StreamState):
+        v = getattr(state, f.name)
+        if f.name == "decode":
+            out.extend(getattr(v, g.name) for g in dataclasses.fields(v))
+        else:
+            out.extend(kv_parts(v))
+    return out
+
+
+def state_from_leaves(leaves, kv_int8: bool) -> StreamState:
+    """Inverse of state_leaves; kv_int8 says whether each K/V cache is two
+    leaves (a QuantKV's q and s) or one."""
+    it = iter(leaves)
+    kw = {}
+    for f in dataclasses.fields(StreamState):
+        if f.name == "decode":
+            kw[f.name] = DecodeState(*(next(it) for _ in range(4)))
+        elif f.name in ("k_cache", "v_cache") and kv_int8:
+            kw[f.name] = QuantKV(next(it), next(it))
+        else:
+            kw[f.name] = next(it)
+    rest = list(it)
+    if rest:
+        raise ValueError(f"{len(rest)} leaves too many for a StreamState "
+                         f"(kv_int8={kv_int8})")
+    return StreamState(**kw)
+
+
+def _leaf_axes(state: StreamState) -> list[int]:
+    """The batch axis of each leaf of state_leaves(state)."""
+    out = []
+    for f in dataclasses.fields(StreamState):
+        v = getattr(state, f.name)
+        n = 4 if f.name == "decode" else len(kv_parts(v))
+        out.extend([1 if f.name in _BATCH_AXIS1 else 0] * n)
+    return out
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16 as its uint16 bit pattern
+    (the only uint16 leaves of a state), as the JAX package's snapshots
+    store it."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def from_numpy(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of to_numpy into `dtype`: a uint16 array is a bfloat16 bit
+    pattern; anything else converts by value."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            dtype)
+    return torch.from_numpy(a).to(dtype)
+
+
+def extract_slot(state: StreamState, idx: int) -> StreamState:
+    """Slot `idx` of a batched state as a batch-1 StreamState of numpy
+    leaves (the basis of a live-stream export): the caches carry the batch
+    at axis 1, everything else at axis 0; a QuantKV cache yields its q and
+    its s; bf16 leaves come back as uint16 bit patterns (to_numpy)."""
+    return extract_slots(state, [idx])[0]
+
+
+def extract_slots(state: StreamState, idxs) -> list[StreamState]:
+    """extract_slot of each slot in `idxs`, with one gather on the device
+    and one device-to-host copy per leaf for all of them (the snapshots'
+    leaves are views of those copies)."""
+    rows = torch.as_tensor(list(idxs), dtype=torch.long,
+                           device=state.cache_valid.device)
+    host = [(to_numpy(t.index_select(ax, rows)), ax)
+            for t, ax in zip(state_leaves(state), _leaf_axes(state))]
+    quant = is_quant(state.k_cache)
+    return [state_from_leaves(
+        [h[(slice(None),) * ax + (slice(j, j + 1),)] for h, ax in host],
+        quant) for j in range(len(rows))]
+
+
+def install_slot(state: StreamState, idx: int, snap: StreamState
+                 ) -> StreamState:
+    """Write a batch-1 snapshot (from extract_slot) into slot `idx`, in
+    place. Every leaf's shape is checked against the slot's before any is
+    written: a broadcasting copy would silently install a foreign-shaped
+    snapshot (other Hparams, CacheConfig or kv-int8 mode), and a failure
+    leaves the state untouched."""
+    dst = state_leaves(state)
+    src = state_leaves(snap)
+    if len(src) != len(dst):
+        raise ValueError(f"snapshot has {len(src)} leaves, the state "
+                         f"{len(dst)} (mismatched kv-int8 mode?)")
+    axes = _leaf_axes(state)
+    for d, s, ax in zip(dst, src, axes):
+        want = d.shape[:ax] + (1,) + d.shape[ax + 1:]
+        if tuple(np.shape(s)) != tuple(want):
+            raise ValueError(
+                f"snapshot leaf shape {tuple(np.shape(s))} != expected "
+                f"{tuple(want)} (mismatched Hparams/CacheConfig?)")
+    for d, s, ax in zip(dst, src, axes):
+        d.narrow(ax, idx, 1).copy_(from_numpy(np.asarray(s), d.dtype))
+    return state

@@ -757,3 +757,90 @@ def test_tiny_offline_batch_on_card_matches_cpu(cuda, q8):
     assert kernels.T1_ATTENTION_BLOCK.launches == 0
     assert [gpu.transcribe_audio(a, timestamp_words=True)
             for a in audios] == want
+
+
+def _tiny_hp():
+    return Hparams(n_mels=32, d_model=64, n_heads=4, d_head=16, d_ff=96,
+                   n_layers=2, kernel_size=5, vocab_size=33, decoder_dim=32,
+                   joint_dim=32, subsampling_channels=16, att_left_context=8,
+                   max_pos_len=64)
+
+
+@pytest.mark.parametrize("form", ["f32", "bf16", "int8-kv"])
+def test_extract_install_slot_round_trips_on_the_card(cuda, form):
+    """extract_slot copies a slot of a state on the card to numpy leaves
+    and install_slot writes it into another slot: every leaf bit-exact,
+    the other slots untouched."""
+    from nemotron_tpu_torch.streaming.state import (extract_slot,
+                                                    install_slot,
+                                                    state_leaves)
+
+    model = ASRModel.random(
+        _tiny_hp(), seed=1, device=cuda, kv_int8=form == "int8-kv",
+        dtype=torch.bfloat16 if form == "bf16" else torch.float32)
+    state = model.init_stream_state(4, model.cache_config(0))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for t in state_leaves(state):  # random contents, every leaf's type
+        t.copy_(torch.randint(-100, 100, t.shape, generator=gen,
+                              device=cuda).to(t.dtype) / (
+            7 if t.is_floating_point() else 1))
+    before = [t.clone() for t in state_leaves(state)]
+    snap = extract_slot(state, 1)
+    install_slot(state, 3, snap)
+    for n, (t, b) in enumerate(zip(state_leaves(state), before)):
+        ax = 1 if n < len(before) - 8 else 0  # the caches at axis 1
+        assert torch.equal(t.select(ax, 3), b.select(ax, 1)), n
+        for r in (0, 1, 2):
+            assert torch.equal(t.select(ax, r), b.select(ax, r)), n
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_tiny_stream_migrates_on_the_card(cuda, int8):
+    """A tiny stream exported mid-flight from one engine on the card and
+    imported, through the snapshot bytes, into another at a different
+    phase gives the transcript of an unmigrated run on the card."""
+    from nemotron_tpu_torch.streaming.engine import (BatchedEngine,
+                                                     snapshot_from_bytes,
+                                                     snapshot_to_bytes)
+
+    model = ASRModel.random(_tiny_hp(), seed=1, device=cuda, kv_int8=int8)
+    rng = np.random.default_rng(5)
+    audio = (rng.standard_normal(12800) * 3000).astype(np.int16)
+
+    def own(events, sid):
+        return "".join(e.text for e in events if e.stream_id == sid)
+
+    def run(engine, sid, lo, hi, text):
+        for off in range(lo, hi, 1600):
+            engine.push_audio(sid, audio[off:min(off + 1600, hi)])
+            text += own(engine.tick()[0], sid)
+        return text
+
+    def finish(engine, sid, text):
+        engine.end_stream(sid)
+        for _ in range(100):
+            events, more = engine.tick()
+            text += own(events, sid)
+            if not more:
+                return text
+        raise AssertionError("engine did not go idle")
+
+    plain = BatchedEngine(model, 2)
+    sid = plain.start_stream(0)
+    want = finish(plain, sid, run(plain, sid, 0, len(audio), ""))
+    a, b = BatchedEngine(model, 2), BatchedEngine(model, 2)
+    decoy = b.start_stream(0)
+    run(b, decoy, 0, 3200, "")  # b at another phase
+    sid = a.start_stream(0)
+    text = run(a, sid, 0, 4800, "")
+    fut = a.request_export(sid)
+    text += own(a.tick()[0], sid)
+    snap = snapshot_from_bytes(snapshot_to_bytes(fut.result(timeout=30)),
+                               model)
+    assert snap["phase"] != b.groups[0].phase
+    fut = b.request_import(snap)
+    events = b.tick()[0]
+    sid2 = fut.result(timeout=30)
+    text += own(events, sid2)
+    text = finish(b, sid2, run(b, sid2, 4800, len(audio), text))
+    assert want and text == want

@@ -3,7 +3,9 @@ PCM, with and without the fused attention block (kernel B3; the JAX
 package's Pallas block in interpret mode): delta texts, tokens, token frames
 and transcripts equal for regular and irregular pushes, a language switch,
 a second finalize and a reset; timed words; save/restore mid-stream equal
-to an uninterrupted run; and the packed per-token confidences.
+to an uninterrupted run; a JAX session's checkpoint resumed in the port
+(f32 and int8 K/V); the packed per-token confidences; and the legacy
+gated stream step with per-slot prompts, and a confidence engine's events.
 
 The JAX package compiles one step function per phase and model, so each
 JAX configuration runs all its scenarios once (a module fixture) and the
@@ -183,17 +185,80 @@ def test_packed_confidences_match_jax(gguf):
         plain.timed_words_conf()
 
 
-def test_gated_stream_step_and_engine_confidence_are_refused(gguf):
-    """Not ported yet: the phase-stationary gated stream step, and engine
-    events with packed confidences."""
-    from nemotron_tpu_torch.streaming.engine import BatchedEngine
+def test_gated_stream_step_and_engine_confidence_match_jax(gguf, jax_runs):
+    """The phase-stationary gated stream step (a language prompt per slot)
+    gives JAX's tokens and leaves paused slots untouched; a confidence=True
+    model builds an engine whose text events carry conf in (0, 1]."""
+    import jax
 
-    model = torch_model(gguf)
-    cfg = cfg_of(model)
-    state = model.init_stream_state(2, cfg)
-    mel = torch.zeros(2, cfg.chunk_mel_frames, model.hp.n_mels)
-    with pytest.raises(NotImplementedError, match="gated"):
-        model.stream_step(cfg, state, mel, torch.ones(2, dtype=torch.int32),
-                          torch.tensor([True, False]))
-    with pytest.raises(ValueError, match="confidence"):
-        BatchedEngine(torch_model(gguf, confidence=True))
+    from nemotron_tpu_torch.streaming.engine import BatchedEngine
+    from nemotron_tpu_torch.streaming.state import state_leaves
+
+    jm, tm = jax_model(gguf), torch_model(gguf)
+    jcfg, tcfg = cfg_of(jm), cfg_of(tm)
+    rng = np.random.default_rng(8)
+    mel = rng.standard_normal(
+        (2, 3, tcfg.chunk_mel_frames, tm.hp.n_mels)).astype(np.float32)
+    nv = np.full(3, tcfg.valid_out_len, np.int32)
+    prompt = np.array([0, 2, 3], np.int32)
+    j_state, t_state = jm.init_stream_state(3, jcfg), \
+        tm.init_stream_state(3, tcfg)
+    for step, act in enumerate((None, np.array([True, False, True]))):
+        before = [t.clone() for t in state_leaves(t_state)]
+        j_state, j_tok = jm.stream_step(jcfg, j_state, mel[step], nv, act,
+                                        prompt, phase=1)
+        t_state, t_tok = tm.stream_step(
+            tcfg, t_state, torch.tensor(mel[step]), torch.tensor(nv),
+            None if act is None else torch.tensor(act),
+            torch.tensor(prompt), phase=1)
+        np.testing.assert_array_equal(t_tok.numpy(), np.asarray(j_tok))
+        for t, j in zip(state_leaves(t_state), jax.tree.leaves(j_state)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-4)
+    # the paused slot: the caches at axis 1, the rest at axis 0
+    for n, (t, b) in enumerate(zip(state_leaves(t_state), before)):
+        assert torch.equal(t.select(int(n < 3), 1), b.select(int(n < 3), 1))
+
+    engine = BatchedEngine(torch_model(gguf, confidence=True), 2)
+    sid = engine.start_stream(0, lang="en-US")
+    engine.push_audio(sid, AUDIO)
+    engine.end_stream(sid)
+    events = []
+    for _ in range(100):
+        ev, more = engine.tick()
+        events.extend(ev)
+        if not more:
+            break
+    texts = [e for e in events if e.text]
+    assert texts and all(0.0 < e.conf <= 1.0 for e in texts)
+    assert "".join(e.text for e in events) == \
+        jax_runs(False)["regular"]["transcript"]
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["f32", "int8-kv"])
+def test_jax_checkpoint_resumes_in_the_port(gguf, tmp_path, monkeypatch,
+                                            kv_int8):
+    """A JAX StreamSession.save_state checkpoint (leaf_{i} keys, no
+    confidences) restores into the port's session, which continues to the
+    tokens the JAX session gives after the same checkpoint."""
+    monkeypatch.setenv("NEMOTRON_TPU_KV_INT8", "1" if kv_int8 else "0")
+    jm = jax_model(gguf)
+    js = JaxSession(jm, cfg_of(jm), lang="en-US")
+    js.process_incremental(AUDIO[:7000])
+    path = str(tmp_path / "jax_state.npz")
+    js.save_state(path)
+    js.process_incremental(AUDIO[7000:])
+    js.finalize()
+    assert js.get_tokens()
+    tm = torch_model(gguf, kv_int8=kv_int8)
+    ts = StreamSession(tm, cfg_of(tm))
+    ts.restore_state(path)
+    assert ts.prompt_index == PROMPTS["en-US"] and ts.token_confs == []
+    ts.process_incremental(AUDIO[7000:])
+    ts.finalize()
+    assert ts.get_tokens() == js.get_tokens()
+    assert ts.token_frames == js.token_frames
+    assert ts.get_transcript() == js.get_transcript()
+    if not kv_int8:  # the checkpoint's state leaves against the JAX ones
+        with pytest.raises(ValueError, match="kv-int8"):
+            StreamSession(torch_model(gguf, kv_int8=True),
+                          cfg_of(tm)).restore_state(path)
