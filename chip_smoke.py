@@ -4,8 +4,9 @@ holds each against its plain PyTorch version, runs the full-width streaming
 tick on the card against the CPU at right contexts 0, 1, 6 and 13, serves
 TCP clients through the port's own server, transcribes files offline
 (the ragged batch encoder, the API and the offline CLI), and drives the
-engine's migration, hot swap, events, legacy flow and phase timers — all
-on one CUDA card.
+engine's migration, hot swap, events, legacy flow and phase timers, and
+runs diarization (nets, pipeline, server, CLI) and the native ingest
+server — all on one CUDA card.
 
     python3 chip_smoke.py     # every phase; needs one CUDA card
 
@@ -88,9 +89,27 @@ Phases, one line each, any failure exits non-zero:
              bytes); encoder / decoder seconds per tick of a
              phase_timers=True engine at batch 256 in f32 and bf16 with
              each half's device busy share
+  8 diarize  the published MarbleNet / TitaNet-L widths (a random diarize
+             GGUF written with the port's GGUF writer) and the full-width
+             random ASR model in f32 at R=0: VAD over 256 windows and
+             TitaNet-L over 64 sub-segments (half of them ragged) card vs
+             CPU, their device times and windows/s; NME-SC's host time for
+             200 embeddings; a fixed 30 s two-speaker signal through
+             DiarizePipeline on the card and the CPU (segments, RTTM and
+             speaker count equal); StreamServer with the diarize model, 4
+             TCP clients x 6 s, two of them diarize streams (word frames and
+             a result frame each; every text equal to a plain server's; B1
+             24 and B2 >= 1 per chunk step); the streaming CLI with
+             --diarize --rttm --json in a subprocess against the in-process
+             session and pipeline;
+    native   the native ingest server (serving/native_server.py) at batch 8,
+             4 clients x 3 s, texts equal to the asyncio server's; then 64
+             real-time paced clients x 6 s (in a process of their own) on
+             each server: emit p50 / p99, host ms per tick, idle share
 The second-to-last line is the kernels JSON (launches: the streaming
-server runs; offline_launches: phase 6's counted run), the line before
-it phase 7's launch counts, the last line the device JSON.
+server runs; offline_launches: phase 6's counted run; diarize_launches
+and native_launches: phase 8's diarize server and native server runs), the
+line before it phase 7's launch counts, the last line the device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
 """
@@ -1914,6 +1933,519 @@ def phase_surface(torch, hp, gpu, vocab, card):
             "timers": timers}
 
 
+# --- phase 8: diarization and the native ingest server ----------------------
+
+DIAR_SEED = 7          # the random diarize checkpoint's weights
+DIAR_SIGNAL_SEED = 8   # the 30 s pipeline signal (fixed: do not change)
+DIAR_VAD_WINDOWS = 256
+DIAR_SPK_WINDOWS = 64
+DIAR_NMESC_N = 200     # embeddings of a long meeting
+NATIVE_PACED = 64      # real-time paced clients on each server
+NATIVE_PACED_SECS = 6
+
+
+def write_random_diarize_gguf(path: str, seed: int = DIAR_SEED) -> None:
+    """A random diarize.gguf (vad.* MarbleNet + spk.* TitaNet-L at the
+    published widths) in the converter's tensor names and layouts, written
+    with the port's GGUF writer. The same generator, draw for draw, as the
+    tests' random diarize checkpoint, kept here so that the smoke needs
+    nothing outside the port."""
+    from nemotron_tpu_torch.diarize.params import SPK_TOPOLOGY, VAD_TOPOLOGY
+    from nemotron_tpu_torch.gguf.writer import write_gguf
+
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=None):
+        if scale is None:
+            scale = 1.0 / np.sqrt(shape[-1]) if len(shape) > 1 else 0.05
+        return rng.standard_normal(shape).astype(np.float32) * scale
+
+    t: dict[str, np.ndarray] = {}
+
+    def add_bn(prefix, c):
+        t[f"{prefix}.weight"] = 1.0 + 0.1 * r(c)
+        t[f"{prefix}.bias"] = 0.1 * r(c)
+        t[f"{prefix}.running_mean"] = 0.1 * r(c)
+        t[f"{prefix}.running_var"] = np.abs(r(c)) + 0.5
+
+    def add_blocks(ns, topology, se_reduction=8):
+        for b, (k, _dil, repeat, cin, cout, residual, separable, has_se) in \
+                enumerate(topology):
+            prefix = f"{ns}.encoder.encoder.{b}"
+            c_in = cin
+            for s in range(repeat):
+                base = 5 * s
+                if separable:
+                    t[f"{prefix}.mconv.{base}.conv.weight"] = r(k, c_in,
+                                                                scale=0.2)
+                    t[f"{prefix}.mconv.{base + 1}.conv.weight"] = r(cout,
+                                                                    c_in)
+                    add_bn(f"{prefix}.mconv.{base + 2}", cout)
+                else:
+                    t[f"{prefix}.mconv.0.conv.weight"] = r(cout, c_in)
+                    add_bn(f"{prefix}.mconv.1", cout)
+                c_in = cout
+            if residual:
+                t[f"{prefix}.res.0.0.conv.weight"] = r(cout, cin)
+                add_bn(f"{prefix}.res.0.1", cout)
+            if has_se:
+                se_idx = 5 * (repeat - 1) + 3
+                t[f"{prefix}.mconv.{se_idx}.fc.0.weight"] = r(
+                    cout // se_reduction, cout)
+                t[f"{prefix}.mconv.{se_idx}.fc.2.weight"] = r(
+                    cout, cout // se_reduction)
+
+    add_blocks("vad", VAD_TOPOLOGY)
+    add_blocks("spk", SPK_TOPOLOGY)
+    t["vad.decoder.decoder_layers.0.weight"] = r(2, 128)
+    t["vad.decoder.decoder_layers.0.bias"] = r(2)
+    c_enc, attn_c, emb_dim = SPK_TOPOLOGY[-1][4], 128, 192
+    dp = "spk.decoder"
+    t[f"{dp}._pooling.attention_layer.0.conv_layer.weight"] = r(attn_c,
+                                                                3 * c_enc)
+    t[f"{dp}._pooling.attention_layer.0.conv_layer.bias"] = r(attn_c)
+    add_bn(f"{dp}._pooling.attention_layer.0.bn", attn_c)
+    t[f"{dp}._pooling.attention_layer.2.weight"] = r(c_enc, attn_c)
+    t[f"{dp}._pooling.attention_layer.2.bias"] = r(c_enc)
+    add_bn(f"{dp}.emb_layers.0.0", 2 * c_enc)
+    t[f"{dp}.emb_layers.0.1.weight"] = r(emb_dim, 2 * c_enc)
+    t[f"{dp}.emb_layers.0.1.bias"] = r(emb_dim)
+    for ns in ("vad", "spk"):
+        t[f"{ns}.preprocessor.featurizer.fb"] = rng.uniform(
+            0, 1, (80, 257)).astype(np.float32)
+        t[f"{ns}.preprocessor.featurizer.window"] = np.hanning(400).astype(
+            np.float32)
+    kv = {
+        "general.architecture": "nemo-diarize",
+        "general.name": "synthetic-diarize",
+        "vad.sample_rate": 16000, "vad.n_mels": 80, "vad.n_fft": 512,
+        "vad.window_size": 0.025, "vad.window_stride": 0.01,
+        "vad.normalize": "None", "vad.window": "hann", "vad.n_classes": 2,
+        "spk.sample_rate": 16000, "spk.n_mels": 80, "spk.n_fft": 512,
+        "spk.window_size": 0.025, "spk.window_stride": 0.01,
+        "spk.normalize": "per_feature", "spk.window": "hann",
+        "spk.emb_dim": 192, "spk.attn_channels": 128,
+    }
+    write_gguf(path, kv, t)
+
+
+def diarize_signal(seconds: int = 30, seed: int = DIAR_SIGNAL_SEED
+                   ) -> np.ndarray:
+    """Two 'speakers' taking turns of 3-5 s with 1 s pauses: a 250 Hz tone
+    and a 2 kHz tone, each under noise, over a faint noise floor. The
+    random VAD scores the turns above its onset (0.9) and the pauses below
+    its offset (0.5), and no window of the signal lies close enough to either
+    threshold for card-vs-CPU noise to move a segment's edge."""
+    rng = np.random.default_rng(seed)
+    out = 0.003 * rng.standard_normal(seconds * 16000)
+    t, spk = 0.5, 0
+    while t < seconds - 1.5:
+        n0 = int(t * 16000)
+        n1 = min(n0 + int(rng.uniform(3.0, 5.0) * 16000), len(out))
+        tt = np.arange(n1 - n0) / 16000.0
+        f, a = ((250.0, 0.3), (2000.0, 0.6))[spk]
+        out[n0:n1] = (a * np.sin(2 * np.pi * f * tt)
+                      + 0.2 * rng.standard_normal(n1 - n0))
+        t = n1 / 16000.0 + 1.0
+        spk ^= 1
+    return np.clip(out, -1, 1).astype(np.float32)
+
+
+def _pipeline_run(params, audio: np.ndarray, chunk: int = 16000):
+    """`audio` through a DiarizePipeline on the params' device in pushes of
+    `chunk`; returns (pipeline, result)."""
+    from nemotron_tpu_torch.diarize.pipeline import DiarizePipeline
+
+    p = DiarizePipeline(params)
+    for off in range(0, len(audio), chunk):
+        p.push_audio(audio[off:off + chunk])
+    return p, p.finalize()
+
+
+def phase_diarize_nets(torch, gpu, cpu, card: str) -> None:
+    """MarbleNet over DIAR_VAD_WINDOWS windows and TitaNet-L over
+    DIAR_SPK_WINDOWS sub-segments (full and ragged lengths) on the card
+    against the CPU in f32; their times; NME-SC's host time."""
+    from nemotron_tpu_torch.diarize import audio as daudio
+    from nemotron_tpu_torch.diarize.cluster import nmesc_cluster
+    from nemotron_tpu_torch.diarize.nets import spk_embed, vad_probs
+
+    sig = diarize_signal()
+    rng = np.random.default_rng(SEED + 8)
+    bad = {}
+    for name, net, n, count, lens_lo in (
+            ("vad", vad_probs, daudio.VAD_WINDOW_SAMPLES, DIAR_VAD_WINDOWS,
+             daudio.VAD_WINDOW_SAMPLES),
+            ("spk", spk_embed, daudio.SPK_WINDOW_SAMPLES, DIAR_SPK_WINDOWS,
+             8000)):
+        starts = rng.integers(0, len(sig) - n, count)
+        w = np.stack([sig[s:s + n] for s in starts])
+        lens = np.full(count, n, np.int32)
+        lens[1::2] = rng.integers(lens_lo, n + 1, count // 2)  # ragged half
+        for i in range(count):
+            w[i, lens[i]:] = 0.0
+        args_c = (torch.from_numpy(w), torch.from_numpy(lens))
+        args_g = tuple(a.cuda() for a in args_c)
+        t0 = time.perf_counter()
+        want = net(getattr(cpu, name), *args_c).numpy()
+        cpu_s = time.perf_counter() - t0
+        got = net(getattr(gpu, name), *args_g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = net(getattr(gpu, name), *args_g)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = cuda_ms(lambda: net(getattr(gpu, name), *args_g),
+                         launches=4, repeats=3)
+        got = got.cpu().numpy()
+        if name == "vad":
+            err = float(np.abs(got - want).max())
+            ok = err <= 1e-4
+        else:
+            err = float(np.abs(got - want).max()
+                        / max(1.0, np.abs(want).max()))
+            ok = err <= 1e-3
+        log(f"[8 nets] {name} x {count} windows ({n} samples, half ragged): "
+            f"card vs CPU {err:.3e} ({'ok' if ok else 'FAIL'}); card "
+            f"{host_ms:.2f} ms per call on the host clock, {dev_ms:.3f} ms "
+            f"device (CUDA events), {count / (dev_ms / 1e3):.0f} windows/s; "
+            f"CPU {cpu_s * 1e3:.0f} ms ({card})")
+        if not ok:
+            bad[name] = err
+    centers = rng.standard_normal((4, 192))
+    emb = np.concatenate([c + 0.4 * rng.standard_normal((DIAR_NMESC_N // 4,
+                                                          192))
+                          for c in centers])
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = nmesc_cluster(emb)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"[8 nets] NME-SC over {len(emb)} embeddings on the host CPU: "
+        f"{statistics.median(times):.1f} ms (median of 3), "
+        f"{res.est_num_speakers} speakers")
+    if bad or res.est_num_speakers < 1:
+        raise SystemExit(f"phase 8 (nets): card and CPU disagree: {bad}")
+
+
+def phase_diarize_pipeline(torch, gpu, cpu) -> None:
+    """The same 30 s signal through DiarizePipeline on the card and on the
+    CPU: segments, RTTM and speaker count equal; at least one segment and
+    one embedding."""
+    sig = diarize_signal()
+    t0 = time.perf_counter()
+    pg, rg = _pipeline_run(gpu, sig)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pc, rc = _pipeline_run(cpu, sig)
+    cpu_s = time.perf_counter() - t0
+    same = (pg.segments == pc.segments and rg.rttm == rc.rttm
+            and rg.n_speakers == rc.n_speakers)
+    log(f"[8 pipeline] 30 s signal: card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
+        f"{pg.n_segments} segments, {pg.n_embeddings} embeddings, "
+        f"{rg.n_speakers} speakers, {len(rg.rttm.splitlines())} RTTM lines; "
+        f"card equal to CPU: {same}")
+    if not same or not pg.n_segments or not pg.n_embeddings:
+        raise SystemExit(f"phase 8 (pipeline): card {pg.segments} "
+                         f"{rg.rttm!r} vs CPU {pc.segments} {rc.rttm!r}")
+
+
+async def _diarize_clients(srv, audios, diarize):
+    """One TCP client per audio through `srv` (clients with diarize[i] set
+    START with {"diarize": true}); returns (texts, OP_DIARIZE lines per
+    client)."""
+    from nemotron_tpu_torch.serving.client import transcribe_file
+
+    server = await srv.start("127.0.0.1", 0)
+    port = server.sockets[0].getsockname()[1]
+    lines = [[] for _ in audios]
+    try:
+        texts = await asyncio.wait_for(asyncio.gather(*[
+            transcribe_file(a, host="127.0.0.1", port=port, chunk_ms=200,
+                            diarize=d, on_diarize=lines[i].append)
+            for i, (a, d) in enumerate(zip(audios, diarize))]), timeout=300)
+    finally:
+        await srv.stop(server)
+    return texts, lines
+
+
+def phase_diarize_server(torch, model, dparams) -> dict:
+    """StreamServer with a diarize model: 4 TCP clients x 6 s at R=0, two
+    of them diarize streams; each diarize stream gets word frames and a
+    result frame last, every text equals a plain server's; B1 L times and
+    B2 at least once per chunk step. Returns the run's launch counts."""
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.serving.server import StreamServer
+
+    audios = list(stream_audio(4, 6 * 16000, SEED + 8))
+    diarize = [True, False, True, False]
+    kernels.reset_counts()
+    srv = StreamServer(model, batch_per_group=8, diarize_params=dparams)
+    t0 = time.perf_counter()
+    texts, lines = asyncio.run(_diarize_clients(srv, audios, diarize))
+    secs = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    steps = srv.engine.stats()["groups"][0]["chunk_steps"]
+    plain, _ = asyncio.run(_diarize_clients(
+        StreamServer(model, batch_per_group=8), audios, [False] * 4))
+    L = model.hp.n_layers
+    bad = []
+    for i, d in enumerate(diarize):
+        objs = [json.loads(x) for x in lines[i]]
+        words = [o for o in objs if "word" in o]
+        if d and not (words and objs[-1].get("type") == "result"
+                      and objs[-1].get("n_speakers", 0) >= 1
+                      and "error" not in objs[-1]):
+            bad.append(f"client {i}: {len(words)} words, last "
+                       f"{lines[i][-1:]!r:.200}")
+        if not d and lines[i]:
+            bad.append(f"plain client {i} got OP_DIARIZE")
+        log(f"[8 server] client {i} ({'diarize' if d else 'plain'}): "
+            f"{len(texts[i])} chars, equal to the plain server's: "
+            f"{texts[i] == plain[i]}; {len(words)} word frames, "
+            f"{'result ' + lines[i][-1][:160] if d and lines[i] else ''}")
+    log(f"[8 server] 4 clients x 6 s (2 diarize), batch 8, {secs:.2f} s; "
+        f"launches {counts} over {steps} chunk steps (want t1_attention "
+        f"{L * steps}, mel_frames >= {steps})")
+    if bad or texts != plain or not all(texts) or not steps \
+            or counts["t1_attention"] != L * steps \
+            or counts["mel_frames"] < steps:
+        raise SystemExit(f"phase 8 (server): {bad}; texts equal "
+                         f"{texts == plain}; launches {counts}")
+    return counts
+
+
+def expected_cli_stdout(model, dparams, audio_i16, rttm: bool,
+                        as_json: bool) -> str:
+    """What `transcribe_stream --diarize` prints (80 ms chunks, no
+    --speaker-text): the session's text, word JSON lines as they complete
+    (as_json), then the RTTM (rttm) or the speaker text, from an
+    in-process StreamSession and DiarizePipeline."""
+    from nemotron_tpu_torch.config import CacheConfig
+    from nemotron_tpu_torch.diarize.pipeline import DiarizePipeline
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    sess = StreamSession(model, CacheConfig.for_mode(0, model.hp))
+    diar = DiarizePipeline(dparams)
+    out = []
+    for i in range(0, len(audio_i16), 1280):
+        a = audio_i16[i:i + 1280]
+        text = sess.process_incremental(a)
+        out.append(text)
+        diar.push_audio(a.astype(np.float32) / 32768.0)
+        if text:
+            diar.push_text(text, sess.total_audio_seconds)
+        if as_json:
+            out += [line + "\n" for line in diar.drain_json()]
+    tail = sess.finalize()
+    out.append(tail + "\n")
+    if tail:
+        diar.push_text(tail, sess.total_audio_seconds)
+    res = diar.finalize()
+    if not rttm:
+        out.append(res.speaker_text + "\n")
+    else:
+        out.append(res.rttm)
+    return "".join(out)
+
+
+def phase_diarize_cli(torch, hp, dense, vocab, dparams, work) -> None:
+    """`python -m nemotron_tpu_torch.cli.transcribe_stream --diarize
+    --rttm --json` on the card (an F16 GGUF of the random model and the
+    diarize GGUF in `work`): stdout equal to the in-process pipeline's on
+    a model loaded from the same F16 GGUF."""
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import save_gguf
+
+    gguf, pcm = work / "random_f16.gguf", work / "audio.pcm"
+    save_gguf(str(gguf), hp, dense, vocab)
+    audio = (diarize_signal(8) * 32767).astype(np.int16)
+    pcm.write_bytes(audio.astype("<i2").tobytes())
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, "transcribe_stream", str(gguf),
+         str(pcm), "--diarize", str(work / "diarize.gguf"), "--rttm",
+         "--json"], cwd=work.parent, capture_output=True, text=True,
+        timeout=600)
+    secs = time.perf_counter() - t0
+    model = ASRModel.from_gguf(str(gguf), device="cuda")
+    want = expected_cli_stdout(model, dparams, audio, rttm=True,
+                               as_json=True)
+    del model
+    torch.cuda.empty_cache()
+    got = [ln for ln in out.stderr.splitlines()
+           if ln.startswith("KERNEL_LAUNCHES ")]
+    sub = json.loads(got[-1].split(" ", 1)[1]) if got else {}
+    n_words = sum(ln.startswith('{"word"') for ln in want.splitlines())
+    n_rttm = sum(ln.startswith("SPEAKER ") for ln in want.splitlines())
+    log(f"[8 cli] transcribe_stream --diarize --rttm --json: rc "
+        f"{out.returncode} in {secs:.1f} s; stdout equal to the in-process "
+        f"pipeline's: {out.stdout == want} ({n_words} word lines, {n_rttm} "
+        f"RTTM lines); launches {sub}")
+    if out.returncode != 0 or out.stdout != want or not n_rttm \
+            or not sub.get("t1_attention") or not sub.get("mel_frames"):
+        raise SystemExit(f"phase 8 (cli): stdout {out.stdout[-2000:]!r}\n"
+                         f"want {want[-2000:]!r}\nstderr "
+                         f"{out.stderr[-2000:]}")
+
+
+# Runs `n` real-time paced TCP clients (80 ms pushes) against a server in a
+# process of their own, and prints their transcripts as one JSON list.
+PACED_CLIENTS = """
+import asyncio, json, sys
+import numpy as np
+from nemotron_tpu_torch.serving.client import transcribe_file
+port, n, secs, seed = (int(a) for a in sys.argv[1:5])
+rng = np.random.default_rng(seed)
+t = np.arange(secs * 16000) / 16000.0
+audios = [(np.clip(0.3 * np.sin(2 * np.pi * (180 + 7 * i) * t)
+                   + 0.1 * rng.standard_normal(len(t)), -1, 1)
+           * 32767).astype(np.int16) for i in range(n)]
+async def main():
+    return await asyncio.gather(*[
+        transcribe_file(a, host="127.0.0.1", port=port, chunk_ms=80,
+                        realtime=True) for a in audios])
+print(json.dumps(asyncio.run(main())))
+"""
+
+
+def _paced(port: int, n: int, secs: int, seed: int) -> list[str]:
+    out = subprocess.run(
+        [sys.executable, "-c", PACED_CLIENTS, str(port), str(n), str(secs),
+         str(seed)], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"phase 8 (native): paced clients failed:\n"
+                         f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _serve_stats(engine, wall: float) -> str:
+    g = engine.stats()["groups"][0]
+    lat = g.get("emit_latency_ms", {})
+    return (f"emit p50 {lat.get('p50')} / p99 {lat.get('p99')} ms "
+            f"(n {lat.get('n')}), host {1e3 * g['tick_seconds'] / max(1, g['ticks']):.3f}"
+            f" ms per tick over {g['ticks']} ticks ({g['steps']} dispatches), "
+            f"engine-thread idle share "
+            f"{max(0.0, 1.0 - g['tick_seconds'] / wall):.3f}")
+
+
+def phase_native(torch, model, card: str) -> dict:
+    """The native ingest server (C++ epoll thread) against the asyncio
+    server: 4 clients x 3 s at batch 8, texts equal; then NATIVE_PACED
+    real-time paced clients on each (clients in a process of their own):
+    emit p50 / p99, host ms per tick, engine-thread idle share. Returns the
+    native run's launch counts."""
+    import threading
+
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.serving.native_server import NativeStreamServer
+    from nemotron_tpu_torch.serving.server import StreamServer
+
+    def native_run(batch, clients):
+        srv = NativeStreamServer(model, batch_per_group=batch)
+        port = srv.start("127.0.0.1", 0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        try:
+            texts = clients(port)
+        finally:
+            wall = time.perf_counter() - t0
+            srv.stop()
+            th.join(timeout=30)
+        return texts, srv, wall
+
+    def asyncio_run(batch, clients):
+        async def run():
+            srv = StreamServer(model, batch_per_group=batch)
+            server = await srv.start("127.0.0.1", 0)
+            port = server.sockets[0].getsockname()[1]
+            t0 = time.perf_counter()
+            try:
+                texts = await asyncio.to_thread(clients, port)
+            finally:
+                wall = time.perf_counter() - t0
+                await srv.stop(server)
+            return texts, srv, wall
+        return asyncio.run(run())
+
+    audios = list(stream_audio(4, 48000, SEED + 9))
+
+    def four(port):
+        from nemotron_tpu_torch.serving.client import transcribe_file
+
+        async def run():
+            return await asyncio.gather(*[
+                transcribe_file(a, host="127.0.0.1", port=port, chunk_ms=200)
+                for a in audios])
+        return asyncio.run(run())
+
+    kernels.reset_counts()
+    n_texts, n_srv, _ = native_run(8, four)
+    counts = {k.name: k.launches for k in kernels.KERNELS}
+    steps = n_srv.engine.stats()["groups"][0]["chunk_steps"]
+    a_texts, _, _ = asyncio_run(8, four)
+    L = model.hp.n_layers
+    log(f"[8 native] 4 clients x 3 s, batch 8: texts equal to the asyncio "
+        f"server's: {n_texts == a_texts} (chars {[len(t) for t in n_texts]}); "
+        f"launches {counts} over {steps} chunk steps")
+    if n_texts != a_texts or not all(n_texts) or not steps \
+            or counts["t1_attention"] != L * steps \
+            or counts["mel_frames"] < steps:
+        raise SystemExit(f"phase 8 (native): texts {n_texts} vs "
+                         f"{a_texts}; launches {counts}")
+    for name, run in (("asyncio", asyncio_run),
+                      ("native ingest", native_run)):
+        texts, srv, wall = run(NATIVE_PACED, lambda port: _paced(
+            port, NATIVE_PACED, NATIVE_PACED_SECS, SEED + 10))
+        extra = ""
+        if name == "native ingest":
+            secs = srv.loop_seconds
+            extra = (f"; native loop wait share "
+                     f"{secs['wait'] / wall:.3f} of {wall:.2f} s")
+        log(f"[8 native] {name} server, {NATIVE_PACED} real-time paced "
+            f"clients x {NATIVE_PACED_SECS} s at batch {NATIVE_PACED}: "
+            f"{sum(bool(t) for t in texts)} non-empty texts; "
+            f"{_serve_stats(srv.engine, wall)}{extra} ({card})")
+        if len(texts) != NATIVE_PACED or not any(texts):
+            raise SystemExit(f"phase 8 (native): {name} paced run gave "
+                             f"{len(texts)} texts")
+    return counts
+
+
+def phase_diarize(torch, hp, dense, vocab, model, card: str) -> dict:
+    """Phase 8: the diarize nets, the pipeline, the diarize server and CLI
+    on the card at the published widths with the full-width random ASR
+    model (f32, R=0), then the native ingest server. Returns
+    {"diarize": launches of the diarize server run, "native_server":
+    those of the native server's}."""
+    import shutil
+    from pathlib import Path
+
+    from nemotron_tpu_torch.diarize.params import load_diarize_model
+
+    work = Path(__file__).resolve().parent / "_smoke"  # git-ignored
+    work.mkdir(exist_ok=True)
+    dpath = work / "diarize.gguf"
+    try:
+        t0 = time.perf_counter()
+        write_random_diarize_gguf(str(dpath))
+        gpu = load_diarize_model(str(dpath), device="cuda")
+        cpu = load_diarize_model(str(dpath), device="cpu")
+        log(f"[8 diarize] random diarize GGUF (seed {DIAR_SEED}, "
+            f"{dpath.stat().st_size / 1e6:.1f} MB) written and loaded in "
+            f"{time.perf_counter() - t0:.1f} s")
+        phase_diarize_nets(torch, gpu, cpu, card)
+        phase_diarize_pipeline(torch, gpu, cpu)
+        launches = {"diarize": phase_diarize_server(torch, model, gpu)}
+        phase_diarize_cli(torch, hp, dense, vocab, gpu, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches["native_server"] = phase_native(torch, model, card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2049,8 +2581,12 @@ def main() -> int:
     surface = phase_surface(torch, hp, gpu, vocab, card)
     elapsed("phase 7")
     log(f"[7 launches] {json.dumps(surface['launches'])}")
+    phase8 = phase_diarize(torch, hp, dense, vocab, gpu["f32"], card)
+    elapsed("phase 8")
     for k in kernels.KERNELS:
         report[k.name]["offline_launches"] = offline_counts[k.name]
+        report[k.name]["diarize_launches"] = phase8["diarize"][k.name]
+        report[k.name]["native_launches"] = phase8["native_server"][k.name]
 
     kernel_line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -11,17 +11,26 @@ Concurrency model, as the JAX server:
   - fail-stop: if the engine thread dies, the listener shuts down;
   - `hot_swap` replaces the model under live streams: every stream is
     exported from the engine and imported, with its id, into a fresh
-    engine on the new model, while stream opcodes wait on a gate.
+    engine on the new model, while stream opcodes wait on a gate;
+  - per-stream diarization (a server given `diarize_params`, a stream that
+    STARTs with {"diarize": true}): the pipelines run on the engine thread,
+    their word JSONL goes out as OP_DIARIZE frames, and NME-SC runs on a
+    single worker thread at the stream's end, its result frame sent ahead
+    of the stream's OP_ENDED.
 
-The engine's flow arguments (`gated_realign`, `phase_timers`) come from
-NEMOTRON_TPU_GATED_REALIGN and NEMOTRON_TPU_PHASE_TIMERS in main(), as the
-JAX engine reads them. Not ported yet: diarization and the native ingest
-server.
+The engine's arguments (`gated_realign`, `phase_timers`, `readback_depth`,
+`max_tick_chunks`) come from NEMOTRON_TPU_GATED_REALIGN,
+NEMOTRON_TPU_PHASE_TIMERS, NEMOTRON_TPU_READBACK_DEPTH and
+NEMOTRON_TPU_MAX_TICK_CHUNKS in main(), as the JAX engine reads them, and
+NEMOTRON_TPU_CONFIDENCE selects ASRModel(confidence=True). `--native`
+serves through serving/native_server.py (the C++ ingest thread).
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import concurrent.futures
 import json
 import os
 import sys
@@ -40,10 +49,13 @@ SUPPORTED_RIGHT_CONTEXTS = (0, 1, 6, 13)
 class StreamServer:
     def __init__(self, model, batch_per_group: int = 32,
                  mem_budget: int = P.DEFAULT_MEM_BUDGET,
-                 gated_realign: bool = True, phase_timers: bool = False):
-        self.engine = BatchedEngine(model, batch_per_group,
-                                    gated_realign=gated_realign,
-                                    phase_timers=phase_timers)
+                 diarize_params=None, **engine_kw):
+        """engine_kw: BatchedEngine's flow arguments (gated_realign,
+        phase_timers, readback_depth, max_tick_chunks). diarize_params
+        (diarize.params.load_diarize_model) enables per-stream
+        diarization."""
+        self.engine_kw = engine_kw
+        self.engine = BatchedEngine(model, batch_per_group, **engine_kw)
         self.mem_budget = mem_budget
         self.mem_used = 0
         self.mem_free = asyncio.Condition()
@@ -61,6 +73,18 @@ class StreamServer:
         # the last swap's streams, host seconds of its export and import
         # loops, and the bytes of its snapshots' state and staged audio
         self.last_swap: dict = {}
+        # diarization: sid -> {"pipeline", "audio": deque of staged PCM}.
+        # The pipelines run on the engine thread; the handlers only append
+        # PCM to the deque. The staged copy is billed against the budget
+        # too (2 bytes a sample), released as _diarize_step drains it.
+        self.diarize_params = diarize_params
+        self._diar: dict[int, dict] = {}
+        self._diar_staged: dict[int, int] = {}
+        # NME-SC at a stream's end runs on this single worker while ticks
+        # go on; the stream's 'ended' event is held until its result frame
+        # is out (_diarize_poll)
+        self._diar_exec: concurrent.futures.ThreadPoolExecutor | None = None
+        self._diar_pending: list = []  # (sid, Future, held ended events)
 
     async def _send(self, writer: asyncio.StreamWriter, frame: bytes) -> None:
         try:
@@ -86,7 +110,9 @@ class StreamServer:
             for sid in list(self.conn_streams.get(writer, ())):
                 self.engine.drop_stream(sid)
                 self.writers.pop(sid, None)
+                self._diar.pop(sid, None)
                 freed += 2 * self._queued_samples.pop(sid, 0)
+                freed += 2 * self._diar_staged.pop(sid, 0)
             self.conn_streams.pop(writer, None)
             if freed:
                 async with self.mem_free:
@@ -106,12 +132,12 @@ class StreamServer:
                     cfg = json.loads(payload.decode("utf-8"))
                 except (ValueError, UnicodeDecodeError):
                     cfg = {}
-            # (the JAX server's diarization branch goes here once
-            # diarization is ported)
-            if cfg.get("diarize"):
+            want_diar = bool(cfg.get("diarize"))
+            if want_diar and self.diarize_params is None:
                 await self._send(writer, P.pack(
                     P.OP_ERROR, 0,
-                    "diarization is not supported by the torch port yet"))
+                    "diarization not enabled (start the server with "
+                    "--diarize <diarize.gguf>)"))
                 return
             try:
                 rc = int(cfg.get("right_context", 0))
@@ -129,6 +155,16 @@ class StreamServer:
             except RuntimeError as e:
                 await self._send(writer, P.pack(P.OP_ERROR, 0, str(e)))
                 return
+            if want_diar:
+                from ..diarize.pipeline import DiarizePipeline
+
+                self._diar[sid] = {
+                    "pipeline": DiarizePipeline(
+                        self.diarize_params,
+                        num_speakers=int(cfg.get("num_speakers", -1))),
+                    "audio": collections.deque(),
+                }
+                self._diar_staged[sid] = 0
             self.writers[sid] = writer
             self.conn_streams[writer].add(sid)
             self._queued_samples[sid] = 0
@@ -139,10 +175,13 @@ class StreamServer:
                 return  # DATA for a stream this connection does not own
             audio = np.frombuffer(payload, dtype="<i2")
             n = len(audio)
-            async with self.mem_free:  # admission control
-                while self.mem_used + 2 * n > self.mem_budget:
+            # admission control; a diarize stream stages a second copy of
+            # the PCM for its pipeline and is billed double
+            bill = 4 * n if stream_id in self._diar else 2 * n
+            async with self.mem_free:
+                while self.mem_used + bill > self.mem_budget:
                     await self.mem_free.wait()
-                self.mem_used += 2 * n
+                self.mem_used += bill
             # bill before handing to the engine: the engine thread may
             # consume the samples at once
             self._queued_samples[stream_id] = (
@@ -150,6 +189,11 @@ class StreamServer:
             for off in range(0, n, P.MAX_SEGMENT_SAMPLES):
                 self.engine.push_audio(
                     stream_id, audio[off:off + P.MAX_SEGMENT_SAMPLES])
+            d = self._diar.get(stream_id)
+            if d is not None:
+                d["audio"].append(audio)
+                self._diar_staged[stream_id] = (
+                    self._diar_staged.get(stream_id, 0) + n)
             self.wake.set()
             await self._send(writer, P.pack_json(
                 P.OP_ACK, stream_id,
@@ -183,6 +227,92 @@ class StreamServer:
             await self._send(writer, P.pack(
                 P.OP_ERROR, stream_id, f"bad opcode {opcode}"))
 
+    def _diarize_step(self, events) -> tuple[list[tuple[int, str]],
+                                             dict[int, int]]:
+        """Advance the diarization pipelines (engine thread: their nets run
+        on the device). Drains each diarize stream's staged PCM, feeds this
+        tick's text events as words, and returns ((stream id, JSON line)
+        frames, the drained samples per stream for the budget): word JSONL
+        as words complete; at a stream's end its tail embeddings here and
+        NME-SC on the worker, the 'ended' event held back (taken out of
+        `events`) until _diarize_poll delivers the result frame."""
+        frames: list[tuple[int, str]] = []
+        drained: dict[int, int] = {}
+        for sid, d in list(self._diar.items()):
+            p = d["pipeline"]
+            q = d["audio"]
+            while q:
+                a = q.popleft()
+                drained[sid] = drained.get(sid, 0) + len(a)
+                p.push_audio(a.astype(np.float32) / 32768.0)
+            for ev in events:
+                if ev.stream_id == sid and ev.text:
+                    # words are stamped at the decode position the engine
+                    # reports, not at the staged audio's end: a client ahead
+                    # of real time would pin every word to its file's end
+                    at = ev.at_sec if ev.at_sec >= 0.0 \
+                        else p.total_samples / 16000.0
+                    p.push_text(ev.text, at, conf=ev.conf)
+            frames.extend((sid, line) for line in p.drain_json())
+            held = [ev for ev in events
+                    if ev.stream_id == sid and ev.kind == "ended"]
+            if held:
+                p.finalize_embeddings()
+                frames.extend((sid, line) for line in p.drain_json())
+                if self._diar_exec is None:
+                    self._diar_exec = concurrent.futures.ThreadPoolExecutor(
+                        max_workers=1, thread_name_prefix="diar-cluster")
+                fut = self._diar_exec.submit(p.finalize_cluster)
+                events[:] = [ev for ev in events if ev not in held]
+                self._diar_pending.append((sid, fut, held))
+                # the loop's disconnect handler pops concurrently
+                self._diar.pop(sid, None)
+        return frames, drained
+
+    def _diarize_poll(self) -> tuple[list[tuple[int, str]], list]:
+        """Collect finished clusterings (engine thread): (result frames, the
+        held 'ended' events to deliver after them)."""
+        frames: list[tuple[int, str]] = []
+        events: list = []
+        if not self._diar_pending:
+            return frames, events
+        still = []
+        for sid, fut, held in self._diar_pending:
+            if not fut.done():
+                still.append((sid, fut, held))
+                continue
+            try:
+                res = fut.result()
+                frames.append((sid, json.dumps({
+                    "type": "result",
+                    "speaker_text": res.speaker_text,
+                    "rttm": res.rttm,
+                    "n_speakers": res.n_speakers,
+                })))
+            except Exception:  # noqa: BLE001 -- one stream's failure must
+                import traceback  # not fail-stop the server
+
+                traceback.print_exc()
+                frames.append((sid, json.dumps({
+                    "type": "result", "error": "diarization finalize failed",
+                    "speaker_text": "", "rttm": "", "n_speakers": 0,
+                })))
+            events.extend(held)
+        self._diar_pending = still
+        return frames, events
+
+    def _engine_step(self, engine) -> tuple[tuple, bool]:
+        """One engine tick with its diarization work: returns ((events,
+        consumed, diarize frames, diarize drained), more)."""
+        events, more = engine.tick()
+        consumed = engine.drain_consumed()
+        frames, drained = (self._diarize_step(events) if self._diar
+                           else ([], {}))
+        done_frames, done_events = self._diarize_poll()
+        frames.extend(done_frames)
+        events.extend(done_events)
+        return (events, consumed, frames, drained), more
+
     async def hot_swap(self, new_model) -> int:
         """Replace the serving model under live streams. Every stream is
         exported from the current engine and imported into a fresh
@@ -191,11 +321,13 @@ class StreamServer:
         transcripts are those of no swap, byte for byte, and under new
         weights the carried caches are the old model's (an operator's
         choice). Stream opcodes wait on a gate meanwhile, so no audio is
-        lost. Returns the number of migrated streams."""
+        lost. Returns the number of migrated streams. A native-ingest engine
+        refuses (NotImplementedError), as in the JAX package."""
+        if self.engine.source is not None:
+            raise NotImplementedError(
+                "hot swap is not supported on native-ingest engines")
         if self._swap_gate is not None:
             raise RuntimeError("a hot swap is already in progress")
-        import concurrent.futures
-
         self._swap_gate = asyncio.Event()
         fut: concurrent.futures.Future = concurrent.futures.Future()
         self._pending_swap = (new_model, fut)
@@ -224,15 +356,12 @@ class StreamServer:
         self.engine and release the old engine's consumed budget. Runs on
         the engine thread, which owns every device mutation."""
         old = self.engine
-        new = BatchedEngine(new_model, old.batch,
-                            gated_realign=old.gated_realign,
-                            phase_timers=old.phase_timers)
+        new = BatchedEngine(new_model, old.batch, **self.engine_kw)
 
-        def post(events, consumed):
-            if events or consumed:
+        def post(item):
+            if any(item):
                 try:
-                    loop.call_soon_threadsafe(out_q.put_nowait,
-                                              (events, consumed))
+                    loop.call_soon_threadsafe(out_q.put_nowait, item)
                 except RuntimeError:
                     pass  # loop closed: shutting down
 
@@ -245,8 +374,8 @@ class StreamServer:
                     futs[sid] = old.request_export(sid)
                 except KeyError:
                     continue  # ended meanwhile
-            events, more = old.tick()
-            post(events, old.drain_consumed())
+            item, more = self._engine_step(old)
+            post(item)
             for sid, f in futs.items():
                 if f.done() and f.exception() is None:
                     snaps[sid] = f.result()
@@ -262,14 +391,13 @@ class StreamServer:
         for _ in range(200):
             if all(f.done() for f in im_futs.values()):
                 break
-            events, _more = new.tick()
-            post(events, new.drain_consumed())
+            post(self._engine_step(new)[0])
         for sid, f in im_futs.items():
             got = f.result()  # raises on a failed install
             if got != sid:
                 raise RuntimeError(f"import renumbered stream {sid} -> {got}")
         self.engine = new
-        post([], old.drain_consumed())  # the old engine's last releases
+        post(([], old.drain_consumed(), [], {}))  # the old engine's last
         self.last_swap = {
             "streams": len(snaps), "export_seconds": t1 - t0,
             "import_seconds": time.perf_counter() - t1,
@@ -289,12 +417,10 @@ class StreamServer:
                 more = True
                 while more and not self._stop:
                     self._maybe_swap(loop, out_q)
-                    events, more = self.engine.tick()
-                    consumed = self.engine.drain_consumed()
-                    if events or consumed:
+                    item, more = self._engine_step(self.engine)
+                    if any(item):
                         try:
-                            loop.call_soon_threadsafe(out_q.put_nowait,
-                                                      (events, consumed))
+                            loop.call_soon_threadsafe(out_q.put_nowait, item)
                         except RuntimeError:  # loop closed: shutting down
                             self._stop = True
                             return
@@ -322,14 +448,29 @@ class StreamServer:
                 if item is None:
                     raise RuntimeError(
                         "engine thread died; shutting the server down")
-                events, consumed = item
+                events, consumed, diar_frames, diar_drained = item
                 freed = 0
                 for sid, n in consumed.items():  # budget release
                     have = self._queued_samples.get(sid, 0)
                     take = min(have, n)
                     self._queued_samples[sid] = have - take
                     freed += 2 * take
+                for sid, n in diar_drained.items():  # the diarize copy
+                    have = self._diar_staged.get(sid, 0)
+                    take = min(have, n)
+                    self._diar_staged[sid] = have - take
+                    freed += 2 * take
                 touched: set[asyncio.StreamWriter] = set()
+                # diarize frames first: a stream's result frame goes out
+                # ahead of its OP_ENDED
+                for sid, line in diar_frames:
+                    w = self.writers.get(sid)
+                    if w is not None:
+                        try:
+                            w.write(P.pack(P.OP_DIARIZE, sid, line))
+                            touched.add(w)
+                        except (ConnectionError, RuntimeError):
+                            pass
                 for ev in events:
                     w = self.writers.get(ev.stream_id)
                     if ev.kind == "text" and w is not None and ev.text:
@@ -350,6 +491,7 @@ class StreamServer:
                                 ev.stream_id)
                         self.writers.pop(ev.stream_id, None)
                         freed += 2 * self._queued_samples.pop(ev.stream_id, 0)
+                        freed += 2 * self._diar_staged.pop(ev.stream_id, 0)
                 for w in touched:
                     try:
                         await w.drain()
@@ -363,6 +505,8 @@ class StreamServer:
             self._stop = True
             self.wake.set()
             await asyncio.to_thread(thread.join, 5.0)
+            if self._diar_exec is not None:
+                self._diar_exec.shutdown(wait=False)
 
     async def start(self, host: str | None = None, port: int | None = None,
                     unix_path: str | None = None) -> asyncio.AbstractServer:
@@ -403,9 +547,6 @@ class StreamServer:
 
 # Options of the JAX server that the port refuses until it runs them.
 _NOT_PORTED = (
-    ("--native", {"action": "store_true"}, "the native ingest server"),
-    ("--diarize", {"default": None, "metavar": "DIARIZE_GGUF"},
-     "diarization"),
     ("--dp", {"type": int, "default": 1}, "multi-GPU serving"),
     ("--tp", {"type": int, "default": 1}, "multi-GPU serving"),
 )
@@ -444,6 +585,15 @@ def main(argv=None) -> int:
                          "without it)")
     ap.add_argument("--prewarm", action="store_true",
                     help="run every tick variant once before serving")
+    ap.add_argument("--native", action="store_true",
+                    help="serve through the C++ ingest thread "
+                         "(serving/native_server.py): the same wire "
+                         "protocol, no Python socket handling")
+    ap.add_argument("--diarize", default=None, metavar="DIARIZE_GGUF",
+                    help="enable per-stream diarization: streams that START "
+                         "with {\"diarize\": true} get OP_DIARIZE word "
+                         "JSONL frames and a final result frame. Not "
+                         "supported with --native.")
     for flag, kw, what in _NOT_PORTED:
         ap.add_argument(flag, help=f"not supported by the torch port yet "
                                    f"({what})", **kw)
@@ -454,29 +604,63 @@ def main(argv=None) -> int:
             ap.error(f"{flag}: {what} is not supported by the torch port "
                      "yet (see ROADMAP.md)")
 
+    if args.native and args.diarize:
+        ap.error("--diarize is not supported with --native (the native "
+                 "ingest path has no per-stream event hook)")
+
     from ..api import ASRModel
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     device = torch.device(args.device)
-    # the JAX package's switch of the fused attention block (kernel B3 here)
-    attn_block = os.environ.get("NEMOTRON_TPU_PALLAS_ATTN_BLOCK", "0") == "1"
+    env = os.environ.get
+    # the JAX package's switches of the fused attention block (kernel B3)
+    # and of per-token confidences, as the model's arguments here
+    attn_block = env("NEMOTRON_TPU_PALLAS_ATTN_BLOCK", "0") == "1"
+    confidence = env("NEMOTRON_TPU_CONFIDENCE", "") == "1"
     if args.model == "random":
         model = ASRModel.random(dtype=dtype, device=device,
-                                kv_int8=args.kv_int8, attn_block=attn_block)
+                                kv_int8=args.kv_int8, attn_block=attn_block,
+                                confidence=confidence)
     else:
         model = ASRModel.from_gguf(args.model, dtype=dtype, device=device,
                                    keep_quantized=args.quantized,
                                    kv_int8=args.kv_int8,
-                                   attn_block=attn_block)
+                                   attn_block=attn_block,
+                                   confidence=confidence)
     if args.blank_bias:
         model.params.joint.out_b[model.hp.blank_id] += args.blank_bias
 
-    # the JAX engine's switches of its flow, as arguments here
-    srv = StreamServer(
-        model, batch_per_group=args.batch, mem_budget=args.mem_budget,
-        gated_realign=os.environ.get("NEMOTRON_TPU_GATED_REALIGN",
-                                     "1") == "1",
-        phase_timers=os.environ.get("NEMOTRON_TPU_PHASE_TIMERS", "") == "1")
+    # the JAX engine's switches, as the engine's arguments here
+    engine_kw = dict(
+        gated_realign=env("NEMOTRON_TPU_GATED_REALIGN", "1") == "1",
+        phase_timers=env("NEMOTRON_TPU_PHASE_TIMERS", "") == "1",
+        readback_depth=int(env("NEMOTRON_TPU_READBACK_DEPTH", "2")),
+        max_tick_chunks=int(env("NEMOTRON_TPU_MAX_TICK_CHUNKS", "8")))
+
+    if args.native:
+        from .native_server import NativeStreamServer
+
+        nsrv = NativeStreamServer(model, batch_per_group=args.batch,
+                                  mem_budget=args.mem_budget, **engine_kw)
+        port = nsrv.start(args.host, args.port, args.unix)
+        if args.prewarm:  # early connects queue until serve_forever
+            print("prewarming tick variants...", file=sys.stderr)
+            nsrv.engine.prewarm()
+        print(f"listening on {args.unix or f'{args.host}:{port}'} (native, "
+              f"{model.backend_name})", file=sys.stderr)
+        nsrv.serve_forever()
+        return 0
+
+    diarize_params = None
+    if args.diarize:
+        from ..diarize.params import load_diarize_model
+
+        diarize_params = load_diarize_model(args.diarize, device=device)
+        print(f"diarization enabled ({args.diarize})", file=sys.stderr)
+
+    srv = StreamServer(model, batch_per_group=args.batch,
+                       mem_budget=args.mem_budget,
+                       diarize_params=diarize_params, **engine_kw)
     if args.prewarm:
         print("prewarming tick variants...", file=sys.stderr)
         srv.engine.prewarm()

@@ -28,9 +28,14 @@ package's byte format); and the legacy flow (`gated_realign=False`: a
 tick with paused slots compacts to phase 0 and runs the phase-stationary
 gated tick) with its phase timers (`phase_timers=True`: the encoder and
 decoder halves timed apart, `encoder_seconds` / `decoder_seconds` in
-stats). The JAX package reads the last two from NEMOTRON_TPU_GATED_REALIGN
-and NEMOTRON_TPU_PHASE_TIMERS; here they are arguments, and the server
-maps the variables onto them. Not ported yet: native ingest.
+stats); the readback depth and the k-chunk cap (`readback_depth`,
+`max_tick_chunks`); and the native ingest source (`source=`, a
+serving/ingest.NativeIngest: PCM stages in the C++ layer's rings, and each
+tick takes its whole block with one call). The JAX package reads the flow,
+the timers, the depth and the cap from NEMOTRON_TPU_GATED_REALIGN,
+NEMOTRON_TPU_PHASE_TIMERS, NEMOTRON_TPU_READBACK_DEPTH and
+NEMOTRON_TPU_MAX_TICK_CHUNKS; here they are arguments, and the server maps
+the variables onto them.
 """
 
 from __future__ import annotations
@@ -50,12 +55,14 @@ from ..ops.kvquant import QuantKV, is_quant
 from ..streaming.state import (PP_TAIL_LEN, extract_slots, install_slot,
                                reset_slots, state_from_leaves, state_leaves)
 
-# Token readbacks lag dispatch by up to this many ticks.
+# Token readbacks lag dispatch by up to this many ticks (the default of
+# EngineGroup's readback_depth).
 READBACK_DEPTH = 2
 
 # Backlog micro-batching: when every slot is occupied, steady and has this
-# many chunks staged, one tick advances every stream by k chunks. Clamped to
-# the largest divisor of n_phases (the k-chunk tick's phase contract).
+# many chunks staged, one tick advances every stream by k chunks (the default
+# of EngineGroup's max_tick_chunks). Clamped to the largest divisor of
+# n_phases (the k-chunk tick's phase contract).
 MAX_TICK_CHUNKS = 8
 
 # Samples folded into the frontend carry at stream start: the carry becomes
@@ -65,8 +72,9 @@ PRIME_SAMPLES = PP_TAIL_LEN - 256  # 96
 PREEMPH = 0.97
 
 
-def max_safe_tick_chunks(n_phases: int) -> int:
-    k = min(MAX_TICK_CHUNKS, n_phases)
+def max_safe_tick_chunks(n_phases: int,
+                         max_chunks: int = MAX_TICK_CHUNKS) -> int:
+    k = min(max_chunks, n_phases)
     while n_phases % k:
         k -= 1
     return max(1, k)
@@ -167,14 +175,26 @@ class EngineGroup:
     runs the phase-stationary gated tick there. phase_timers times the
     encoder and decoder halves of each tick apart (api.fused_tick_profiled)
     and forces the legacy flow and single-chunk ticks, as the JAX
-    package's PHASE_TIMERS does."""
+    package's PHASE_TIMERS does. readback_depth and max_tick_chunks are
+    the JAX engine's READBACK_DEPTH and MAX_TICK_CHUNKS, clamped to >= 1 as
+    there.
+
+    `source` (optional) is a native ingest backend (serving/ingest.py): PCM
+    then stages in its C++ rings instead of the slots' Python lists, and
+    the tick pulls it with ONE take_block call. The admission budget is
+    released natively at take time, so consumed_samples stays empty."""
 
     def __init__(self, model, cfg, batch: int, gated_realign: bool = True,
-                 phase_timers: bool = False):
+                 phase_timers: bool = False,
+                 readback_depth: int = READBACK_DEPTH,
+                 max_tick_chunks: int = MAX_TICK_CHUNKS, source=None):
         self.model = model
         self.cfg = cfg
         self.batch = batch
         self.hp = model.hp
+        self.source = source
+        self.readback_depth = max(1, int(readback_depth))
+        self.max_tick_chunks = max(1, int(max_tick_chunks))
         self.phase_timers = phase_timers
         self.use_realign = gated_realign and not phase_timers
         self.state = model.init_stream_state(batch, cfg)
@@ -217,7 +237,7 @@ class EngineGroup:
         (builds the kernels, warms cuBLAS/cuDNN and the allocator), then
         reset every slot."""
         b, cfg, model = self.batch, self.cfg, self.model
-        k_cap = max_safe_tick_chunks(cfg.n_phases)
+        k_cap = max_safe_tick_chunks(cfg.n_phases, self.max_tick_chunks)
         half = np.zeros(b, dtype=bool)
         half[:max(1, b // 2)] = True
         self.state = model.prime_frontend(
@@ -316,6 +336,18 @@ class EngineGroup:
                 return []
             exports, self._pending_exports = self._pending_exports, []
             imports, self._pending_imports = self._pending_imports, []
+        if self.source is not None:
+            # the native ingest stages PCM in C++ connection rings with no
+            # injection API: a migrated tail would have nowhere to go
+            # (clients of a native server migrate by reconnect and replay)
+            err = NotImplementedError(
+                "live-stream migration is not supported on native-ingest "
+                "engines")
+            for _sid, fut in exports:
+                fut.set_exception(err)
+            for _snap, _sid, _trust, fut in imports:
+                fut.set_exception(err)
+            return []
         events: list[Event] = []
         if exports:
             events.extend(self._drain_pending(force_all=True))
@@ -486,6 +518,21 @@ class EngineGroup:
                     self.consumed_samples[sid] = (
                         self.consumed_samples.get(sid, 0) + n)
 
+    def _refresh_native(self) -> None:
+        """Pull each slot's staging status from the native ingest layer (one
+        call in place of _drain_queues: PCM stays in the C++ rings until
+        the tick's block is filled)."""
+        idxs = [i for i, s in enumerate(self.slots)
+                if s is not None and not s.finalize_sent]
+        if not idxs:
+            return
+        sids = np.array([self.slots[i].stream_id for i in idxs], np.uint32)
+        staged, pushed = self.source.status(sids)
+        for j, i in enumerate(idxs):
+            if staged[j] >= 0:  # -1: dropped natively, its event is pending
+                self.slots[i].staged = int(staged[j])
+                self.slots[i].total_pushed = int(pushed[j])
+
     def _prime_new_slots(self) -> None:
         """Fold each new stream's first 96 samples into its frontend carry."""
         rows = [i for i, s in enumerate(self.slots)
@@ -493,11 +540,22 @@ class EngineGroup:
                 and s.staged >= PRIME_SAMPLES]
         if not rows:
             return
+        raw = np.zeros((len(rows), PRIME_SAMPLES), np.int16)
+        if self.source is not None:
+            sids = np.array([self.slots[i].stream_id for i in rows],
+                            np.uint32)
+            self.source.take_block(
+                sids, np.full(len(rows), PRIME_SAMPLES, np.int32), raw)
+            for i in rows:
+                self.slots[i].staged -= PRIME_SAMPLES
+        else:
+            for j, i in enumerate(rows):
+                raw[j] = self.slots[i].take(PRIME_SAMPLES)
         mask = np.zeros(self.batch, dtype=bool)
         tails = np.zeros((self.batch, PP_TAIL_LEN), np.float32)
         lasts = np.zeros(self.batch, np.float32)
-        for i in rows:
-            tails[i], lasts[i] = prime_carry(self.slots[i].take(PRIME_SAMPLES))
+        for j, i in enumerate(rows):
+            tails[i], lasts[i] = prime_carry(raw[j])
             mask[i] = True
             self.slots[i].primed = True
         self.state = self.model.prime_frontend(self.state, mask, tails, lasts)
@@ -518,8 +576,8 @@ class EngineGroup:
 
     def _drain_pending(self, force_all: bool) -> list[Event]:
         """Process queued readbacks FIFO. A "tokens" entry is read once a
-        newer step has been dispatched, when it is READBACK_DEPTH deep, or
-        when force_all (idle ticks)."""
+        newer step has been dispatched, when the queue is deeper than
+        readback_depth, or when force_all (idle ticks)."""
         events: list[Event] = []
         while self._pending_q:
             head = self._pending_q[0]
@@ -527,7 +585,7 @@ class EngineGroup:
                 has_newer = any(e.kind == "tokens"
                                 for e in itertools.islice(self._pending_q, 1,
                                                           None))
-                over_depth = len(self._pending_q) > READBACK_DEPTH
+                over_depth = len(self._pending_q) > self.readback_depth
                 if not (force_all or over_depth or has_newer):
                     break
             self._pending_q.popleft()
@@ -607,7 +665,10 @@ class EngineGroup:
         self._apply_pending_drops()
         self._apply_pending_resets()
         events.extend(self._apply_pending_migrations())
-        self._drain_queues()
+        if self.source is None:
+            self._drain_queues()
+        else:
+            self._refresh_native()
         self._prime_new_slots()
 
         n_valid = np.zeros(b, dtype=np.int32)
@@ -638,7 +699,7 @@ class EngineGroup:
         # backlog micro-batching: every slot occupied, steady, and at least
         # k_cap chunks staged; starts only at phases divisible by k_cap
         k = 1
-        k_cap = max_safe_tick_chunks(cfg.n_phases)
+        k_cap = max_safe_tick_chunks(cfg.n_phases, self.max_tick_chunks)
         if (k_cap > 1 and not self.phase_timers and not fin_nv
                 and not ended_now and bool(ready.all())
                 and self.phase % k_cap == 0
@@ -646,15 +707,33 @@ class EngineGroup:
             k = k_cap
 
         block = np.zeros((b, k * shift), dtype=np.int16)
+        if self.source is not None and (bool(ready.any()) or fin_nv):
+            # ONE native call fills every active row from the C++ staging
+            # rings (a finalize row's partial block zero-padded)
+            take_sids = np.zeros(b, np.uint32)
+            take_n = np.zeros(b, np.int32)
+            for i in np.nonzero(ready)[0]:
+                take_sids[i] = self.slots[i].stream_id
+                take_n[i] = k * shift
+            for i in fin_nv:
+                take_sids[i] = self.slots[i].stream_id
+                take_n[i] = shift
+            self.source.take_block(take_sids, take_n, block)
         for i in np.nonzero(ready)[0]:
             slot = self.slots[i]
-            block[i] = slot.take(k * shift)
+            if self.source is None:
+                block[i] = slot.take(k * shift)
+            else:
+                slot.staged = max(0, slot.staged - k * shift)
             n_valid[i] = cfg.valid_out_len
             active[i] = True
             slot.steps += k
         for i, nv in fin_nv.items():
             slot = self.slots[i]
-            block[i, :shift] = slot.take(shift)  # zero-padded partial block
+            if self.source is None:
+                block[i, :shift] = slot.take(shift)  # zero-padded partial
+            else:
+                slot.staged = max(0, slot.staged - shift)
             n_valid[i] = nv
             active[i] = True
             finalizing.add(i)
@@ -773,14 +852,20 @@ class EngineGroup:
 
 class BatchedEngine:
     """Multi-latency-mode engine; owns one EngineGroup per right_context.
-    gated_realign and phase_timers select each group's flow (EngineGroup)."""
+    gated_realign, phase_timers, readback_depth, max_tick_chunks and the
+    native ingest `source` go to each group (EngineGroup)."""
 
     def __init__(self, model, batch_per_group: int = 32,
-                 gated_realign: bool = True, phase_timers: bool = False):
+                 gated_realign: bool = True, phase_timers: bool = False,
+                 readback_depth: int = READBACK_DEPTH,
+                 max_tick_chunks: int = MAX_TICK_CHUNKS, source=None):
         self.model = model
         self.batch = batch_per_group
         self.gated_realign = gated_realign
         self.phase_timers = phase_timers
+        self.readback_depth = max(1, int(readback_depth))
+        self.max_tick_chunks = max(1, int(max_tick_chunks))
+        self.source = source
         self.groups: dict[int, EngineGroup] = {}
         self._groups_lock = threading.Lock()
         self._ids = itertools.count(1)
@@ -795,7 +880,10 @@ class BatchedEngine:
                     group = EngineGroup(
                         self.model, self.model.cache_config(rc), self.batch,
                         gated_realign=self.gated_realign,
-                        phase_timers=self.phase_timers)
+                        phase_timers=self.phase_timers,
+                        readback_depth=self.readback_depth,
+                        max_tick_chunks=self.max_tick_chunks,
+                        source=self.source)
                     self.groups[rc] = group
         return group
 

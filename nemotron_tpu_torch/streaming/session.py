@@ -27,7 +27,7 @@ import torch
 from ..audio.frontend import StreamPreprocessor
 from ..models.asr import tokens_to_list
 from ..config import CacheConfig, LatencyMode
-from .state import from_numpy, state_leaves
+from .state import from_numpy, state_leaves, to_numpy
 
 
 def _leaves(obj, prefix=""):
@@ -175,16 +175,18 @@ class StreamSession:
     def save_state(self, path: str) -> None:
         """Checkpoint the whole streaming context (the device state's
         leaves, the host mel and sample buffers, tokens, confidences and
-        transcript) so that a dropped stream resumes where it stopped. The
-        npz is the port's own format (named leaves, bf16 ones as f32,
-        exactly), not the JAX package's; restore_state reads both."""
-        leaves = {}
-        for name, t in _leaves(self.state).items():
-            t = t.detach().cpu()
-            leaves["state." + name] = (t.float() if t.dtype == torch.bfloat16
-                                       else t).numpy()
+        transcript) so that a dropped stream resumes where it stopped, in
+        the JAX package's layout: `n_leaves` and `leaf_{i}` in its pytree
+        order (streaming/state.state_leaves), each leaf in its own dtype,
+        with its other keys; the port adds `token_confs`. A bf16 leaf is
+        written as JAX's np.savez writes an ml_dtypes bfloat16 array, as
+        2-byte void records of its bit pattern."""
+        leaves = [to_numpy(t) for t in state_leaves(self.state)]
+        leaves = [a.view("V2") if a.dtype == np.uint16 else a
+                  for a in leaves]  # to_numpy gives bf16 as uint16 bits
         np.savez(
-            path, **leaves,
+            path, n_leaves=len(leaves),
+            **{f"leaf_{i}": a for i, a in enumerate(leaves)},
             mel_buffer=self.mel_buffer,
             pp_buf=self.preprocessor.buf,
             pp_last=np.float32(self.preprocessor.last_sample),
@@ -198,12 +200,13 @@ class StreamSession:
             phase=np.int64(self.phase))
 
     def restore_state(self, path: str) -> None:
-        """Resume from save_state's checkpoint, or from the JAX package's
-        StreamSession.save_state (its state as `leaf_{i}` in its pytree
-        order, bf16 leaves as 2-byte records; no confidences)."""
+        """Resume from save_state's checkpoint or the JAX package's
+        StreamSession.save_state (the state as `leaf_{i}` in its pytree
+        order, bf16 leaves as 2-byte records; no confidences there), or
+        from the port's earlier layout (`state.<name>` leaves)."""
         z = np.load(path)
         fresh = self.model.init_stream_state(1, self.cfg)
-        if "n_leaves" in z.files:  # the JAX package's checkpoint
+        if "n_leaves" in z.files:  # the JAX package's layout
             dst = state_leaves(fresh)
             n = int(z["n_leaves"])
             if n != len(dst):
@@ -214,12 +217,12 @@ class StreamSession:
             # np.savez keeps an ml_dtypes bfloat16 leaf as void records
             src = [a.view(np.uint16) if a.dtype.kind == "V" else a
                    for a in src]
-            confs = []
         else:
             named = _leaves(fresh)
             dst = list(named.values())
             src = [z["state." + name] for name in named]
-            confs = [float(x) for x in z["token_confs"]]
+        confs = ([float(x) for x in z["token_confs"]]
+                 if "token_confs" in z.files else [])
         for t, a in zip(dst, src):
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"checkpoint leaf shape {a.shape} != "

@@ -2,8 +2,10 @@
 ... --cpu`) against the JAX package's `main` on the same tiny GGUF: stdout
 equal for raw PCM, a .wav, stdin and --timestamps, with and without the
 attention block (NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1), and at right contexts
-1, 6 and 13; the RTF line on stderr; and every refused option exits
-non-zero with its message.
+1, 6 and 13; the RTF line on stderr; the JAX CLI's --metal / --tpu taken
+as no-ops; and every refused argv (a missing or malformed value, an
+unknown option, a chunk of no length) exits non-zero with its message.
+The diarization options are in tests/test_torch_cli_diarize.py.
 
 The JAX package's main is given one model per GGUF (its `from_gguf`
 patched to return it), so its step functions compile once per file, and
@@ -115,13 +117,13 @@ def test_cli_reads_stdin(files, jax_main, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--diarize", "d.gguf"], "diarization"),
-    (["--rttm"], "diarization"),
-    (["--speaker-text"], "diarization"),
-    (["--json"], "diarization"),
-    (["--num-speakers", "2"], "diarization"),
-    (["--sub-shift", "500"], "diarization"),
-    (["--tpu"], "unknown option"),
+    (["--diarize"], "--diarize needs a value"),
+    (["--lang"], "--lang needs a value"),
+    (["--num-speakers", "two"], "not a number"),
+    (["--sub-shift", "0.5"], "not a number"),
+    (["--sub-shift"], "--sub-shift needs a value"),
+    (["--bogus"], "unknown option"),
+    (["0"], "chunk_ms must be positive"),
 ])
 def test_cli_refusals(files, argv, message):
     with pytest.raises(SystemExit) as e:
@@ -129,11 +131,24 @@ def test_cli_refusals(files, argv, message):
     assert isinstance(e.value.code, str) and message in e.value.code
 
 
+@pytest.mark.parametrize("flag", ["--tpu", "--metal"])
+def test_cli_takes_the_jax_backend_flags_as_no_ops(files, jax_main, capsys,
+                                                   flag):
+    """The JAX CLI's --metal and --tpu are accepted and change nothing: the
+    device stays --cpu's, and stdout is the JAX CLI's given the same argv."""
+    assert tcli.parse_args(["m", "a", flag])["device"] == "cuda"
+    assert tcli.parse_args(["m", "a", flag, "--cpu"])["device"] == "cpu"
+    want, _ = run(jax_main, [files["gguf"], files["raw"], flag], capsys)
+    got, _ = run(tcli.main, [files["gguf"], files["raw"], flag, "--cpu"],
+                 capsys)
+    assert got == want and len(want.strip()) > 10
+
+
 def test_cli_refusal_exit_status_and_usage(files):
     cmd = [sys.executable, "-m", "nemotron_tpu_torch.cli.transcribe_stream",
-           files["gguf"], files["raw"], "--cpu", "--diarize", "d.gguf"]
+           files["gguf"], files["raw"], "--cpu", "--bogus"]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "diarization" in out.stderr
+    assert out.returncode != 0 and "unknown option --bogus" in out.stderr
     with pytest.raises(SystemExit, match="usage"):
         tcli.main([files["gguf"]])
 

@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free modules against the
 originals: config, the GGUF reader and writer, the tokenizer, the wire
-protocol and client, the native host runtime and the wav reader. The port
+protocol and client, the native host runtime, the native ingest
+bindings (with their C++ source, byte for byte) and the wav reader. The port
 may import nothing of `nemotron_tpu`, so it keeps these copies at the same
 module paths; they must behave byte for byte as the originals. Each test
 feeds the same inputs to both and compares what comes out exactly."""
@@ -44,6 +45,10 @@ COPIES = {
     "serving.protocol": set(),
     "serving.client": set(),
     "native": {"_PKG", "_SRC", "_SO", "_build"},
+    # the port builds into its _build/, records why a build failed and
+    # raises it where a server asks for the native path
+    "serving.ingest": {"_PKG", "_SRC", "_SO", "_load", "_load_error",
+                       "require_native_ingest"},
     "audio.wavio": set(),
 }
 
@@ -246,3 +251,23 @@ def test_host_library_builds_inside_the_port():
     assert Path(tnative._SRC).read_text().split("#include", 1)[1] \
         == (ROOT / "native" / "nemotron_host.cpp").read_text().split(
             "#include", 1)[1]
+
+
+def test_ingest_library_builds_inside_the_port():
+    """The port's ingest server is the JAX package's C++ source byte for
+    byte, built from the port's own copy into its git-ignored build
+    directory; the two _load functions differ only in the build directory
+    and in keeping the failure's message."""
+    from nemotron_tpu.serving import ingest as jingest
+    from nemotron_tpu_torch.serving import ingest as tingest
+
+    pkg = ROOT / "nemotron_tpu_torch"
+    assert Path(tingest._SRC) == pkg / "csrc" / "host" / "ingest_server.cpp"
+    assert Path(tingest._SRC).read_bytes() \
+        == (ROOT / "native" / "ingest_server.cpp").read_bytes()
+    assert tingest.have_native_ingest() == jingest.have_native_ingest()
+    assert Path(tingest._SO).parent == pkg / "_build"
+    assert Path(tingest._SO).is_file()
+    assert (tingest.EV_START, tingest.EV_SET_LANG, tingest.EV_END,
+            tingest.EV_DROP) == (jingest.EV_START, jingest.EV_SET_LANG,
+                                 jingest.EV_END, jingest.EV_DROP)

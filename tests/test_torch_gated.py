@@ -11,7 +11,12 @@ the same random tiny weights (tests/helpers.tiny_hparams, seed 1):
     under a staggered join / pause / end schedule: the same events as the
     JAX engine with NEMOTRON_TPU_GATED_REALIGN=0 / NEMOTRON_TPU_PHASE_TIMERS=1
     (tests/test_engine.py:test_engine_phase_timers is the JAX counterpart),
-    and stats() carrying encoder_seconds / decoder_seconds.
+    and stats() carrying encoder_seconds / decoder_seconds;
+  - BatchedEngine(readback_depth=, max_tick_chunks=) against the JAX engine
+    under NEMOTRON_TPU_READBACK_DEPTH / NEMOTRON_TPU_MAX_TICK_CHUNKS (one
+    readback deep, no k-chunk ticks; three deep with k <= 2; 0 and 0
+    clamped to 1), and the
+    server's main mapping the four variables onto the engine's arguments.
 
 Everything runs right context 0 with N_PHASES slack-buffer phases (the JAX
 package compiles a step per phase and mask)."""
@@ -295,3 +300,67 @@ def test_server_main_maps_the_flow_variables(tmp_path, monkeypatch, env,
         monkeypatch.setenv(k, v)
     assert server_mod.main([path, "--device", "cpu"]) == 0
     assert seen["flow"] == want
+
+
+@pytest.mark.parametrize("depth, chunks", [(1, 1), (3, 2), (0, 0)],
+                         ids=["depth1-k1", "depth3-k2", "clamped"])
+def test_readback_depth_and_tick_chunks_match_jax(depth, chunks,
+                                                  monkeypatch):
+    """The JAX engine's READBACK_DEPTH / MAX_TICK_CHUNKS as the port's
+    arguments, with the same max(1, ...) clamp: the same events."""
+    jm, mp = jax_model()
+    try:
+        monkeypatch.setattr(jax_engine, "READBACK_DEPTH", max(1, depth))
+        monkeypatch.setattr(jax_engine, "MAX_TICK_CHUNKS", max(1, chunks))
+        want = staggered(jax_engine.BatchedEngine(jm, 3))
+    finally:
+        mp.undo()
+    tm = TorchModel.random(tiny_hparams(), seed=1, device="cpu")
+    engine = BatchedEngine(tm, 3, readback_depth=depth,
+                           max_tick_chunks=chunks)
+    got = staggered(engine)
+    assert got == want
+    group = engine.groups[0]
+    assert group.readback_depth == max(1, depth)
+    if max(1, chunks) == 1:  # no k-chunk tick ran
+        assert group.total_chunk_steps == group.total_steps
+
+
+@pytest.mark.parametrize("env, want", [
+    ({}, (True, False, 2, 8)),
+    ({"NEMOTRON_TPU_READBACK_DEPTH": "1",
+      "NEMOTRON_TPU_MAX_TICK_CHUNKS": "1"}, (True, False, 1, 1)),
+    ({"NEMOTRON_TPU_READBACK_DEPTH": "0", "NEMOTRON_TPU_MAX_TICK_CHUNKS": "4",
+      "NEMOTRON_TPU_GATED_REALIGN": "0"}, (False, False, 1, 4))])
+def test_server_main_maps_the_engine_variables(tmp_path, monkeypatch, env,
+                                               want):
+    """The port's server maps the JAX engine's four variables onto the
+    engine's arguments (gated_realign, phase_timers, readback_depth,
+    max_tick_chunks), and NEMOTRON_TPU_CONFIDENCE onto the model's."""
+    from scripts_support import export_random_checkpoint
+
+    from nemotron_tpu_torch.serving import server as server_mod
+
+    path = str(tmp_path / "tiny.gguf")
+    export_random_checkpoint(tiny_hparams(), path, seed=3)
+    seen = {}
+
+    async def serve(self, host=None, port=None, unix_path=None):
+        e = self.engine
+        seen["kw"] = (e.gated_realign, e.phase_timers, e.readback_depth,
+                      e.max_tick_chunks)
+        seen["confidence"] = e.model.confidence
+
+    monkeypatch.setattr(server_mod.StreamServer, "serve", serve)
+    for k in ("NEMOTRON_TPU_GATED_REALIGN", "NEMOTRON_TPU_PHASE_TIMERS",
+              "NEMOTRON_TPU_READBACK_DEPTH", "NEMOTRON_TPU_MAX_TICK_CHUNKS",
+              "NEMOTRON_TPU_CONFIDENCE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    confidence = "NEMOTRON_TPU_READBACK_DEPTH" in env
+    if confidence:
+        monkeypatch.setenv("NEMOTRON_TPU_CONFIDENCE", "1")
+    assert server_mod.main([path, "--device", "cpu"]) == 0
+    assert seen["kw"] == want
+    assert seen["confidence"] == confidence

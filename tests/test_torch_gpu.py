@@ -844,3 +844,85 @@ def test_tiny_stream_migrates_on_the_card(cuda, int8):
     text += own(events, sid2)
     text = finish(b, sid2, run(b, sid2, 4800, len(audio), text))
     assert want and text == want
+
+
+def test_diarize_nets_on_card_match_cpu(cuda, tmp_path):
+    """MarbleNet and TitaNet-L at the published widths (the random diarize
+    GGUF of chip_smoke.write_random_diarize_gguf) on the card against the
+    CPU in f32, over full and ragged lengths: VAD within 1e-4, embeddings
+    within 1e-3 of max(1, max|e|)."""
+    from chip_smoke import diarize_signal, write_random_diarize_gguf
+    from nemotron_tpu_torch.diarize.nets import spk_embed, vad_probs
+    from nemotron_tpu_torch.diarize.params import load_diarize_model
+
+    path = str(tmp_path / "diarize.gguf")
+    write_random_diarize_gguf(path)
+    gpu = load_diarize_model(path, device="cuda")
+    cpu = load_diarize_model(path, device="cpu")
+    sig = diarize_signal()
+    for net, name, n, count, rule in ((vad_probs, "vad", 10080, 16, 1e-4),
+                                      (spk_embed, "spk", 24000, 4, 1e-3)):
+        w = np.stack([sig[i * 16000:i * 16000 + n] for i in range(count)])
+        lens = np.full(count, n, np.int32)
+        lens[1::2] = n * 2 // 3
+        for i in range(count):
+            w[i, lens[i]:] = 0.0
+        want = net(getattr(cpu, name), torch.from_numpy(w),
+                   torch.from_numpy(lens)).numpy()
+        got = net(getattr(gpu, name), torch.from_numpy(w).cuda(),
+                  torch.from_numpy(lens).cuda()).cpu().numpy()
+        err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
+        assert err <= rule, (name, err)
+
+
+def test_native_server_texts_on_card(cuda):
+    """The native ingest server on the card: two clients' texts equal the
+    asyncio server's and the card's StreamSession's (a tiny random model)."""
+    import asyncio
+    import threading
+
+    from nemotron_tpu_torch.serving.client import transcribe_file
+    from nemotron_tpu_torch.serving.native_server import NativeStreamServer
+    from nemotron_tpu_torch.serving.server import StreamServer
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    model = ASRModel.random(_tiny_hp(), seed=1, device="cuda")
+    rng = np.random.default_rng(2)
+    t = np.arange(9600) / 16000.0
+    audios = [(np.clip(0.4 * np.sin(2 * np.pi * f * t)
+                       + 0.2 * rng.standard_normal(len(t)), -1, 1)
+               * 32767).astype(np.int16) for f in (260.0, 410.0)]
+    want = []
+    for a in audios:
+        s = StreamSession(model, 0)
+        s.process_incremental(a)
+        s.finalize()
+        want.append(s.get_transcript())
+
+    def clients(port):
+        async def run():
+            return await asyncio.gather(*[
+                transcribe_file(a, host="127.0.0.1", port=port, chunk_ms=100)
+                for a in audios])
+        return asyncio.run(run())
+
+    srv = NativeStreamServer(model, batch_per_group=4)
+    port = srv.start("127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        native = clients(port)
+    finally:
+        srv.stop()
+        th.join(timeout=30)
+
+    async def plain():
+        s = StreamServer(model, batch_per_group=4)
+        server = await s.start("127.0.0.1", 0)
+        try:
+            return await asyncio.to_thread(
+                clients, server.sockets[0].getsockname()[1])
+        finally:
+            await s.stop(server)
+
+    assert native == asyncio.run(plain()) == want and all(want)

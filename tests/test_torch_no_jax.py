@@ -4,7 +4,8 @@ module of nemotron_tpu_torch and chip_smoke import in a process in which
 `nemotron_tpu` in sys.modules; no source file of the port names jax; the
 kernel wrappers given CPU tensors take their plain versions without
 building or launching. The walk covers every module of the port, the
-session, frontend and both CLI modules included. No file of the port or
+session, frontend and both CLI modules, the diarization package and the
+native ingest server included. No file of the port or
 chip_smoke.py names a path into `nemotron_tpu/` or `native/` (the port
 keeps its own copies of the modules it shares with the JAX package), and
 the port's entry points default to the card: without one, a model that
@@ -38,6 +39,10 @@ CHILD = textwrap.dedent("""
     names = [m.name for m in pkgutil.walk_packages(
         nemotron_tpu_torch.__path__, "nemotron_tpu_torch.")]
     assert "nemotron_tpu_torch.cli.transcribe" in names
+    for mod in ("diarize.audio", "diarize.nets", "diarize.params",
+                "diarize.cluster", "diarize.pipeline", "serving.ingest",
+                "serving.native_server"):
+        assert "nemotron_tpu_torch." + mod in names, mod
     for name in names:
         importlib.import_module(name)
     import chip_smoke
@@ -81,6 +86,9 @@ CHILD = textwrap.dedent("""
     assert parse_args(["m.gguf", "-"])["device"] == "cuda"
     from nemotron_tpu_torch.cli import transcribe
     assert transcribe.parse_args(["m.gguf", "-"])["device"] == "cuda"
+    from nemotron_tpu_torch.diarize.cluster import nmesc_cluster
+    emb = np.random.default_rng(0).standard_normal((8, 16))
+    assert nmesc_cluster(emb).labels.shape == (8,)
     assert len(kernels.KERNELS) == 5
     assert [k.launches for k in kernels.KERNELS] == [0] * 5
     assert kernels._lib is None  # nothing was built or loaded

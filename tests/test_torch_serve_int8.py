@@ -99,10 +99,13 @@ def test_server_main_serves_quantized_kv_int8(tmp_path):
     assert got == want
 
 
-@pytest.mark.parametrize("flag", [["--native"], ["--diarize", "d.gguf"],
-                                  ["--dp", "2"], ["--tp", "2"]])
-def test_main_still_refuses_with_int8_options(flag, capsys):
+@pytest.mark.parametrize("flag, message", [
+    (["--native", "--diarize", "d.gguf"], "not supported with --native"),
+    (["--dp", "2"], "not supported by the torch port"),
+    (["--tp", "2"], "not supported by the torch port"),
+    (["--native", "--dp", "2"], "not supported by the torch port")])
+def test_main_still_refuses_with_int8_options(flag, message, capsys):
     with pytest.raises(SystemExit) as e:
         main(["random", "--quantized", "--kv-int8", *flag])
     assert e.value.code == 2
-    assert "not supported by the torch port" in capsys.readouterr().err
+    assert message in capsys.readouterr().err

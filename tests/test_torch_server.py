@@ -1,8 +1,11 @@
 """The port's server on the CPU: two TCP clients, each transcript equal to the
 port's direct tick loop over the same audio (tokens are exact, not within a
 tolerance), plus the refusals the port makes at START (a right context
-outside 0, 1, 6, 13; diarization). Right contexts 1, 6 and 13 against the
-JAX server: tests/test_torch_right_context_serving.py."""
+outside 0, 1, 6, 13; diarization on a server without a diarize model) and
+in main (--diarize with --native, multi-GPU serving). Right contexts 1, 6
+and 13 against the JAX server: tests/test_torch_right_context_serving.py;
+diarization: tests/test_torch_server_diarize.py; the native ingest server:
+tests/test_torch_native_server.py."""
 
 import asyncio
 import json
@@ -126,14 +129,19 @@ def test_server_refuses_what_the_port_does_not_run():
     errors, sid = asyncio.run(run())
     assert [op for op, _ in errors] == [P.OP_ERROR] * 2
     assert "must be one of" in errors[0][1]
-    assert "diarization" in errors[1][1]
+    assert "diarization not enabled" in errors[1][1]
     assert sid >= 1
 
 
-@pytest.mark.parametrize("flag", [["--native"], ["--diarize", "d.gguf"],
-                                  ["--dp", "2"], ["--tp", "2"]])
-def test_main_refuses_unported_options(flag, capsys):
+@pytest.mark.parametrize("flag, message", [
+    (["--native", "--diarize", "d.gguf"], "not supported with --native"),
+    (["--dp", "2"], "not supported by the torch port"),
+    (["--tp", "2"], "not supported by the torch port"),
+    (["--native", "--tp", "2"], "not supported by the torch port")])
+def test_main_refuses_unported_options(flag, message, capsys):
+    """Refused before any model loads: multi-GPU serving (not ported yet)
+    and diarization on the native ingest server (as in the JAX package)."""
     with pytest.raises(SystemExit) as e:
         main(["random", *flag])
     assert e.value.code == 2
-    assert "not supported by the torch port" in capsys.readouterr().err
+    assert message in capsys.readouterr().err

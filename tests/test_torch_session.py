@@ -4,8 +4,13 @@ package's Pallas block in interpret mode): delta texts, tokens, token frames
 and transcripts equal for regular and irregular pushes, a language switch,
 a second finalize and a reset; timed words; save/restore mid-stream equal
 to an uninterrupted run; a JAX session's checkpoint resumed in the port
-(f32 and int8 K/V); the packed per-token confidences; and the legacy
-gated stream step with per-slot prompts, and a confidence engine's events.
+(f32 and int8 K/V); the port's checkpoints, written in the JAX layout,
+resumed in the JAX session (f32 and int8 K/V at right contexts 0 and 13)
+and, in bf16, in the port (the JAX session cannot restore a bf16
+checkpoint, its own included: np.load gives its bfloat16 leaves back as
+2-byte void records, which jnp.asarray refuses); the packed per-token
+confidences; and the legacy gated stream step with per-slot prompts, and a
+confidence engine's events.
 
 The JAX package compiles one step function per phase and model, so each
 JAX configuration runs all its scenarios once (a module fixture) and the
@@ -16,6 +21,7 @@ chunks) in place of the default 8."""
 import dataclasses
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,6 +34,7 @@ from nemotron_tpu.models import encoder as ENC
 from nemotron_tpu.streaming.session import StreamSession as JaxSession
 from nemotron_tpu_torch.api import ASRModel as TorchModel
 from nemotron_tpu_torch.streaming.session import StreamSession
+from nemotron_tpu_torch.streaming.state import state_leaves
 
 torch.set_num_threads(1)
 
@@ -262,3 +269,79 @@ def test_jax_checkpoint_resumes_in_the_port(gguf, tmp_path, monkeypatch,
         with pytest.raises(ValueError, match="kv-int8"):
             StreamSession(torch_model(gguf, kv_int8=True),
                           cfg_of(tm)).restore_state(path)
+
+
+LONG = np.concatenate([AUDIO, make_audio(20000, seed=12)])
+
+
+@pytest.mark.parametrize("rc, kv_int8", [(0, False), (0, True), (13, False),
+                                         (13, True)],
+                         ids=["r0-f32", "r0-int8-kv", "r13-f32",
+                              "r13-int8-kv"])
+def test_port_checkpoint_resumes_in_jax(gguf, tmp_path, monkeypatch, rc,
+                                        kv_int8):
+    """A port StreamSession.save_state checkpoint (the JAX layout: n_leaves,
+    leaf_{i} in the pytree order and dtypes, JAX's other keys) restores
+    into the JAX package's session, which continues to the port's tokens."""
+    monkeypatch.setenv("NEMOTRON_TPU_KV_INT8", "1" if kv_int8 else "0")
+    cut = 7000 if rc == 0 else 25000  # past the first R=13 chunk
+    tm = torch_model(gguf, kv_int8=kv_int8)
+    cfg = cfg_of(tm) if rc == 0 else tm.cache_config(13)
+    ts = StreamSession(tm, cfg, lang="en-US")
+    ts.process_incremental(LONG[:cut])
+    assert rc == 0 or ts.total_chunks >= 1
+    path = str(tmp_path / "port_state.npz")
+    ts.save_state(path)
+    ts.process_incremental(LONG[cut:])
+    ts.finalize()
+    assert ts.get_tokens()
+    z = np.load(path)
+    assert {"n_leaves", "mel_buffer", "pp_buf", "pp_last", "tokens",
+            "token_frames", "transcript", "prompt_index",
+            "total_audio_seconds", "total_chunks", "phase",
+            "token_confs"} <= set(z.files)
+    jm = jax_model(gguf)
+    js = JaxSession(jm, cfg_of(jm) if rc == 0 else jm.cache_config(13))
+    js.restore_state(path)
+    assert js.prompt_index == PROMPTS["en-US"]
+    js.process_incremental(LONG[cut:])
+    js.finalize()
+    assert js.get_tokens() == ts.get_tokens()
+    assert js.token_frames == ts.token_frames
+    assert js.get_transcript() == ts.get_transcript()
+
+
+def test_port_bf16_checkpoint_restores_in_the_port(gguf, tmp_path):
+    """bf16: the port writes its bf16 leaves as the JAX session writes its
+    own (2-byte void records, the same leaf dtypes in every position) and
+    restores them bit for bit; the resumed session continues to the tokens
+    of an uninterrupted one."""
+    tm = torch_model(gguf, dtype=torch.bfloat16)
+    s1 = StreamSession(tm, cfg_of(tm), lang="en-US")
+    s1.process_incremental(AUDIO[:7000])
+    path = str(tmp_path / "bf16_state.npz")
+    s1.save_state(path)
+    saved = [t.clone() for t in state_leaves(s1.state)]
+    s1.process_incremental(AUDIO[7000:])
+    s1.finalize()
+
+    jm = JaxModel.from_gguf(gguf, dtype=jnp.bfloat16)
+    js = JaxSession(jm, cfg_of(jm), lang="en-US")
+    js.process_incremental(AUDIO[:7000])
+    jpath = str(tmp_path / "jax_bf16_state.npz")
+    js.save_state(jpath)
+    zp, zj = np.load(path), np.load(jpath)
+    n = int(zj["n_leaves"])
+    assert int(zp["n_leaves"]) == n
+    assert [zp[f"leaf_{i}"].dtype for i in range(n)] \
+        == [zj[f"leaf_{i}"].dtype for i in range(n)]
+    assert any(zp[f"leaf_{i}"].dtype.kind == "V" for i in range(n))
+
+    s2 = StreamSession(tm, cfg_of(tm))
+    s2.restore_state(path)
+    for a, b in zip(state_leaves(s2.state), saved):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    s2.process_incremental(AUDIO[7000:])
+    s2.finalize()
+    assert s2.get_tokens() == s1.get_tokens()
+    assert s2.get_transcript() == s1.get_transcript()
