@@ -4,9 +4,10 @@ holds each against its plain PyTorch version, runs the full-width streaming
 tick on the card against the CPU at right contexts 0, 1, 6 and 13, serves
 TCP clients through the port's own server, transcribes files offline
 (the ragged batch encoder, the API and the offline CLI), and drives the
-engine's migration, hot swap, events, legacy flow and phase timers, and
+engine's migration, hot swap, events, legacy flow and phase timers,
 runs diarization (nets, pipeline, server, CLI) and the native ingest
-server — all on one CUDA card.
+server, and serves on a dp x tp device mesh and through two replicas —
+all on one CUDA card (phase 9 also across two where there are two).
 
     python3 chip_smoke.py     # every phase; needs one CUDA card
 
@@ -106,10 +107,30 @@ Phases, one line each, any failure exits non-zero:
              4 clients x 3 s, texts equal to the asyncio server's; then 64
              real-time paced clients x 6 s (in a process of their own) on
              each server: emit p50 / p99, host ms per tick, idle share
+  9 mesh     every mesh on cuda:0 (parallel/mesh.py; a one-card machine):
+             the kernels at a tp shard's shapes against their plain
+             versions, timed beside phase 3's rows (B3 at 4 and 2 heads of
+             D=1024 with the residual off, f32 / bf16, dense / int8; B4 /
+             B5 at the four tp=2 (N, K), f32 / bf16, M = 256 and 3,584; B2
+             at a dp=2 shard's 128 x 8 and 16 x 8; B1 on a head-sharded
+             int8 cache); tick parity at B=32 over 6
+             ticks, a dp=2 x tp=2 mesh against one device (f32 dense:
+             tokens equal, leaves within 1e-4; bf16 with the block, bf16
+             Q8_0 + int8 K/V, bf16 Q4_0: PERF.md section 2's rule against
+             the f32 run) and dp=2 at R=13 (f32); the asyncio server on
+             the 2x2 mesh and the native server on dp=2, 4 clients x 3 s,
+             texts equal to one device's; a stream exported from a dp=2
+             engine finishing on one device with the text of never moving;
+             2 replicas of the port's server behind a RoutedClient, 4
+             streams split 2 / 2, texts equal to a session's; host ms per
+             B=256 tick at dp x tp = 1x1, 2x1, 2x2, busy share and the tp
+             reduction's device ms (one card: overhead, not scaling)
 The second-to-last line is the kernels JSON (launches: the streaming
 server runs; offline_launches: phase 6's counted run; diarize_launches
-and native_launches: phase 8's diarize server and native server runs), the
-line before it phase 7's launch counts, the last line the device JSON.
+and native_launches: phase 8's diarize server and native server runs;
+mesh_launches: phase 9's runs on the mesh; mesh_cases: phase 9's kernel
+checks at a tp shard's shapes), the line before it phase 7's launch
+counts, the last line the device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
 """
@@ -2446,6 +2467,519 @@ def phase_diarize(torch, hp, dense, vocab, model, card: str) -> dict:
     return launches
 
 
+# --- phase 9: multi-device serving on a mesh ---------------------------------
+
+MESH_B = 32        # tick parity's streams
+MESH_TICKS = 6     # tick parity's ticks
+MESH_TIMED_B = 256  # the timed ticks' streams
+MESH_SHAPES = ((1, 1), (2, 1), (2, 2))  # timed dp x tp on one card
+
+
+def one_card_mesh(n_dp: int, n_tp: int):
+    """A dp x tp mesh with every device cuda:0 (a one-card machine)."""
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_dp, n_tp, devices=["cuda:0"] * (n_dp * n_tp))
+
+
+def mesh_kernels(torch, report):
+    """B1, B3 and B4 / B5 at the shapes a tp shard gives them, each against
+    its plain version (not counted as the path's launches), timed with CUDA
+    events beside phase 3's unsharded rows: B3 at H = 4 and 2 heads of D =
+    1024 with the residual left out, f32 and bf16, dense and int8 caches;
+    B4 / B5 at the four tp = 2 (N, K) (q/k/v/pos 512 x 1024, ffn w1 2048 x
+    1024, ffn w2 1024 x 2048, attn out 1024 x 512; the Q4_0 nibbles
+    re-packed per K slice) in f32 and bf16 at M = 256 and 256 x 14 (R=13);
+    B2 once per dp=2 shard (128 x 8 and 16 x 8 frames); B1 on a
+    head-sharded int8 cache (4 heads, a contiguous buffer of its own) at
+    B = 256."""
+    from nemotron_tpu_torch.ops import quant
+    from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
+                                                   t1_attention_block_ref)
+    from nemotron_tpu_torch.ops.attn_kernel import (t1_attention_core,
+                                                    t1_attention_core_ref)
+    from nemotron_tpu_torch.params import tp_slice
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 90)
+    ok = True
+
+    def check(kname, case, got, want, tol, fn, plain, nbytes, ops, dname):
+        nonlocal ok
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        good = bool(torch.isfinite(got).all()) and err <= tol
+        ok &= good
+        b_ms, b_by = bound(nbytes, ops, dname)
+        res = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"[9 kernels] {kname} {case}: max|err| {err:.3e} (bound "
+            f"{tol:.3g}) {'ok' if good else 'FAIL'}; kernel {res['ms']:.4f} "
+            f"ms, plain {res['plain_ms']:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}, share {b_ms / res['ms']:.2f})")
+        report[kname].setdefault("mesh_cases", {})[case] = res
+
+    def flat(outs):
+        return torch.cat([o.float().flatten() for o in outs])
+
+    for h_l in (4, 2):
+        for int8 in (False, True):
+            for dname, dtype in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                a = _block_case(torch, rng, dev, dtype, int8, 256)
+                hs = slice(0, h_l)
+                rows = slice(0, h_l * 128)
+                for w in ("q_w", "k_w", "v_w"):
+                    a[w] = a[w][rows].contiguous()
+                a["out_w"] = a["out_w"][:, rows].contiguous()
+                for k in ("bias_u", "bias_v", "pp"):
+                    a[k] = a[k][hs].contiguous()
+                for k in ("k_buf", "v_buf"):
+                    buf = a[k]
+                    a[k] = (type(buf)(buf.q[:, hs].contiguous(),
+                                      buf.s[:, hs].contiguous()) if int8
+                            else buf[:, hs].contiguous())
+                a["n_heads"] = h_l
+                want = t1_attention_block_ref(**a, residual=False)
+                ins = [v for v in a.values() if not isinstance(v, int)]
+                e, d, s = h_l * 128, 1024, 78
+                check("t1_attention_block",
+                      f"tp heads H={h_l} D=1024 residual off, "
+                      f"{'int8' if int8 else 'dense'} caches, {dname} B=256",
+                      flat(t1_attention_block(**a, residual=False)),
+                      flat(want), GEMM_REL[dname] * float(
+                          flat(want).abs().max()),
+                      lambda a=a: t1_attention_block(**a, residual=False),
+                      lambda a=a: t1_attention_block_ref(**a,
+                                                         residual=False),
+                      tensor_bytes(*ins, *want),
+                      2.0 * 256 * d * 4 * e + 6.0 * 256 * h_l * (s + 1)
+                      * 128, dname)
+
+    for bits, kname in ((8, "q8_matmul"), (4, "q4_matmul")):
+        qz = quant.quantize_q8 if bits == 8 else quant.quantize_q4
+        fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
+                   else (quant.linear_q4, quant.linear_q4_ref))
+        for full_n, full_k, axis in ((1024, 1024, 1), (4096, 1024, 1),
+                                     (1024, 4096, 2), (1024, 1024, 2)):
+            w = (rng.standard_normal((1, full_n, full_k)) / np.sqrt(full_k)
+                 ).astype(np.float32)
+            qt = tp_slice(qz(w), axis, 2, 1)[0].to(dev)
+            codes = qt.w_i8 if bits == 8 else qt.w_packed
+            n = qt.scales.shape[0]
+            k = qt.scales.shape[1] * quant.QBLOCK
+            for dname, dtype in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16)):
+                for m in (256, 256 * 14):
+                    x = torch.tensor(rng.standard_normal((m, k)).astype(
+                        np.float32), device=dev).to(dtype)
+                    want = ref(x, qt)
+                    check(kname, f"tp=2 {dname} M={m} N={n} K={k}",
+                          fn(x, qt), want,
+                          GEMM_REL[dname] * float(want.abs().max()),
+                          lambda x=x, qt=qt: fn(x, qt),
+                          lambda x=x, qt=qt: ref(x, qt),
+                          tensor_bytes(codes, qt.scales, x, want),
+                          2.0 * m * n * k, dname)
+
+    # B2 once per dp shard: B/2 streams of a B = 256 and a B = 32 tick at
+    # dp=2, dense filterbank (phase 3's rule: within 1e-3 of the plain
+    # version, 1e-4 of the exact float64 log-mel; the same bound)
+    from nemotron_tpu_torch.ops.mel import padded_window
+    from nemotron_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_ref
+    from nemotron_tpu_torch.tools.gemm_turns import mel_exact
+
+    win = padded_window(torch.tensor(np.hanning(400).astype(np.float32),
+                                     device=dev))
+    fb = torch.tensor(rng.uniform(0, 1, (128, 257)).astype(np.float32),
+                      device=dev)
+    for b in (128, 16):
+        buf = torch.tensor((rng.standard_normal((b, 7 * 160 + 512)) * 0.1
+                            ).astype(np.float32), device=dev)
+        want = mel_frames_ref(buf, win, fb, 8)
+        got = mel_frames(buf, win, fb, 8)
+        x_err = float((got - mel_exact(torch, buf, win, fb, 8)).abs().max())
+        ok &= x_err <= 1e-4
+        nnz = int((fb != 0).sum())
+        check("mel_frames", f"dp shard B={b} x 8 dense mels=128 (exact "
+              f"{x_err:.3e})", got, want, 1e-3,
+              lambda buf=buf: mel_frames(buf, win, fb, 8),
+              lambda buf=buf: mel_frames_ref(buf, win, fb, 8),
+              tensor_bytes(buf, win, want) + 4 * nnz,
+              b * 8 * (512 + 2.5 * 512 * 9 + 3.0 * 257 + 2.0 * nnz + 128),
+              "f32")
+
+    for dname, dtype, atol in (("f32", torch.float32, 2e-5),
+                               ("bf16", torch.bfloat16, 2e-2)):
+        q, kn, vn, pm, kb, vb = _attn_case(torch, rng, dev, dtype, True, 256)
+        hs = slice(4, 8)  # tp shard 1's heads, a buffer of their own
+        args = [q[:, hs].contiguous(), kn[:, hs].contiguous(),
+                vn[:, hs].contiguous(), pm[:, hs].contiguous()]
+        args += [type(b)(b.q[:, hs].contiguous(), b.s[:, hs].contiguous())
+                 for b in (kb, vb)]
+        check("t1_attention", f"tp head shard H=4 of 8, int8 caches, {dname} "
+              "B=256 S_buf=78 Dh=128", t1_attention_core(*args),
+              t1_attention_core_ref(*args), atol,
+              lambda: t1_attention_core(*args),
+              lambda: t1_attention_core_ref(*args),
+              tensor_bytes(*args) + tensor_bytes(args[0]),
+              4.0 * 256 * 4 * 79 * 128, dname)
+    if not ok:
+        raise SystemExit("phase 9: a kernel disagrees with its plain version "
+                         "at a tp shard's shapes")
+
+
+def logical(model, state) -> dict:
+    """A stream state's logical leaves by name, on the CPU: K/V as f32
+    values (int8 ones dequantized, their codes as `<name>.q`), the rest as
+    they are; the same for a single device's state and a mesh's."""
+    from nemotron_tpu_torch.ops.kvquant import dequantize_kv, is_quant
+    from nemotron_tpu_torch.streaming.state import (state_from_leaves,
+                                                    state_leaves)
+
+    s = state_from_leaves([x.detach().cpu() for x in state_leaves(state)],
+                          model.kv_int8)
+    out = {}
+    for n in ("k_cache", "v_cache"):
+        buf = getattr(s, n)
+        out[n] = dequantize_kv(buf) if is_quant(buf) else buf.float()
+        if is_quant(buf):
+            out[n + ".q"] = buf.q
+    out["conv_cache"] = s.conv_cache.float()
+    out["decode.h"], out["decode.c"] = s.decode.h.float(), s.decode.c.float()
+    for n in ("cache_valid", "pp_tail", "pp_last", "mel_ov"):
+        out[n] = getattr(s, n)
+    out["decode.prev_token"] = s.decode.prev_token
+    out["decode.frame_offset"] = s.decode.frame_offset
+    return out
+
+
+class MeshCounts:
+    """The kernels' launches on the mesh's own runs, summed: a `with` block
+    adds the launches made inside it (the single-device references and the
+    kernel checks stay outside)."""
+
+    def __init__(self):
+        from nemotron_tpu_torch import kernels
+
+        self.kernels = kernels
+        self.total = {k.name: 0 for k in kernels.KERNELS}
+
+    def __enter__(self):
+        self.kernels.reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        for k in self.kernels.KERNELS:
+            self.total[k.name] += k.launches
+        self.last = {k.name: k.launches for k in self.kernels.KERNELS}
+        self.kernels.reset_counts()
+        return False
+
+
+def mesh_tick_parity(torch, counts, name, single, mesh_model, ref=None,
+                     mode=0):
+    """MESH_TICKS all-active fused ticks over MESH_B streams on the mesh
+    model and on the single-device one (run_ticks: a k = n_phases tick
+    first past R=0). f32 (`ref` None): tokens equal, float leaves within
+    1e-4, integer leaves equal. Otherwise (bf16, quantized weights, int8
+    K/V), PERF.md section 2's rule against `ref`, the single device's f32
+    dense run: the token-independent caches (K, V dequantized, conv)
+    within BF16_VS_REF x their own error max|single - ref|, int8 codes
+    within +-1 under f32 activations (bf16's drift moves codes further,
+    held through the dequantized K/V), cache_valid equal, and token cells differing at most
+    BF16_VS_REF x those differing between single and ref. Returns the
+    single device's (logical leaves, tokens), the reference of later
+    calls."""
+    audio = stream_audio(MESH_B, 96 + sum(tick_chunks(mode, MESH_TICKS))
+                         * single.cache_config(mode).shift_samples, SEED + 91)
+    s1, t1 = run_ticks(single, audio, MESH_TICKS, mode)
+    with counts:
+        s2, t2 = run_ticks(mesh_model, audio, MESH_TICKS, mode)
+        torch.cuda.synchronize()
+    a, b = logical(single, s1), logical(mesh_model, s2)
+    errs = {n: float((b[n].float() - a[n].float()).abs().max()) for n in a}
+    bad, own = [], {}
+    n_diff = int((t1 != t2).sum())
+    if ref is None:
+        bad += [n for n, e in errs.items() if e > 1e-4]
+        if n_diff:
+            bad.append(f"{n_diff} token cells differ")
+        rule = "f32: tokens equal, leaves within 1e-4"
+    else:
+        r, r_tok = ref
+        for n in ("k_cache", "v_cache", "conv_cache"):
+            own[n] = float((a[n] - r[n]).abs().max())
+            if not errs[n] <= BF16_VS_REF * own[n]:
+                bad.append(f"{n} {errs[n]:.3e} > {BF16_VS_REF:g} x "
+                           f"{own[n]:.3e}")
+        for n in ("k_cache.q", "v_cache.q"):  # f32 activations only: int8
+            # amplifies bf16's drift by 127 / amax (ROADMAP fault F1)
+            if n in errs and errs[n] > 1 and \
+                    single.params.pos_emb.dtype == torch.float32:
+                bad.append(f"{n} codes differ by {errs[n]:g}")
+        if errs["cache_valid"]:
+            bad.append("cache_valid differs")
+        n_own = int((t1 != r_tok).sum())
+        if n_diff > BF16_VS_REF * n_own:
+            bad.append(f"{n_diff} token cells differ, > {BF16_VS_REF:g} x "
+                       f"{n_own}")
+        rule = (f"K/V/conv within {BF16_VS_REF:g} x own {fmt(own)}, token "
+                f"cells differing <= {BF16_VS_REF:g} x own {n_own}")
+    steps = sum(tick_chunks(mode, MESH_TICKS))
+    log(f"[9 tick] {name} R={mode} {mesh_model.backend_name} vs one device, "
+        f"B={MESH_B} x {len(tick_chunks(mode, MESH_TICKS))} ticks: max|diff| "
+        f"{fmt(errs)}; token cells differing {n_diff} of {t1.size} "
+        f"({int((t2 >= 0).sum())} emitted); rule: {rule}; launches "
+        f"{json.dumps(counts.last)} over {steps} chunk steps: "
+        f"{ {k: v / steps for k, v in counts.last.items()} }")
+    if bad:
+        raise SystemExit(f"phase 9 (tick {name}): mesh and one device "
+                         f"disagree: {bad}")
+    return a, t1
+
+
+def mesh_servers(torch, counts, single, mesh2x2, mesh_dp2):
+    """The asyncio server on the 2x2 mesh and the native server on the dp=2
+    mesh, 4 clients x 3 s at batch 8: texts equal to the single-device
+    asyncio server's; launch counts per chunk step."""
+    from nemotron_tpu_torch.serving.native_server import NativeStreamServer
+
+    audios = list(stream_audio(4, 48000, SEED + 92))
+    want, _ = asyncio.run(_serve_clients(single, audios, 8, (0,) * 4))
+    with counts:
+        got, stats = asyncio.run(_serve_clients(mesh2x2, audios, 8,
+                                                (0,) * 4))
+    steps = stats["groups"][0]["chunk_steps"]
+    log(f"[9 server] StreamServer on {mesh2x2.backend_name}, 4 clients x 3 "
+        f"s at batch 8: texts equal to one device's: {got == want} (chars "
+        f"{[len(t) for t in got]}); launches per chunk step "
+        f"{ {k: v / max(steps, 1) for k, v in counts.last.items()} } over "
+        f"{steps} steps")
+    if got != want or not any(want):
+        raise SystemExit(f"phase 9 (server): {got} vs {want}")
+
+    import threading
+
+    srv = NativeStreamServer(mesh_dp2, batch_per_group=8)
+    with counts:
+        port = srv.start("127.0.0.1", 0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            from nemotron_tpu_torch.serving.client import transcribe_file
+
+            async def run():
+                return await asyncio.gather(*[
+                    transcribe_file(a, host="127.0.0.1", port=port,
+                                    chunk_ms=200) for a in audios])
+            got = asyncio.run(run())
+        finally:
+            srv.stop()
+            th.join(timeout=30)
+    steps = srv.engine.stats()["groups"][0]["chunk_steps"]
+    log(f"[9 native] native server on {mesh_dp2.backend_name}, 4 clients x "
+        f"3 s at batch 8: texts equal to one device's asyncio server's: "
+        f"{got == want}; launches per chunk step "
+        f"{ {k: v / max(steps, 1) for k, v in counts.last.items()} }")
+    if got != want:
+        raise SystemExit(f"phase 9 (native): {got} vs {want}")
+    return want, audios
+
+
+def mesh_migrate(torch, counts, single, mesh_dp2):
+    """A stream exported mid-flight from a dp=2 engine (batch 8, its slot in
+    shard 1) through the snapshot bytes into a single-device engine: its
+    text equals an unmigrated single-device engine's."""
+    from nemotron_tpu_torch.streaming.engine import (BatchedEngine,
+                                                     snapshot_from_bytes,
+                                                     snapshot_to_bytes)
+
+    audio = stream_audio(1, 48000, SEED + 93)[0]
+    push = 1600
+
+    def run(engine, lo, hi, sid, text=""):
+        for off in range(lo, hi, push):
+            engine.push_audio(sid, audio[off:off + push])
+            text += "".join(e.text for e in engine.tick()[0]
+                            if e.stream_id == sid)
+        return text
+
+    def drain(engine, sid, text):
+        engine.end_stream(sid)
+        for _ in range(200):
+            events, more = engine.tick()
+            text += "".join(e.text for e in events if e.stream_id == sid)
+            if not more:
+                return text
+        raise SystemExit("phase 9 (migrate): an engine did not go idle")
+
+    plain = BatchedEngine(single, batch_per_group=1)
+    sid = plain.start_stream(0)
+    want = drain(plain, sid, run(plain, 0, len(audio), sid))
+    cut = 24000
+    with counts:
+        eng = BatchedEngine(mesh_dp2, batch_per_group=8)
+        decoys = [eng.start_stream(0) for _ in range(4)]  # shard 0's slots
+        sid = eng.start_stream(0)
+        text = run(eng, 0, cut, sid)
+        fut = eng.request_export(sid)
+        text += "".join(e.text for e in eng.tick()[0] if e.stream_id == sid)
+        blob = snapshot_to_bytes(fut.result(timeout=60))
+        for d in decoys:
+            eng.end_stream(d)
+        del eng
+    dst = BatchedEngine(single, batch_per_group=8)
+    fut = dst.request_import(snapshot_from_bytes(blob, single))
+    dst.tick()
+    sid2 = fut.result(timeout=60)
+    text = drain(dst, sid2, run(dst, cut, len(audio), sid2, text))
+    log(f"[9 migrate] a stream exported from {mesh_dp2.backend_name} (slot "
+        f"4, shard 1) at {cut / 16000:.1f} s, {len(blob)} snapshot bytes, "
+        f"into a single-device engine: text equal to never moving: "
+        f"{text == want} ({len(want)} chars)")
+    if text != want or not want:
+        raise SystemExit(f"phase 9 (migrate): {text!r} vs {want!r}")
+
+
+def mesh_replicas(torch, single, audios):
+    """ReplicaSet of 2 of the port's servers ('random', seed 0, the blank
+    bias, each with CUDA_VISIBLE_DEVICES=0) and a RoutedClient with 4
+    streams: the streams split 2 / 2, each text equal to a single-device
+    StreamSession's."""
+    import socket
+
+    from nemotron_tpu_torch.serving.replicas import ReplicaSet, RoutedClient
+    from nemotron_tpu_torch.streaming.session import StreamSession
+
+    want = []
+    for a in audios:
+        s = StreamSession(single, 0)
+        s.process_incremental(a)
+        s.finalize()
+        want.append(s.get_transcript())
+    for base in range(23000, 40000, 97):  # two free consecutive ports
+        try:
+            for p in (base, base + 1):
+                with socket.socket() as sk:
+                    sk.bind(("127.0.0.1", p))
+            break
+        except OSError:
+            continue
+    t0 = time.perf_counter()
+    rs = ReplicaSet("random", 2, port_base=base, batch_per_group=8,
+                    extra_args=["--blank-bias", str(BLANK_BIAS)],
+                    env_per_replica=[{"CUDA_VISIBLE_DEVICES": "0"}] * 2)
+    try:
+        rs.wait_ready(timeout=300)
+        t_ready = time.perf_counter() - t0
+
+        async def run():
+            rc = await RoutedClient.connect(rs.addrs)
+            handles = [await rc.start_stream(0) for _ in audios]
+            live = list(rc.live)
+            texts = await asyncio.gather(*(
+                rc.transcribe(h, a, chunk_ms=200)
+                for h, a in zip(handles, audios)))
+            rc.close()
+            return live, texts
+        live, got = asyncio.run(asyncio.wait_for(run(), timeout=300))
+    finally:
+        rs.close()
+    log(f"[9 replicas] 2 replicas of nemotron_tpu_torch.serving.server on "
+        f"cuda:0 (ready in {t_ready:.1f} s), RoutedClient with 4 streams: "
+        f"split {live}; texts equal to a session's: {got == want} (chars "
+        f"{[len(t) for t in got]})")
+    if live != [2, 2] or got != want or not any(want):
+        raise SystemExit(f"phase 9 (replicas): split {live}; {got} vs "
+                         f"{want}")
+
+
+def mesh_times(torch, gpu, hp, vocab, card):
+    """Host ms per all-active tick at B=256, R=0, f32 for dp x tp = 1x1,
+    2x1 and 2x2 with every device cuda:0, the device's busy share of each
+    (profiler), and the tp reduction's device ms per tick (the adds of the
+    shards' partials: 3 per layer per dp shard, timed alone). One card:
+    these show the mesh's overhead, not its scaling."""
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.ops.basic import tp_sum
+
+    for n_dp, n_tp in MESH_SHAPES:
+        model = ASRModel(hp, gpu["f32"].params, vocab, device="cuda")
+        if n_dp * n_tp > 1:
+            model.shard(one_card_mesh(n_dp, n_tp))
+        ms = time_ticks(torch, model, MESH_TIMED_B, n=12, warmup=3)
+        prof = profile_ticks(torch, model, MESH_TIMED_B, n=4)
+        busy = prof[0] if prof else float("nan")
+        red = ""
+        if n_tp > 1:
+            b = MESH_TIMED_B // n_dp
+            parts = [torch.randn((b, 1, hp.d_model), device="cuda")
+                     for _ in range(n_tp)]
+            one = cuda_ms(lambda: tp_sum(parts, parts[0].device))
+            red = (f"; tp reduction {one * 3 * hp.n_layers * n_dp:.4f} ms "
+                   f"of device per tick ({one:.5f} ms per sum of {n_tp} "
+                   f"[{b}, 1, {hp.d_model}] f32 parts x 3 x "
+                   f"{hp.n_layers} layers x {n_dp} dp shards)")
+        log(f"[9 times] dp={n_dp} x tp={n_tp} on one card, B={MESH_TIMED_B} "
+            f"R=0 f32: {ms:.2f} ms per tick (host, median of 12), device "
+            f"busy {busy:.2f} ms, busy share {busy / ms:.3f}{red} ({card}; "
+            f"one card: the mesh's overhead, not its scaling)")
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_mesh(torch, hp, vocab, gpu, card, report) -> dict:
+    """Phase 9: the mesh at full width on the card (every device cuda:0;
+    across two cards too where there are two). Returns the launches of
+    the mesh's own runs."""
+    from nemotron_tpu_torch.api import ASRModel
+
+    mesh_kernels(torch, report)
+    counts = MeshCounts()
+
+    def pair(params, mesh_shape, **kw):
+        """(one device, the same weights on a one-card mesh)"""
+        return (ASRModel(hp, params, vocab, device="cuda", **kw),
+                ASRModel(hp, params, vocab, device="cuda", **kw).shard(
+                    one_card_mesh(*mesh_shape)))
+
+    f32 = gpu["f32"].params
+    bf16 = gpu["bf16"].params
+    single, mesh22 = pair(f32, (2, 2))
+    ref = mesh_tick_parity(torch, counts, "f32 dense", single, mesh22)
+    for name, params, kw in (
+            ("bf16 block", bf16, dict(attn_block=True)),
+            ("bf16 Q8_0 int8-KV", gpu["bf16 Q8_0 int8-KV"].params,
+             dict(kv_int8=True)),
+            ("bf16 Q4_0", gpu["bf16 Q4_0"].params, {})):
+        mesh_tick_parity(torch, counts, name, *pair(params, (2, 2), **kw),
+                         ref=ref)
+    del ref
+    mesh_tick_parity(torch, counts, "f32 dense", single,
+                     ASRModel(hp, f32, vocab, device="cuda").shard(
+                         one_card_mesh(2, 1)), mode=13)
+    if torch.cuda.device_count() >= 2:  # dp and tp across two cards
+        from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+        for shape in ((2, 1), (1, 2)):
+            mesh_tick_parity(torch, counts, "f32 dense, two cards", single,
+                             ASRModel(hp, f32, vocab, device="cuda").shard(
+                                 make_mesh(*shape)))
+    mesh_dp2 = ASRModel(hp, f32, vocab, device="cuda").shard(
+        one_card_mesh(2, 1))
+    _, audios = mesh_servers(torch, counts, single, mesh22, mesh_dp2)
+    mesh_migrate(torch, counts, single, mesh_dp2)
+    mesh_replicas(torch, single, audios)
+    mesh_times(torch, gpu, hp, vocab, card)
+    log(f"[9 launches] the mesh's runs: {json.dumps(counts.total)}")
+    missing = [k for k, v in counts.total.items() if not v]
+    if missing:
+        raise SystemExit(f"phase 9: kernels {missing} never launched on the "
+                         f"mesh's path")
+    return counts.total
+
+
 def main() -> int:
     import torch
 
@@ -2583,10 +3117,13 @@ def main() -> int:
     log(f"[7 launches] {json.dumps(surface['launches'])}")
     phase8 = phase_diarize(torch, hp, dense, vocab, gpu["f32"], card)
     elapsed("phase 8")
+    mesh_counts = phase_mesh(torch, hp, vocab, gpu, card, report)
+    elapsed("phase 9")
     for k in kernels.KERNELS:
         report[k.name]["offline_launches"] = offline_counts[k.name]
         report[k.name]["diarize_launches"] = phase8["diarize"][k.name]
         report[k.name]["native_launches"] = phase8["native_server"][k.name]
+        report[k.name]["mesh_launches"] = mesh_counts[k.name]
 
     kernel_line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

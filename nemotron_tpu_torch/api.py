@@ -18,6 +18,14 @@ numerics are pinned: the
 port turns TF32 off for matmuls and for cuDNN convolutions (cuDNN runs f32
 convolutions in TF32 by default, which alone would move the subsampling
 output by ~1e-3 against the JAX package).
+
+`shard(mesh)` serves over a device mesh (parallel/mesh.py): the parameters
+replicated over 'dp' and split over 'tp', each stream state a MeshState
+split over dp, each host input of put_batch a DPBatch split the same way;
+every tick then runs once per dp shard (its tp devices inside the
+encoder), and the tokens come back in slot order on the lead device.
+`params` keeps the logical weights (the fingerprint is the single
+device's), and the offline path runs on dp shard 0.
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ from .models import asr
 from .models.decoder import init_decode_state
 from .models.encoder import (check_attn_block_weights, compact_cache,
                              realign_cache)
-from .params import (ModelParams, device_of, load_model, param_leaves,
-                     random_params)
+from .params import (ModelParams, device_of, load_model, on_device,
+                     param_leaves, random_params)
 from .config import CacheConfig, Hparams, LatencyMode
 from .text.tokenizer import Tokenizer
 from .streaming import state as state_mod
@@ -61,6 +69,10 @@ class ASRModel:
         self.confidence = confidence  # packed per-token confidences
         if attn_block:
             check_attn_block_weights(params.layers)
+        # the device mesh (parallel/mesh.py), None on one device; groups:
+        # each dp shard's TPGroup
+        self.mesh = None
+        self.groups = None
         self.tokenizer = Tokenizer(vocab or [])
         self.prompt_dict = prompt_dict or {}
         self.default_prompt_index = (
@@ -103,9 +115,48 @@ class ASRModel:
     def cache_config(self, mode: LatencyMode | int = LatencyMode.PURE_CAUSAL):
         return CacheConfig.for_mode(mode, self.hp)
 
+    def shard(self, mesh) -> "ASRModel":
+        """Serve over `mesh`: the parameters placed on its devices
+        (parallel/mesh.place_params), and from now on every stream state
+        a MeshState and every put_batch a DPBatch split over its dp
+        shards. One engine then ticks every shard. Returns self."""
+        from .parallel.mesh import place_params
+
+        self.groups = place_params(self.params, mesh)
+        self.mesh = mesh
+        self.device = mesh.devices[0][0]
+        return self
+
     @property
     def backend_name(self) -> str:
+        if self.mesh is not None:
+            return f"mesh {self.mesh}"
         return f"{self.device.type}:{self.device.index or 0}"
+
+    def _shards(self):
+        """(params, tp group or None, lead device) per dp shard."""
+        if self.mesh is None:
+            return [(self.params, None, self.device)]
+        return [(g.lead, g if len(g.devices) > 1 else None, g.devices[0])
+                for g in self.groups]
+
+    def _per_shard(self, state, fn, *batched, with_tokens=True):
+        """fn(params, tp, state, *rows) on each dp shard (on a single
+        device: the model's params and state as they are); the shards'
+        states make a MeshState and their tokens (with_tokens) one tensor
+        in slot order on the lead device."""
+        if self.mesh is None:
+            return fn(self.params, None, state, *batched)
+        outs = []
+        for d, (params, tp, dev) in enumerate(self._shards()):
+            with on_device(dev):
+                outs.append(fn(params, tp, state.shards[d],
+                               *(b.parts[d] for b in batched)))
+        if not with_tokens:
+            return state_mod.MeshState(outs)
+        states, toks = zip(*outs)
+        return state_mod.MeshState(list(states)), torch.cat(
+            [t.to(self.device) for t in toks])
 
     @property
     def weights_fingerprint(self) -> str:
@@ -139,15 +190,31 @@ class ASRModel:
             return None
         return self.prompt_dict.get(lang)
 
-    def put_batch(self, arr) -> torch.Tensor:
-        """Host array -> a tensor on the model's device (always a copy)."""
+    def put_batch(self, arr):
+        """Host array -> a tensor on the model's device (always a copy); on
+        a mesh a DPBatch, axis 0 (the stream batch) split over dp."""
+        if self.mesh is not None:
+            from .parallel.mesh import split_rows
+
+            return split_rows(self.mesh, arr)
         return torch.tensor(np.asarray(arr), device=self.device)
 
     def init_stream_state(self, batch: int, cfg: CacheConfig):
         # the activation type, read from a leaf that is never quantized
-        return state_mod.init_stream_state(
-            batch, self.hp, cfg, dtype=self.params.pos_emb.dtype,
-            device=self.device, kv_int8=self.kv_int8)
+        kw = dict(dtype=self.params.pos_emb.dtype, kv_int8=self.kv_int8)
+        if self.mesh is None:
+            return state_mod.init_stream_state(batch, self.hp, cfg,
+                                               device=self.device, **kw)
+        n_dp = self.mesh.shape["dp"]
+        if batch % n_dp:
+            raise ValueError(
+                f"stream batch {batch} must be divisible by the mesh's "
+                f"dp={n_dp}")
+        return state_mod.MeshState([
+            state_mod.init_stream_state(batch // n_dp, self.hp, cfg,
+                                        device=g.devices[0],
+                                        kv_devices=g.devices, **kw)
+            for g in self.groups])
 
     @staticmethod
     def pack_tick_inputs(audio_block, n_valid, prompt_idx, active):
@@ -175,19 +242,23 @@ class ASRModel:
             raise ValueError("multi-chunk ticks are all-active only")
         hp = self.hp
         shift = cfg.shift_samples
-        audio = packed_dev[:, :k * shift]
-        n_valid = packed_dev[:, k * shift].to(torch.int32)
-        prompt = (packed_dev[:, k * shift + 1].to(torch.int32)
-                  if hp.num_prompts > 0 else None)
         flags = dict(attn_block=self.attn_block, confidence=self.confidence)
-        if k > 1:
-            return asr.fused_serve_tick_scan(
-                self.params, state, audio, n_valid, prompt, hp=hp, cfg=cfg,
-                k=k, phase=phase, **flags)
-        act = None if all_active else packed_dev[:, k * shift + 2] != 0
-        return asr.fused_serve_tick(
-            self.params, state, audio, n_valid, act, prompt, hp=hp, cfg=cfg,
-            phase=phase, fast_gated=fast_gated, **flags)
+
+        def tick(params, tp, state, packed):
+            audio = packed[:, :k * shift]
+            n_valid = packed[:, k * shift].to(torch.int32)
+            prompt = (packed[:, k * shift + 1].to(torch.int32)
+                      if hp.num_prompts > 0 else None)
+            if k > 1:
+                return asr.fused_serve_tick_scan(
+                    params, state, audio, n_valid, prompt, hp=hp, cfg=cfg,
+                    k=k, phase=phase, tp=tp, **flags)
+            act = None if all_active else packed[:, k * shift + 2] != 0
+            return asr.fused_serve_tick(
+                params, state, audio, n_valid, act, prompt, hp=hp, cfg=cfg,
+                phase=phase, fast_gated=fast_gated, tp=tp, **flags)
+
+        return self._per_shard(state, tick, packed_dev)
 
     def fused_tick_profiled(self, cfg, state, audio_block, n_valid, active,
                             prompt_idx=None, phase: int = 0):
@@ -201,20 +272,40 @@ class ASRModel:
         encoder_seconds, decoder_seconds)."""
         import time
 
-        b = audio_block.shape[0]
         if prompt_idx is None:
-            prompt_idx = torch.full((b,), max(self.default_prompt_index, 0),
-                                    dtype=torch.int32, device=self.device)
-        prompt = prompt_idx if self.hp.num_prompts > 0 else None
+            prompt_idx = self.put_batch(np.full(
+                (audio_block.shape[0],), max(self.default_prompt_index, 0),
+                np.int32))
+        use_prompt = self.hp.num_prompts > 0
+        act = [] if active is None else [active]
+        encs = []
+
+        def encode(params, tp, state, audio, prompt, act=None):
+            state, enc = asr.fused_encode_tick(
+                params, state, audio, act, prompt if use_prompt else None,
+                hp=self.hp, cfg=cfg, phase=phase, attn_block=self.attn_block,
+                tp=tp)
+            encs.append(enc)
+            return state
+
+        def decode(params, tp, state, enc, nv, act=None):
+            return asr.decode_tick(params, state, enc, nv, act, hp=self.hp,
+                                   confidence=self.confidence)
+
         t0 = time.perf_counter()
-        state, enc = asr.fused_encode_tick(
-            self.params, state, audio_block, active, prompt, hp=self.hp,
-            cfg=cfg, phase=phase, attn_block=self.attn_block)
+        if self.mesh is None:
+            state = encode(self.params, None, state, audio_block, prompt_idx,
+                           *act)
+            enc = encs[0]
+        else:
+            from .parallel.mesh import DPBatch
+
+            state = self._per_shard(state, encode, audio_block, prompt_idx,
+                                    *act, with_tokens=False)
+            enc = DPBatch(encs)
         self.synchronize()
         t1 = time.perf_counter()
-        state, tokens = asr.decode_tick(
-            self.params, state, enc, n_valid, active, hp=self.hp,
-            confidence=self.confidence)
+        state, tokens = self._per_shard(state, decode, enc, n_valid, *act)
         self.synchronize()
         return state, tokens, t1 - t0, time.perf_counter() - t1
 
@@ -226,21 +317,27 @@ class ASRModel:
         compact_state at the wrap; active [B] bool: the legacy gated step
         (phase-stationary, inactive slots untouched). The state's caches
         are updated in place."""
-        b = mel_chunk.shape[0]
         if prompt_idx is None:
-            prompt_idx = torch.full((b,), max(self.default_prompt_index, 0),
-                                    dtype=torch.int32, device=self.device)
-        return asr.stream_step(
-            self.params, state, mel_chunk, n_valid, active,
-            prompt_idx if self.hp.num_prompts > 0 else None, hp=self.hp,
-            cfg=cfg, phase=phase, attn_block=self.attn_block,
-            confidence=self.confidence)
+            prompt_idx = self.put_batch(np.full(
+                (mel_chunk.shape[0],), max(self.default_prompt_index, 0),
+                np.int32))
+        use_prompt = self.hp.num_prompts > 0
+
+        def step(params, tp, state, mel, nv, prompt, act=None):
+            return asr.stream_step(
+                params, state, mel, nv, act, prompt if use_prompt else None,
+                hp=self.hp, cfg=cfg, phase=phase, attn_block=self.attn_block,
+                confidence=self.confidence, tp=tp)
+
+        return self._per_shard(state, step, mel_chunk, n_valid, prompt_idx,
+                               *([] if active is None else [active]))
 
     def prime_frontend(self, state, mask, tails, lasts):
         """Install frontend carries for newly joined slots."""
-        return state_mod.prime_frontend(state, self.put_batch(mask),
-                                        self.put_batch(tails),
-                                        self.put_batch(lasts))
+        return self._per_shard(
+            state, lambda _p, _tp, s, *rows: state_mod.prime_frontend(
+                s, *rows), self.put_batch(mask), self.put_batch(tails),
+            self.put_batch(lasts), with_tokens=False)
 
     def compact_state(self, cfg, state, phase: int | None = None, mask=None):
         """Move the live K/V window back to phase 0 (in place). `phase` is
@@ -250,16 +347,25 @@ class ASRModel:
             phase = cfg.n_phases
         if phase == 0:
             return state
-        k, v = compact_cache(cfg, self.hp, state.k_cache, state.v_cache,
-                             phase=phase,
-                             mask=None if mask is None else self.put_batch(mask))
-        return dataclasses.replace(state, k_cache=k, v_cache=v)
+
+        def compact(_p, _tp, state, m=None):
+            k, v = compact_cache(cfg, self.hp, state.k_cache, state.v_cache,
+                                 phase=phase, mask=m)
+            return dataclasses.replace(state, k_cache=k, v_cache=v)
+
+        return self._per_shard(
+            state, compact, *([] if mask is None else [self.put_batch(mask)]),
+            with_tokens=False)
 
     def realign_state(self, cfg, state, delta: int, mask):
         """Move masked slots' K/V windows forward by `delta` phases."""
-        k, v = realign_cache(cfg, self.hp, state.k_cache, state.v_cache,
-                             delta, self.put_batch(mask))
-        return dataclasses.replace(state, k_cache=k, v_cache=v)
+        def realign(_p, _tp, state, m):
+            k, v = realign_cache(cfg, self.hp, state.k_cache, state.v_cache,
+                                 delta, m)
+            return dataclasses.replace(state, k_cache=k, v_cache=v)
+
+        return self._per_shard(state, realign, self.put_batch(mask),
+                               with_tokens=False)
 
     def _preprocessor(self):
         return StreamPreprocessor(self.params.preproc.filterbank,
@@ -270,8 +376,9 @@ class ASRModel:
         zero-padded batch per segment of max_seg_mel_frames (each padded
         to a multiple of MEL_BUCKET), the decoder state carried from one
         segment to the next. Returns [(token_ids, frame_indices)] per
-        mel."""
-        hp, dev = self.hp, self.device
+        mel. On a mesh, on dp shard 0 (its tp devices in the encoder)."""
+        hp = self.hp
+        params, tp, dev = self._shards()[0]
         b = len(mels)
         if prompt_index is None:
             prompt_index = self.default_prompt_index
@@ -296,11 +403,14 @@ class ASRModel:
             for i, p in enumerate(parts):
                 padded[i, :p.shape[0]] = p
             stats = {"batch": b, "mel_frames": t_pad}
+            def put(a):
+                return torch.tensor(a, device=dev)
+
             tokens, dec_state = asr.transcribe_batch(
-                self.params, self.put_batch(padded), hp=hp, prompt_idx=pidx,
-                n_frames=self.put_batch(n_sub), dec_state=dec_state,
-                n_mel_frames=self.put_batch(n_mel),
-                confidence=self.confidence, stats=stats)
+                params, put(padded), hp=hp, prompt_idx=pidx,
+                n_frames=put(n_sub), dec_state=dec_state,
+                n_mel_frames=put(n_mel), confidence=self.confidence,
+                stats=stats, tp=tp)
             self.offline_stats.append(stats)
             seqs = asr.tokens_to_list(
                 tokens, n_sub,
@@ -342,6 +452,10 @@ class ASRModel:
                 for ids, frames in self._transcribe_mels(mels, prompt_index)]
 
     def synchronize(self) -> None:
-        """Wait for the device's queued work (block_until_ready)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """Wait for the device's queued work (block_until_ready); on a
+        mesh, every card's."""
+        devs = ({d for row in self.mesh.devices for d in row}
+                if self.mesh is not None else {self.device})
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)

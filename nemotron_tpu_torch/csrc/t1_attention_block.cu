@@ -4,7 +4,8 @@
 //
 // Replaces: nemotron_tpu/ops/attn_block_pallas.py, _block_kernel via
 // t1_attention_block (pallas_call at :177). Same function and the same
-// rounding points, not the same grid. With D = H * Dh, for each stream b:
+// rounding points, not the same grid. With E = H * Dh (D, or a tp shard's
+// heads: parallel/mesh.py), for each stream b:
 //     y       = LN(x[b]) (f32), rounded to x's type
 //     q, k, v = y . Wq^T, y . Wk^T, y . Wv^T       (f32 sums; q stays f32)
 //   and for each head h:
@@ -15,6 +16,9 @@
 //               type
 //     out[b]  = x[b] + ctx . Wo^T                    (f32 sum, rounded once)
 //   k_new, v_new = k, v rounded to x's type (the caller appends them).
+// Wq, Wk, Wv are [E, D] and Wo [D, E]; with `residual` 0 the x[b] term is
+// left out, so a tp shard's out is its partial product, which the caller
+// sums over the shards before it adds the residual once.
 // pp [H, Dh, S_buf + 1] f32 is the phase-shifted position projection, built
 // outside the kernel as in the JAX package; mask [B, S_buf + 1] holds 0 on
 // live slots and -1e9 on dead ones. The caches are dense (x's type) or int8
@@ -328,10 +332,11 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
            const void* pp, const void* mask, const void* kc, const void* k_s,
            const void* vc, const void* v_s, void* out, void* k_new,
            void* v_new, void* qkv, void* ctx, void* stats, void* ws,
-           void* counters, int B, int H, int s_buf, int d_head, float eps,
-           float scale, const Plan& plan, void* stream) {
+           void* counters, int B, int H, int s_buf, int d_head, int D,
+           int residual, float eps, float scale, const Plan& plan,
+           void* stream) {
   if (B <= 0) return 0;
-  const int D = H * d_head;
+  const int E = H * d_head;  // the heads' width: D, or a tp shard's
   auto* st = static_cast<cudaStream_t>(stream);
   int err;
   if constexpr (sizeof(T) == 4) {  // f32: LN statistics, the FFMA body
@@ -341,18 +346,18 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
     if (err) return err;
     const wq::DenseW w_qkv{{static_cast<const float*>(q_w),
                             static_cast<const float*>(k_w),
-                            static_cast<const float*>(v_w)}, D, D};
+                            static_cast<const float*>(v_w)}, E, D};
     err = wq::run_f32(wq::LnA{x, static_cast<const float*>(ln_w),
                               static_cast<const float*>(ln_b), st2, D},
                       w_qkv,
-                      wq::StoreSplits{static_cast<float*>(qkv), B, 3 * D},
+                      wq::StoreSplits{static_cast<float*>(qkv), B, 3 * E},
                       wq::F32Plan{plan.qkv_nt, plan.qkv_splits,
                                   plan.qkv_steps_per, nullptr, nullptr},
-                      B, 3 * D, D, stream);
+                      B, 3 * E, D, stream);
   } else {
     const void* w[3] = {q_w, k_w, v_w};
     err = wq::launch_dense<true>(x_, ln_w, ln_b, eps, w, 3, qkv, nullptr,
-                                 nullptr, B, D, D, plan.qkv_nt,
+                                 nullptr, B, E, D, plan.qkv_nt,
                                  plan.qkv_splits, plan.qkv_steps_per, stream);
   }
   if (err) return err;
@@ -366,20 +371,23 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
 
   if constexpr (sizeof(T) == 4) {
     const float* wo = static_cast<const float*>(out_w);
-    return wq::run_f32(wq::PlainA{static_cast<const float*>(ctx), D},
-                       wq::DenseW{{wo, wo, wo}, D, D},
-                       wq::AddResidual{static_cast<float*>(out),
-                                       static_cast<const float*>(x_), D},
-                       wq::F32Plan{plan.out_nt, plan.out_splits,
-                                   plan.out_steps_per,
-                                   static_cast<float*>(ws),
-                                   static_cast<int*>(counters)},
-                       B, D, D, stream);
+    const wq::PlainA a{static_cast<const float*>(ctx), E};
+    const wq::DenseW w{{wo, wo, wo}, D, E};
+    const wq::F32Plan p{plan.out_nt, plan.out_splits, plan.out_steps_per,
+                        static_cast<float*>(ws), static_cast<int*>(counters)};
+    if (residual)
+      return wq::run_f32(a, w,
+                         wq::AddResidual{static_cast<float*>(out),
+                                         static_cast<const float*>(x_), D},
+                         p, B, D, E, stream);
+    return wq::run_f32(a, w, wq::StoreY{static_cast<float*>(out), D}, p, B, D,
+                       E, stream);
   } else {
     const void* wo[1] = {out_w};
     return wq::launch_dense<false>(ctx, nullptr, nullptr, 0.f, wo, 1, nullptr,
-                                   out, x_, B, D, D, plan.out_nt, 1,
-                                   (D + wq::sm90::kStep - 1) / wq::sm90::kStep,
+                                   out, residual ? x_ : nullptr, B, D, E,
+                                   plan.out_nt, 1,
+                                   (E + wq::sm90::kStep - 1) / wq::sm90::kStep,
                                    stream);
   }
 }
@@ -388,9 +396,9 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
 
 // x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
 // v_buf, out, k_new, v_new, qkv scratch [splits, B, 3D] f32, ctx scratch
-// [B, D]; f32 only (else null): LN statistics [B, 2] f32, the out
-// projection's split-K workspace and tile counters; B, H, S_buf, Dh, eps,
-// scale, the plan (QKV batch tile, splits, steps per split; out batch
+// [B, E]; f32 only (else null): LN statistics [B, 2] f32, the out
+// projection's split-K workspace and tile counters; B, H, S_buf, Dh,
+// d_model D, whether to add the residual, eps, scale, the plan (QKV batch tile, splits, steps per split; out batch
 // tile, splits, steps per split; streams per attention block, its thread
 // groups and their rings' stages), stream
 #define DENSE_ARGS                                                           \
@@ -400,9 +408,10 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
       const void *mask, const void *k_buf, const void *v_buf, void *out,     \
       void *k_new, void *v_new, void *qkv, void *ctx, void *stats,           \
       void *ws, void *counters, int B, int H, int s_buf, int d_head,         \
-      float eps, float scale, int qkv_nt, int qkv_splits, int qkv_steps_per, \
-      int out_nt, int out_splits, int out_steps_per, int attn_per_block,     \
-      int attn_groups, int attn_stages, void *stream
+      int d_model, int residual, float eps, float scale, int qkv_nt,         \
+      int qkv_splits, int qkv_steps_per, int out_nt, int out_splits,         \
+      int out_steps_per, int attn_per_block, int attn_groups,                \
+      int attn_stages, void *stream
 // the same with the int8 caches as codes and scales: k_q, k_s, v_q, v_s
 #define I8_ARGS                                                              \
   const void *x, const void *ln_w, const void *ln_b, const void *q_w,        \
@@ -411,8 +420,9 @@ int launch(const void* x_, const void* ln_w, const void* ln_b,
       const void *mask, const void *k_q, const void *k_s, const void *v_q,   \
       const void *v_s, void *out, void *k_new, void *v_new, void *qkv,       \
       void *ctx, void *stats, void *ws, void *counters, int B, int H,        \
-      int s_buf, int d_head, float eps, float scale, int qkv_nt,             \
-      int qkv_splits, int qkv_steps_per, int out_nt, int out_splits,         \
+      int s_buf, int d_head, int d_model, int residual, float eps,           \
+      float scale, int qkv_nt, int qkv_splits, int qkv_steps_per,            \
+      int out_nt, int out_splits,                                            \
       int out_steps_per, int attn_per_block, int attn_groups,                \
       int attn_stages, void *stream
 #define PLAN                                                         \
@@ -423,27 +433,29 @@ extern "C" int t1_attention_block_f32(DENSE_ARGS) {
   return launch<float, float>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
                               bias_v, pp, mask, k_buf, nullptr, v_buf,
                               nullptr, out, k_new, v_new, qkv, ctx, stats, ws,
-                              counters, B, H, s_buf, d_head, eps, scale, PLAN,
-                              stream);
+                              counters, B, H, s_buf, d_head, d_model,
+                              residual, eps, scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_bf16(DENSE_ARGS) {
   return launch<__nv_bfloat16, __nv_bfloat16>(
       x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
       nullptr, v_buf, nullptr, out, k_new, v_new, qkv, ctx, stats, ws,
-      counters, B, H, s_buf, d_head, eps, scale, PLAN, stream);
+      counters, B, H, s_buf, d_head, d_model, residual, eps, scale, PLAN,
+      stream);
 }
 
 extern "C" int t1_attention_block_i8_f32(I8_ARGS) {
   return launch<float, int8_t>(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
                                bias_v, pp, mask, k_q, k_s, v_q, v_s, out,
                                k_new, v_new, qkv, ctx, stats, ws, counters, B,
-                               H, s_buf, d_head, eps, scale, PLAN, stream);
+                               H, s_buf, d_head, d_model, residual, eps,
+                               scale, PLAN, stream);
 }
 
 extern "C" int t1_attention_block_i8_bf16(I8_ARGS) {
   return launch<__nv_bfloat16, int8_t>(
       x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_q,
       k_s, v_q, v_s, out, k_new, v_new, qkv, ctx, stats, ws, counters, B, H,
-      s_buf, d_head, eps, scale, PLAN, stream);
+      s_buf, d_head, d_model, residual, eps, scale, PLAN, stream);
 }

@@ -960,7 +960,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         a.ws[((long)z * a.M + gm) * parts * a.rows + part * a.rows + gn] = v;
       } else {
         const long o = (long)gm * a.rows + gn;
-        a.y[o] = __float2bfloat16(__bfloat162float(a.res[o]) + v);
+        a.y[o] = a.res ? __float2bfloat16(__bfloat162float(a.res[o]) + v)
+                       : __float2bfloat16(v);
       }
     }
   }
@@ -992,7 +993,8 @@ int run_dense(const CUtensorMap* tw, const CUtensorMap& tx,
 // B3's bf16 projections on the plan of ops/attn_block.py:block_gemm_plans.
 // kLn (QKV): x [M, K] is LN's input, w[0 .. parts) the [rows, K] weights,
 // f32 sums into ws [splits, M, parts * rows]. !kLn (out): x [M, K] is the
-// B operand, w[0] the weight, y [M, rows] = bf16(res + x . w^T), one split.
+// B operand, w[0] the weight, y [M, rows] = bf16(res + x . w^T), one split
+// (bf16(x . w^T) where res is null: a tp shard's partial).
 template <bool kLn>
 int launch_dense(const void* x, const void* ln_w, const void* ln_b,
                  float eps, const void* const* w, int parts, void* ws,

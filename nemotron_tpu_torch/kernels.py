@@ -44,7 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-_BLOCK_TAIL = [_I, _I, _I, _I, _F, _F] + [_I] * 9 + [_P]
+_BLOCK_TAIL = [_I] * 6 + [_F, _F] + [_I] * 9 + [_P]
 
 # exported symbol -> argtypes (pointers and the stream as c_void_p, or
 # ctypes would pass them as 32-bit ints and cut them)
@@ -74,7 +74,8 @@ _SIGNATURES = {
     # x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
     # v_buf, out, k_new, v_new, qkv scratch, ctx scratch, (f32, else null)
     # LN statistics, the out projection's split-K workspace and tile
-    # counters, batch, heads, s_buf, d_head, eps, scale, then the plan
+    # counters, batch, heads, s_buf, d_head, d_model, whether to add the
+    # residual, eps, scale, then the plan
     # (ops/attn_block.py: QKV batch tile, splits, steps per split; out
     # batch tile, splits, steps per split; streams per attention block, its
     # thread groups and their rings' stages); stream

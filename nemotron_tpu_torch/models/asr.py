@@ -9,7 +9,9 @@ does the same from a mel chunk (the single-stream session computes its mel
 on the host side). The caches are updated in place (see models/encoder.py).
 `confidence` packs per-token confidences into the tokens
 (models/decoder.py). `transcribe_batch` is the offline path: the batch
-encoder over whole utterances, then the decode with its exit.
+encoder over whole utterances, then the decode with its exit. `tp` (a
+params.TPGroup) runs the encoder's layers over one dp shard's tp devices
+(models/encoder.py); everything else runs on the lead device.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def _prompt_onehot(params, prompt_idx, hp: Hparams):
 def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
                 prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
                 phase: int = 0, attn_block: bool = False,
-                confidence: bool = False):
+                confidence: bool = False, tp=None):
     """Advance a batch of streams by one chunk of mel frames. The frontend
     carries are not touched.
 
@@ -61,7 +63,8 @@ def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
         params, hp, cfg, mel_chunk.to(params.pos_emb.dtype), state.k_cache,
         state.v_cache, state.conv_cache, state.cache_valid,
         prompt_onehot=_prompt_onehot(params, prompt_idx, hp), phase=phase,
-        active_mask=act, attn_block=attn_block, advance_phase=act is None)
+        active_mask=act, attn_block=attn_block, advance_phase=act is None,
+        tp=tp)
     dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
                                       n_valid=n_valid, confidence=confidence)
     return dataclasses.replace(
@@ -72,7 +75,7 @@ def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
 def fused_encode_tick(params, state: StreamState, audio_block, active,
                       prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
                       phase: int = 0, fast_gated: bool = False,
-                      attn_block: bool = False):
+                      attn_block: bool = False, tp=None):
     """Frontend + encoder half of the tick: raw PCM blocks in, encoder frames
     out, the frontend carries and caches advanced (decode state untouched).
 
@@ -100,7 +103,7 @@ def fused_encode_tick(params, state: StreamState, audio_block, active,
         state.k_cache, state.v_cache, state.conv_cache, state.cache_valid,
         prompt_onehot=_prompt_onehot(params, prompt_idx, hp), phase=phase,
         active_mask=act, attn_block=attn_block,
-        advance_phase=act is None or fast_gated)
+        advance_phase=act is None or fast_gated, tp=tp)
     if act is not None:
         tail2 = _gate0(act, tail2, state.pp_tail)
         last2 = torch.where(act, last2, state.pp_last)
@@ -125,7 +128,8 @@ def decode_tick(params, state: StreamState, enc, n_valid, active=None, *,
 def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
                      prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
                      phase: int = 0, fast_gated: bool = False,
-                     attn_block: bool = False, confidence: bool = False):
+                     attn_block: bool = False, confidence: bool = False,
+                     tp=None):
     """Whole serving step: raw PCM in -> tokens [B, chunk_len, S] out
     (fused_encode_tick, then decode_tick).
 
@@ -137,7 +141,7 @@ def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
     state, enc = fused_encode_tick(params, state, audio_block, active,
                                    prompt_idx, hp=hp, cfg=cfg, phase=phase,
                                    fast_gated=fast_gated,
-                                   attn_block=attn_block)
+                                   attn_block=attn_block, tp=tp)
     return decode_tick(params, state, enc, n_valid, active, hp=hp,
                        confidence=confidence)
 
@@ -145,7 +149,7 @@ def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
 def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
                           prompt_idx=None, *, hp: Hparams, cfg: CacheConfig,
                           k: int, phase: int = 0, attn_block: bool = False,
-                          confidence: bool = False):
+                          confidence: bool = False, tp=None):
     """k all-active ticks in one call (backlog micro-batching), as a loop over
     chunks. Same contract as the JAX package: k | n_phases and phase % k == 0,
     so the slack-buffer wrap can only land after the last chunk.
@@ -162,7 +166,7 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
         state, t = fused_serve_tick(
             params, state, audio_blocks[:, i * shift:(i + 1) * shift],
             n_valid, None, prompt_idx, hp=hp, cfg=cfg, phase=phase + i,
-            attn_block=attn_block, confidence=confidence)
+            attn_block=attn_block, confidence=confidence, tp=tp)
         toks.append(t)
     if phase + k == cfg.n_phases:  # wrap: move the window back to phase 0
         k2, v2 = compact_cache(cfg, hp, state.k_cache, state.v_cache)
@@ -176,7 +180,8 @@ DECODE_EXIT_EVERY = 16
 
 def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
                      n_frames=None, dec_state=None, n_mel_frames=None,
-                     confidence: bool = False, stats: dict | None = None):
+                     confidence: bool = False, stats: dict | None = None,
+                     tp=None):
     """Offline path (nemotron_tpu/models/asr.py:transcribe_batch): mel
     [B, T, n_mels] -> (tokens [B, T', S], dec_state'), the full-context
     encoder over each utterance, then the greedy decode with its exit.
@@ -188,7 +193,7 @@ def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
     """
     enc = encode_batch(params, hp, mel,
                        prompt_onehot=_prompt_onehot(params, prompt_idx, hp),
-                       n_frames=n_frames, n_mel_frames=n_mel_frames)
+                       n_frames=n_frames, n_mel_frames=n_mel_frames, tp=tp)
     if dec_state is None:
         dec_state = init_decode_state(enc.shape[0], hp, dtype=enc.dtype,
                                       device=enc.device)

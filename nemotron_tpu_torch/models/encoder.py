@@ -25,6 +25,15 @@ projections, attention, out projection, residual) as one call of kernel B3
 JAX package's NEMOTRON_TPU_PALLAS_ATTN_BLOCK path, taken as an argument. At
 chunk_len > 1 the layers take `rel_pos_mha_fullbuf` whatever attn_block
 says, as in the JAX package.
+
+`tp` (a params.TPGroup, one dp shard of a mesh: parallel/mesh.py) runs the
+layers Megatron-style over the shard's tp devices, as the JAX package's
+GSPMD does from its shardings: each device computes its heads' attention
+(against its HeadShards part of the caches, through B1 or B3) and its d_ff
+slice of each FFN; the partial products of the out projection and of each
+FFN's w2 are summed on the lead device (ops/basic.tp_sum), where the
+residual is added once. LayerNorms, the conv module, the subsampling and
+the prompt fusion run once, on the lead device.
 """
 
 from __future__ import annotations
@@ -36,18 +45,19 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attn_block import t1_attention_block
-from ..ops.basic import ffn, glu, layer_norm, linear
+from ..ops.basic import ffn, glu, layer_norm, linear, tp_sum
 from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
-from ..ops.kvquant import (is_quant, kv_cat, kv_parts, kv_slice,
+from ..ops.kvquant import (HeadShards, is_quant, kv_cat, kv_parts, kv_slice,
                            kv_update_slice_, kv_where, quantize_kv)
 from ..ops.quant import is_quantized
 from ..ops.rel_attention import (rel_pos_mha, rel_pos_mha_fullbuf,
                                  rel_pos_mha_window)
-from ..params import layer_slice
+from ..params import layer_slice, on_device
 from ..config import CacheConfig, Hparams
 
 
-def conformer_layer(x, lp, hp: Hparams, attention, conv_cache=None):
+def conformer_layer(x, lp, hp: Hparams, attention, conv_cache=None,
+                    ffns=None):
     """One conformer layer.
 
     x + .5*FFN1 -> +MHA -> +Conv -> +.5*FFN2 -> final LN. `attention` is
@@ -55,11 +65,15 @@ def conformer_layer(x, lp, hp: Hparams, attention, conv_cache=None):
     (res', k_new, v_new): `attention_sublayer` of the streaming or the
     offline MHA, or one call of kernel B3. conv_cache [B, K-1, D] is the
     streaming conv's carried left context; None zero-pads (offline).
-    Returns (y, k_new, v_new, conv_cache' [B, K-1, D]).
+    `ffns` (the two FFNs as callables, `_tp_layer`'s) replaces lp's FFN
+    matrices. Returns (y, k_new, v_new, conv_cache' [B, K-1, D]).
     """
+    if ffns is None:
+        ffns = (lambda cur: ffn(cur, lp.ffn1_w1, lp.ffn1_w2),
+                lambda cur: ffn(cur, lp.ffn2_w1, lp.ffn2_w2))
     res = x
     cur = layer_norm(res, lp.norm_ff1_w, lp.norm_ff1_b)
-    res = res + 0.5 * ffn(cur, lp.ffn1_w1, lp.ffn1_w2)
+    res = res + 0.5 * ffns[0](cur)
     res, k_new, v_new = attention(res)
 
     # conv module: LN -> pw1 -> GLU -> causal dw conv -> LN -> SiLU -> pw2
@@ -71,7 +85,7 @@ def conformer_layer(x, lp, hp: Hparams, attention, conv_cache=None):
     res = res + cur
 
     cur = layer_norm(res, lp.norm_ff2_w, lp.norm_ff2_b)
-    res = res + 0.5 * ffn(cur, lp.ffn2_w1, lp.ffn2_w2)
+    res = res + 0.5 * ffns[1](cur)
     y = layer_norm(res, lp.norm_final_w, lp.norm_final_b)
     return y, k_new, v_new, conv_out
 
@@ -133,15 +147,19 @@ def check_attn_block_weights(layers) -> None:
             f"quantized weights")
 
 
-def _block_call(lp, hp: Hparams, pos, pos_index, mask, k_buf, v_buf):
+def _block_call(lp, hp: Hparams, pos, pos_index, mask, k_buf, v_buf,
+                n_heads: int | None = None, residual: bool = True):
     """Layer lp's attention sub-block as one B3 call: res -> (res', k_new,
-    v_new [B, H, 1, Dh]). pos [pos_len, D] is pos_emb . attn_pos_w^T;
+    v_new [B, H, 1, Dh]). pos [pos_len, H * Dh] is pos_emb . attn_pos_w^T;
     pos_index is the one query's row [S_buf + 1]; pp is built here, outside
     the kernel as in the JAX package (encoder.py:345-350): pp[h, d, s] =
     pos[pos_index[s], h, d] on live slots, 0 on dead ones (the index form of
-    its one-hot contraction)."""
+    its one-hot contraction). n_heads (default hp's) and residual=False
+    give a tp shard's call: its heads, its partial product in place of
+    res'."""
+    n_heads = n_heads or hp.n_heads
     live = (pos_index >= 0).to(torch.float32)
-    ph = pos.float().view(-1, hp.n_heads, hp.d_head)
+    ph = pos.float().view(-1, n_heads, hp.d_head)
     pp = (ph[pos_index.clamp(min=0)] * live[:, None, None]).permute(
         1, 2, 0).contiguous()
 
@@ -149,11 +167,53 @@ def _block_call(lp, hp: Hparams, pos, pos_index, mask, k_buf, v_buf):
         out, kn, vn = t1_attention_block(
             res[:, 0], lp.norm_attn_w, lp.norm_attn_b, lp.attn_q_w,
             lp.attn_k_w, lp.attn_v_w, lp.attn_out_w, lp.pos_bias_u,
-            lp.pos_bias_v, pp, mask, k_buf, v_buf, hp.n_heads,
-            hp.d_head)
+            lp.pos_bias_v, pp, mask, k_buf, v_buf, n_heads,
+            hp.d_head, residual=residual)
         return out[:, None], kn[:, :, None], vn[:, :, None]
 
     return call
+
+
+def _tp_layer(tp, layer: int, hp: Hparams, attend, fused_ln: bool = False):
+    """Layer `layer` over a dp shard's tp devices (see the module
+    docstring): (lead layer params, attention, ffns) for conformer_layer.
+    attend(t, lp_t, cur_t) runs device t's heads on cur_t (LN(res) on
+    device t; res itself with fused_ln, where the call does its own LN,
+    as B3) and returns (partial, k_new, v_new); the partials are summed on
+    the lead device and added to res once, and the new K/V frames come
+    back as HeadShards."""
+    lps = [layer_slice(p.layers, layer) for p in tp.params]
+    lead = lps[0]
+
+    def attention(res):
+        cur = res if fused_ln else layer_norm(res, lead.norm_attn_w,
+                                               lead.norm_attn_b)
+        outs, ks, vs = [], [], []
+        for t, (dev, lp) in enumerate(zip(tp.devices, lps)):
+            with on_device(dev):
+                out, k_new, v_new = attend(t, lp, cur.to(dev))
+            outs.append(out)
+            ks.append(k_new)
+            vs.append(v_new)
+        return res + tp_sum(outs, res.device), HeadShards(ks), HeadShards(vs)
+
+    def mlp(which):
+        def call(cur):
+            parts = []
+            for dev, lp in zip(tp.devices, lps):
+                with on_device(dev):
+                    parts.append(ffn(cur.to(dev), getattr(lp, f"ffn{which}_w1"),
+                                     getattr(lp, f"ffn{which}_w2")))
+            return tp_sum(parts, cur.device)
+        return call
+
+    return lead, attention, (mlp(1), mlp(2))
+
+
+def _on_each(tp, *tensors):
+    """`tensors` on each of the tp devices, [t] -> tuple (the same tensors
+    on the lead device and wherever the devices coincide)."""
+    return [tuple(x.to(dev) for x in tensors) for dev in tp.devices]
 
 
 def pos_emb_slice(pos_table, pos_len: int):
@@ -172,7 +232,7 @@ def prompt_fusion(pk, enc, prompt_onehot):
 
 
 def encode_batch(params, hp: Hparams, mel, prompt_onehot=None,
-                 n_frames=None, n_mel_frames=None):
+                 n_frames=None, n_mel_frames=None, tp=None):
     """Offline encoder (nemotron_tpu/models/encoder.py:encode_batch):
     mel [B, T, n_mels] -> [B, T', d_model], full attention over each
     utterance, T' = subsampled_len(T) <= hp.max_pos_len (the pos table).
@@ -182,6 +242,7 @@ def encode_batch(params, hp: Hparams, mel, prompt_onehot=None,
     its exact-length width. With both, each row's valid prefix equals its
     exact-length run: every conv is causal, so the zero padding reaches no
     valid frame (a ragged batch, or a segment padded to its bucket).
+    tp: the layers over a dp shard's tp devices (the module docstring).
     """
     x = conv_subsampling(params.subsampling, mel, n_frames=n_mel_frames)
     t = x.shape[1]
@@ -192,7 +253,20 @@ def encode_batch(params, hp: Hparams, mel, prompt_onehot=None,
         attn_mask = torch.where(pos[None, :] >= n_frames[:, None].to(pos.dtype),
                                 -1e9, 0.0).to(x.dtype)
 
+    if tp is not None:
+        per_dev = _on_each(tp, pe, *(() if attn_mask is None else (attn_mask,)))
+        h_tp = hp.n_heads // len(tp.devices)
+
+        def attend(t, lp, cur):
+            pe_t, *m = per_dev[t]
+            return rel_pos_mha(cur, pe_t, *_attn_weights(lp), h_tp,
+                               hp.d_head, m[0] if m else None), None, None
+
     for layer in range(hp.n_layers):
+        if tp is not None:
+            lp, attention, ffns = _tp_layer(tp, layer, hp, attend)
+            x = conformer_layer(x, lp, hp, attention, ffns=ffns)[0]
+            continue
         lp = layer_slice(params.layers, layer)
         attention = attention_sublayer(
             lp, lambda cur, lp=lp: (rel_pos_mha(
@@ -207,7 +281,8 @@ def encode_batch(params, hp: Hparams, mel, prompt_onehot=None,
 def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
                        k_cache, v_cache, conv_cache, cache_valid,
                        prompt_onehot=None, phase: int = 0, active_mask=None,
-                       attn_block: bool = False, advance_phase: bool = True):
+                       attn_block: bool = False, advance_phase: bool = True,
+                       tp=None):
     """One streaming encoder chunk: the phased fast path, or with
     advance_phase=False the legacy phase-stationary step.
 
@@ -237,6 +312,9 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     conv cache and cache_valid: the JAX package gates the whole buffers
     after the step, and only the window differs between the two.
 
+    tp: the layers over a dp shard's tp devices (the module docstring);
+    k_cache / v_cache are then HeadShards over them.
+
     Returns (enc_out [B, chunk_len, D], k_cache, v_cache, conv_cache,
     cache_valid').
     """
@@ -248,11 +326,11 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
     am = None if active_mask is None else active_mask.to(torch.bool)
     if not advance_phase:
         x = _gated_layers(params, hp, x, pe, k_cache, v_cache, conv_cache,
-                          cache_valid, am, phase * chunk_len, lc)
+                          cache_valid, am, phase * chunk_len, lc, tp)
     else:
         x = _phased_layers(params, hp, x, pe, k_cache, v_cache, conv_cache,
                            cache_valid, am, phase, lc, chunk_len,
-                           attn_block)
+                           attn_block, tp)
     if params.prompt is not None and prompt_onehot is not None:
         x = prompt_fusion(params.prompt, x, prompt_onehot)
     valid2 = torch.clamp(cache_valid + chunk_len, max=lc)
@@ -262,22 +340,34 @@ def stream_encode_step(params, hp: Hparams, cfg: CacheConfig, mel_chunk,
 
 
 def _gated_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
-                  cache_valid, am, win_lo: int, lc: int):
+                  cache_valid, am, win_lo: int, lc: int, tp=None):
     """The layers of the legacy phase-stationary step (see
     stream_encode_step), the caches rewritten in place."""
     pos = torch.arange(lc + x.shape[1], device=x.device)
     mask = torch.where(pos[None, :] < (lc - cache_valid)[:, None], -1e9,
                        0.0).to(x.dtype)  # [B, lc + T]
+    if tp is not None:
+        per_dev = _on_each(tp, pe, mask)
+        h_tp = hp.n_heads // len(tp.devices)
     for layer in range(hp.n_layers):
-        lp = layer_slice(params.layers, layer)
         kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
         kw = kv_slice(kl, win_lo, win_lo + lc, 2)
         vw = kv_slice(vl, win_lo, win_lo + lc, 2)
-        attention = attention_sublayer(
-            lp, lambda cur, lp=lp, kw=kw, vw=vw: rel_pos_mha_window(
-                cur, pe, *_attn_weights(lp), hp.n_heads, hp.d_head, kw, vw,
-                mask))
-        x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl)
+        ffns = None
+        if tp is not None:
+            lp, attention, ffns = _tp_layer(
+                tp, layer, hp, lambda t, lpt, cur, kw=kw, vw=vw:
+                rel_pos_mha_window(cur, per_dev[t][0], *_attn_weights(lpt),
+                                   h_tp, hp.d_head, kw.parts[t], vw.parts[t],
+                                   per_dev[t][1]))
+        else:
+            lp = layer_slice(params.layers, layer)
+            attention = attention_sublayer(
+                lp, lambda cur, lp=lp, kw=kw, vw=vw: rel_pos_mha_window(
+                    cur, pe, *_attn_weights(lp), hp.n_heads, hp.d_head, kw,
+                    vw, mask))
+        x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl,
+                                               ffns)
         if is_quant(kl):
             k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
         # the window's last lc frames after the new ones (a copy: the
@@ -299,7 +389,7 @@ def _gated_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
 
 def _phased_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
                    cache_valid, am, phase: int, lc: int, chunk_len: int,
-                   attn_block: bool):
+                   attn_block: bool, tp=None):
     """The layers of the phased fast path (see stream_encode_step), the new
     frames appended in place."""
     win_hi = phase * chunk_len + lc
@@ -309,19 +399,40 @@ def _phased_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
     mask_full = torch.where(j_of_s[None, :] < offset[:, None], -1e9, 0.0
                             ).to(x.dtype)
     use_block = attn_block and chunk_len == 1
+    if tp is not None:
+        per_dev = _on_each(tp, pe, pos_index, mask_full)
+        h_tp = hp.n_heads // len(tp.devices)
 
     for layer in range(hp.n_layers):
-        lp = layer_slice(params.layers, layer)
         kl, vl, cl = k_cache[layer], v_cache[layer], conv_cache[layer]
-        if use_block:
+        ffns = None
+        if tp is not None and use_block:
+            def attend(t, lpt, res, kl=kl, vl=vl):
+                pe_t, pi_t, m_t = per_dev[t]
+                return _block_call(lpt, hp, linear(pe_t, lpt.attn_pos_w),
+                                   pi_t[0], m_t, kl.parts[t], vl.parts[t],
+                                   h_tp, residual=False)(res)
+            lp, attention, ffns = _tp_layer(tp, layer, hp, attend,
+                                            fused_ln=True)
+        elif tp is not None:
+            def attend(t, lpt, cur, kl=kl, vl=vl):
+                pe_t, pi_t, m_t = per_dev[t]
+                return rel_pos_mha_fullbuf(
+                    cur, pe_t, *_attn_weights(lpt), h_tp, hp.d_head,
+                    kl.parts[t], vl.parts[t], pi_t, m_t)
+            lp, attention, ffns = _tp_layer(tp, layer, hp, attend)
+        elif use_block:
+            lp = layer_slice(params.layers, layer)
             attention = _block_call(lp, hp, linear(pe, lp.attn_pos_w),
                                     pos_index[0], mask_full, kl, vl)
         else:
+            lp = layer_slice(params.layers, layer)
             attention = attention_sublayer(
                 lp, lambda cur, lp=lp, kl=kl, vl=vl: rel_pos_mha_fullbuf(
                     cur, pe, *_attn_weights(lp), hp.n_heads, hp.d_head, kl,
                     vl, pos_index, mask_full))
-        x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl)
+        x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl,
+                                               ffns)
         if is_quant(kl):
             k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
         if am is not None:
@@ -358,9 +469,10 @@ def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
         if rows is None:
             buf[:, :, :, :lc] = buf[:, :, :, lo:lo + lc].clone()
         else:
-            sel = buf[:, rows]  # [L, n, H, S(, Dh)] copy
+            r = rows.to(buf.device)  # a head shard's device
+            sel = buf[:, r]  # [L, n, H, S(, Dh)] copy
             sel[:, :, :, :lc] = sel[:, :, :, lo:lo + lc].clone()
-            buf[:, rows] = sel
+            buf[:, r] = sel
     return k_cache, v_cache
 
 
@@ -374,5 +486,6 @@ def realign_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
     shift = delta * cfg.chunk_len(hp)
     rows = _rows(mask)
     for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):
-        buf[:, rows] = torch.roll(buf[:, rows], shift, dims=3)
+        r = rows.to(buf.device)  # a head shard's device
+        buf[:, r] = torch.roll(buf[:, r], shift, dims=3)
     return k_cache, v_cache

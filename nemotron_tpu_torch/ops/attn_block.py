@@ -10,7 +10,11 @@ nemotron_tpu/ops/attn_block_pallas.py, kernel B3).
     out      = x + ctx . Wo^T                          (f32 sum, cast once)
 
 Returns (out [B, D], k_new, v_new [B, H, Dh] in x's type); the caller
-appends k_new / v_new to the cache. K_buf / V_buf are dense tensors, or
+appends k_new / v_new to the cache. The heads may be a tp shard's
+(parallel/mesh.py): H * Dh = E need not be D, the projections are then
+[E, D] and the out projection [D, E], and with residual=False `out` is the
+shard's partial product ctx . Wo^T alone (cast once), which the caller sums
+over the shards before it adds the residual once. K_buf / V_buf are dense tensors, or
 int8 `QuantKV` caches read as they are, as kernel B1 reads them
 (ops/attn_kernel.py): the K scale multiplies each content score after the
 Dh reduction and the V scale multiplies the softmax weight. The JAX
@@ -42,12 +46,14 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def t1_attention_block_ref(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
                            bias_v, pp, mask, k_buf, v_buf, n_heads: int,
-                           d_head: int, eps: float = 1e-5):
+                           d_head: int, eps: float = 1e-5,
+                           residual: bool = True):
     """Plain PyTorch version, with the Pallas kernel's rounding points.
 
-    x [B, D]; ln_w/ln_b [D]; q/k/v/out_w [D, D] (out, in); bias_u/v [H, Dh];
-    pp [H, Dh, S_buf + 1] f32; mask [B, S_buf + 1] additive; k_buf/v_buf
-    [B, H, S_buf, Dh] dense or QuantKV (read only)."""
+    x [B, D]; ln_w/ln_b [D]; q/k/v_w [E, D] and out_w [D, E] (out, in) with
+    E = H * Dh; bias_u/v [H, Dh]; pp [H, Dh, S_buf + 1] f32; mask [B, S_buf
+    + 1] additive; k_buf/v_buf [B, H, S_buf, Dh] dense or QuantKV (read
+    only). residual=False leaves x out of `out`."""
     B, D = x.shape
     H, Dh = n_heads, d_head
     dt = x.dtype
@@ -80,7 +86,9 @@ def t1_attention_block_ref(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u,
     else:
         ctx = torch.einsum("bhs,bhsd->bhd", w[..., :-1], v_buf.float())
     ctx = ctx + w[..., -1:] * vn
-    out = xf + ctx.to(dt).float().reshape(B, D) @ out_w.float().T
+    out = ctx.to(dt).float().reshape(B, H * Dh) @ out_w.float().T
+    if residual:
+        out = xf + out
     return out.to(dt), kn.to(dt), vn.to(dt)
 
 
@@ -127,9 +135,10 @@ def _tile(rows: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def block_gemm_plans(m: int, d: int, sms: int):
+def block_gemm_plans(m: int, d: int, sms: int, e: int | None = None):
     """The plans of B3's two bf16 projections for m streams at d_model d
-    on a card with `sms` SMs: (qkv, out).
+    and e = H * Dh (d where None; a tp shard's heads give less) on a card
+    with `sms` SMs: (qkv, out).
 
     QKV: batch tiles of at most 64 rows, as large as let a ring of two
     stages fit beside the block's resident x rows (nt x d in bf16), then
@@ -137,8 +146,9 @@ def block_gemm_plans(m: int, d: int, sms: int):
     the attention launch adds the splits' partials in split order. Out: one
     split (the residual is added in the epilogue), batch tiles as small as
     it takes to give the SMs a block each."""
+    e = d if e is None else e
     steps = -(-d // GEMM_STEP)
-    tiles_n = 3 * -(-d // GEMM_ROWS)
+    tiles_n = 3 * -(-e // GEMM_ROWS)
     tiles_m = -(-m // QKV_MAX_TILE)
     while dense_smem(True, _tile(-(-m // tiles_m)), steps, 2) > SMEM_BLOCK:
         tiles_m += 1
@@ -149,7 +159,8 @@ def block_gemm_plans(m: int, d: int, sms: int):
                     steps_per)
     out_n = -(-d // GEMM_ROWS)
     nt = _tile(-(-m // max(1, sms // out_n)))
-    return qkv, DensePlan(nt, -(-m // nt), out_n, 1, steps, steps)
+    out_steps = -(-e // GEMM_STEP)
+    return qkv, DensePlan(nt, -(-m // nt), out_n, 1, out_steps, out_steps)
 
 
 MAX_GROUPS = 4  # groups of 128 threads per attention block, at most
@@ -211,10 +222,10 @@ def attn_group(b: int, h: int, s_buf: int, d_head: int, elem: int,
 
 @functools.lru_cache(maxsize=None)
 def block_f32_plans(m: int, d: int, s_buf: int, d_head: int, elem: int,
-                    sms: int):
+                    sms: int, e: int | None = None):
     """The plans of B3's two f32 projections (the FFMA body of
     csrc/wq_matmul.cuh, ops/quant.py:f32_plan) for m streams at d_model d
-    on a card with `sms` SMs: (qkv, out). The QKV splits go to their own
+    and e = H * Dh (d where None) on a card with `sms` SMs: (qkv, out). The QKV splits go to their own
     slices of the qkv scratch, which the attention launch adds in split
     order, so they are capped where its smallest configuration (attn_smem:
     2 groups of 1 stage, elem bytes per cache element) still fits a block;
@@ -222,7 +233,8 @@ def block_f32_plans(m: int, d: int, s_buf: int, d_head: int, elem: int,
     cap = max([z for z in range(1, MAX_QKV_SPLITS + 1)
                if attn_smem(s_buf, d_head, elem, 1, z, 2) <= SMEM_BLOCK],
               default=1)
-    return (f32_plan(m, 3 * d, d, sms, cap), f32_plan(m, d, d, sms))
+    e = d if e is None else e
+    return (f32_plan(m, 3 * e, d, sms, cap), f32_plan(m, d, e, sms))
 
 
 def _check(name, t, shape, dtype, device):
@@ -236,9 +248,10 @@ def _check(name, t, shape, dtype, device):
 
 def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
                        pp, mask, k_buf, v_buf, n_heads: int, d_head: int,
-                       eps: float = 1e-5):
+                       eps: float = 1e-5, residual: bool = True):
     """The fused attention block for one layer at T=1 (kernel on CUDA).
-    Returns (x + attn [B, D], k_new [B, H, Dh], v_new [B, H, Dh])."""
+    Returns (x + attn [B, D], k_new [B, H, Dh], v_new [B, H, Dh]); with
+    residual=False the first is attn alone (a tp shard's partial)."""
     quant = is_quant(k_buf)
     if quant != is_quant(v_buf):
         raise ValueError("t1_attention_block: K and V caches differ in kind")
@@ -246,7 +259,7 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
     if dev.type == "cpu":
         return t1_attention_block_ref(x, ln_w, ln_b, q_w, k_w, v_w, out_w,
                                       bias_u, bias_v, pp, mask, k_buf, v_buf,
-                                      n_heads, d_head, eps)
+                                      n_heads, d_head, eps, residual)
     if dev.type != "cuda":
         raise ValueError(f"t1_attention_block: unsupported device {dev}")
     dt = x.dtype
@@ -254,9 +267,10 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
         raise ValueError(f"t1_attention_block: unsupported dtype {dt}")
     B, D = x.shape
     H, Dh = n_heads, d_head
-    if H * Dh != D or D % 32:  # the GEMMs walk K in steps of 32
-        raise ValueError(f"t1_attention_block: d_model {D} must be "
-                         f"n_heads * d_head = {H * Dh} and a multiple of 32")
+    E = H * Dh
+    if D % 32 or E % 32:  # the GEMMs walk K in steps of 32
+        raise ValueError(f"t1_attention_block: d_model {D} and n_heads * "
+                         f"d_head = {E} must be multiples of 32")
     if quant:
         s_buf = k_buf.q.shape[2]
         caches = (k_buf.q, k_buf.s, v_buf.q, v_buf.s)
@@ -272,8 +286,8 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
             _check(name, t, (B, H, s_buf, Dh), dt, dev)
     for name, t, shape, want in (
             ("ln_w", ln_w, (D,), dt), ("ln_b", ln_b, (D,), dt),
-            ("q_w", q_w, (D, D), dt), ("k_w", k_w, (D, D), dt),
-            ("v_w", v_w, (D, D), dt), ("out_w", out_w, (D, D), dt),
+            ("q_w", q_w, (E, D), dt), ("k_w", k_w, (E, D), dt),
+            ("v_w", v_w, (E, D), dt), ("out_w", out_w, (D, E), dt),
             ("bias_u", bias_u, (H, Dh), dt), ("bias_v", bias_v, (H, Dh), dt),
             ("pp", pp, (H, Dh, s_buf + 1), torch.float32),
             ("mask", mask, (B, s_buf + 1), dt)):
@@ -290,12 +304,12 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
                          "aligned (bulk copies and TMA)")
     sms = sm_count(dev)
     if dt == torch.bfloat16:
-        qkv_plan, out_plan = block_gemm_plans(B, D, sms)
+        qkv_plan, out_plan = block_gemm_plans(B, D, sms, E)
         plan = (qkv_plan.nt, qkv_plan.splits, qkv_plan.steps_per,
                 out_plan.nt, 1, out_plan.steps)
         f32 = (None, None, None)
     else:  # f32: the FFMA body; LN statistics, the out GEMM's split-K
-        qkv_plan, out_plan = block_f32_plans(B, D, s_buf, Dh, elem, sms)
+        qkv_plan, out_plan = block_f32_plans(B, D, s_buf, Dh, elem, sms, E)
         plan = (qkv_plan.bm, qkv_plan.splits, qkv_plan.steps_per,
                 out_plan.bm, out_plan.splits, out_plan.steps_per)
         f32 = (torch.empty((B, 2), dtype=torch.float32, device=dev),
@@ -304,14 +318,14 @@ def t1_attention_block(x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v,
     out = torch.empty((B, D), dtype=dt, device=dev)
     k_new = torch.empty((B, H, Dh), dtype=dt, device=dev)
     v_new = torch.empty((B, H, Dh), dtype=dt, device=dev)
-    qkv = torch.empty((plan[1], B, 3 * D), dtype=torch.float32, device=dev)
-    ctx = torch.empty((B, D), dtype=dt, device=dev)
+    qkv = torch.empty((plan[1], B, 3 * E), dtype=torch.float32, device=dev)
+    ctx = torch.empty((B, E), dtype=dt, device=dev)
     symbol = ("t1_attention_block_i8_" if quant
               else "t1_attention_block_") + _SUFFIX[dt]
     kernels.T1_ATTENTION_BLOCK.launch(
         symbol, *(t.data_ptr() for t in ins), *(t.data_ptr() for t in caches),
         *(t.data_ptr() for t in (out, k_new, v_new, qkv, ctx)),
         *(_ptr(t) for t in f32),
-        B, H, s_buf, Dh, eps, 1.0 / math.sqrt(Dh), *plan, attn.per_block,
-        attn.groups, attn.stages)
+        B, H, s_buf, Dh, D, int(residual), eps, 1.0 / math.sqrt(Dh), *plan,
+        attn.per_block, attn.groups, attn.stages)
     return out, k_new, v_new

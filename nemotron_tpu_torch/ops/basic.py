@@ -35,3 +35,14 @@ def glu(x):
     """Gated linear unit over the last axis (first half * sigmoid(second half))."""
     a, b = torch.chunk(x, 2, dim=-1)
     return a * torch.sigmoid(b)
+
+
+def tp_sum(parts, device):
+    """The partial products of a matmul split on its input axis over a dp
+    shard's tp devices (parallel/mesh.py), summed in shard order on
+    `device`: a copy across cards where a part lies on another, a plain
+    add where they share one."""
+    out = parts[0].to(device)
+    for p in parts[1:]:
+        out = out + p.to(device)
+    return out

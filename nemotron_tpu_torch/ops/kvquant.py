@@ -32,18 +32,45 @@ class QuantKV:
         return QuantKV(self.q[i], self.s[i])
 
 
+@dataclasses.dataclass
+class HeadShards:
+    """A cache split on its head axis over one dp shard's tp devices
+    (parallel/mesh.py): parts[t], dense or QuantKV, holds heads [t * H/n,
+    (t + 1) * H/n) on the shard's t-th device, each part a buffer of its
+    own (contiguous, as kernel B1 reads it)."""
+    parts: list
+
+    def __getitem__(self, i):
+        """Leading-axis index of every part (a layer's views)."""
+        return HeadShards([p[i] for p in self.parts])
+
+
 def is_quant(buf) -> bool:
+    if isinstance(buf, HeadShards):
+        return is_quant(buf.parts[0])
     return isinstance(buf, QuantKV)
 
 
 def kv_parts(buf) -> tuple:
-    """The tensors of a cache buffer (an in-place op applies to each)."""
-    return (buf.q, buf.s) if is_quant(buf) else (buf,)
+    """The tensors of a cache buffer (an in-place op applies to each; the
+    head shards' tensors one after another)."""
+    if isinstance(buf, HeadShards):
+        return tuple(t for p in buf.parts for t in kv_parts(p))
+    return (buf.q, buf.s) if isinstance(buf, QuantKV) else (buf,)
+
+
+def _shards(*bufs):
+    """The HeadShards among `bufs`, as lists of parts (None if none is)."""
+    if not isinstance(bufs[0], HeadShards):
+        return None
+    return zip(*(b.parts for b in bufs))
 
 
 def quantize_kv(x) -> QuantKV:
     """[..., S, Dh] float -> QuantKV: per-frame max-abs scale over Dh, a scale
     of 1 on all-zero frames, divide, round half to even, clip to +-127."""
+    if isinstance(x, HeadShards):
+        return HeadShards([quantize_kv(p) for p in x.parts])
     x32 = x.float()
     s = x32.abs().amax(dim=-1) / 127.0
     safe = torch.where(s > 0, s, torch.ones_like(s))
@@ -63,6 +90,8 @@ def kv_zeros(shape, device) -> QuantKV:
 
 def kv_slice(buf, lo: int, hi: int, axis: int):
     """View of [lo, hi) along `axis`."""
+    if isinstance(buf, HeadShards):
+        return HeadShards([kv_slice(p, lo, hi, axis) for p in buf.parts])
     if is_quant(buf):
         return QuantKV(buf.q.narrow(axis, lo, hi - lo),
                        buf.s.narrow(axis, lo, hi - lo))
@@ -71,6 +100,8 @@ def kv_slice(buf, lo: int, hi: int, axis: int):
 
 def kv_cat(bufs, axis: int):
     """Concatenation along `axis` (a new buffer)."""
+    if isinstance(bufs[0], HeadShards):
+        return HeadShards([kv_cat(list(ps), axis) for ps in _shards(*bufs)])
     if is_quant(bufs[0]):
         return QuantKV(torch.cat([b.q for b in bufs], dim=axis),
                        torch.cat([b.s for b in bufs], dim=axis))
@@ -85,9 +116,12 @@ def kv_update_slice_(buf, new, lo: int, axis: int) -> None:
 
 def kv_where(mask, new, old, batch_axis: int):
     """Per-slot select (a new buffer): `mask` [B] at `batch_axis`."""
+    if isinstance(new, HeadShards):
+        return HeadShards([kv_where(mask, n, o, batch_axis)
+                           for n, o in _shards(new, old)])
 
     def g(n, o):
-        m = mask.reshape((1,) * batch_axis + (-1,)
+        m = mask.to(n.device).reshape((1,) * batch_axis + (-1,)
                          + (1,) * (n.dim() - batch_axis - 1))
         return torch.where(m, n, o)
 

@@ -123,7 +123,8 @@ def _mha_matmul(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u, bias_v,
     else:
         ctx = torch.matmul(weights[..., :s_buf], v_buf.to(ct))
     ctx = ctx + torch.matmul(weights[..., s_buf:], v_new.to(ct))
-    out = linear(ctx.to(x.dtype).transpose(1, 2).reshape(B, T, D), out_w)
+    out = linear(ctx.to(x.dtype).transpose(1, 2).reshape(
+        B, T, n_heads * d_head), out_w)
     return out, k_new, v_new
 
 
@@ -143,7 +144,7 @@ def _mha_t1(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u, bias_v,
     scale = 1.0 / math.sqrt(d_head)
     pos_mask = pos_sc.float() * scale + attn_mask.float()[:, None, :]
     ctx = t1_attention_core(q_u, k_new, v_new, pos_mask, k_buf, v_buf)
-    out = linear(ctx.to(x.dtype).reshape(B, 1, D), out_w)
+    out = linear(ctx.to(x.dtype).reshape(B, 1, n_heads * d_head), out_w)
     return out, k_new[:, :, None, :], v_new[:, :, None, :]
 
 
@@ -190,4 +191,5 @@ def rel_pos_mha(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u, bias_v,
     weights = torch.softmax(scores, dim=-1)  # [B, H, T, T]
     del scores
     ctx = torch.matmul(weights, v)  # [B, H, T, Dh]
-    return linear(ctx.transpose(1, 2).reshape(B, T, D), out_w)
+    return linear(ctx.transpose(1, 2).reshape(B, T, n_heads * d_head),
+                  out_w)

@@ -14,13 +14,15 @@ A stacked layer field may also be a weight-only quantized matrix
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
-from .ops.quant import (QuantizedTensor, QuantizedTensor4, from_gguf_q4,
-                        from_gguf_q8, is_quantized, quantize_q4, quantize_q8)
+from .ops.quant import (QBLOCK, QuantizedTensor, QuantizedTensor4,
+                        from_gguf_q4, from_gguf_q8, is_quantized, quantize_q4,
+                        quantize_q8)
 from .gguf import writer as gguf_writer
 from .config import Hparams
 from .gguf.reader import GGML_F16, GGML_Q4_0, GGML_Q8_0, read_gguf
@@ -150,6 +152,16 @@ def device_of(device) -> torch.device:
         raise RuntimeError(f"device {str(device)!r}: CUDA is not available; "
                            "pass device='cpu' to run on the CPU")
     return d
+
+
+def on_device(device):
+    """The context in which launches go to `device`'s current stream (a
+    kernel wrapper launches on the current device's stream); nothing for
+    the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def params_to(params: ModelParams, device=None, dtype=None) -> ModelParams:
@@ -574,3 +586,90 @@ def random_params(hp: Hparams, seed: int = 0, dtype=torch.float32,
                              dtype=dtype, device=device),
         prompt=prompt,
     )
+
+
+# The stacked layer fields that a mesh splits over its tp devices
+# (parallel/mesh.py), with the axis of [L, ...] each splits: 1 the output
+# rows (for the position biases, the heads), 2 the input columns. Every
+# other field is replicated, conv_pw1_w too (its GLU halves straddle a
+# split of its output axis).
+TP_SPLIT = {
+    "ffn1_w1": 1, "ffn1_w2": 2, "ffn2_w1": 1, "ffn2_w2": 2,
+    "attn_q_w": 1, "attn_k_w": 1, "attn_v_w": 1, "attn_pos_w": 1,
+    "attn_out_w": 2, "pos_bias_u": 1, "pos_bias_v": 1,
+}
+
+
+def tp_slice(w, axis: int, n: int, t: int):
+    """Slice t of n of a stacked layer field along `axis` (1 or 2), as a
+    new contiguous buffer: a dense tensor; a Q8_0 QuantizedTensor, codes
+    and scales cut at the same columns; or a Q4_0 QuantizedTensor4, cut as
+    it is on the output axis, and on the input axis unpacked, cut and
+    re-packed half-split per slice (a packed column holds columns k and k +
+    in/2, so a cut of the packed bytes would take the wrong columns). On
+    the input axis the quantization blocks must stay whole: each slice a
+    multiple of 32 columns (Q4_0: 64, its packing's halves)."""
+    q4 = isinstance(w, QuantizedTensor4)
+    codes = w.w_packed if q4 else w.w_i8 if is_quantized(w) else w
+    size = codes.shape[axis] * (2 if q4 and axis == 2 else 1)
+    if size % n:
+        raise ValueError(f"tp={n} does not divide axis {axis} of size {size}")
+    step = size // n
+    lo = t * step
+
+    def cut(x, k, scale=1):
+        return x.narrow(k, lo // scale, step // scale).contiguous()
+
+    if not is_quantized(w):
+        return cut(w, axis)
+    if axis == 1:
+        return type(w)(cut(codes, 1), cut(w.scales, 1))
+    block = 2 * QBLOCK if q4 else QBLOCK
+    if step % block:
+        raise ValueError(f"tp={n}: a slice of {step} input columns cuts the "
+                         f"{'Q4_0' if q4 else 'Q8_0'} blocks ({block} columns)")
+    scales = cut(w.scales, 2, QBLOCK)
+    if not q4:
+        return QuantizedTensor(cut(codes, 2), scales)
+    w32 = codes.to(torch.int32)
+    nib = torch.cat([w32 & 0x0F, w32 >> 4], dim=-1)[..., lo:lo + step]
+    half = step // 2
+    packed = (nib[..., :half] | (nib[..., half:] << 4)).to(torch.uint8)
+    return QuantizedTensor4(packed.contiguous(), scales)
+
+
+@dataclasses.dataclass
+class TPGroup:
+    """One dp shard of a mesh: its tp devices and the parameters each
+    holds (params[t] on devices[t]): the replicated fields, and slice t of
+    the TP_SPLIT layer fields. params[0], on the shard's lead device, is
+    the one the replicated computation reads."""
+    devices: list
+    params: list
+
+    @property
+    def lead(self) -> ModelParams:
+        return self.params[0]
+
+
+def tp_params(params: ModelParams, n: int, t: int, device,
+              cache: dict | None = None) -> ModelParams:
+    """The parameters of tp device t of n on `device`: every replicated
+    tensor moved there (the same tensor where it already is), each
+    TP_SPLIT field's slice t (tp_slice). `cache` keeps the slices by
+    (device, t), so dp shards on one device share theirs."""
+    device = torch.device(device)
+    lay = params.layers
+    upd = {}
+    for name, axis in TP_SPLIT.items():
+        key = (str(device), t, name)
+        if cache is None or key not in cache:
+            w = tp_slice(getattr(lay, name), axis, n, t) if n > 1 \
+                else getattr(lay, name)
+            w = w.to(device)
+            if cache is not None:
+                cache[key] = w
+        upd[name] = w if cache is None else cache[key]
+    moved = params_to(params, device)
+    return dataclasses.replace(
+        moved, layers=dataclasses.replace(moved.layers, **upd))

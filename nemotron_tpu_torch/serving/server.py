@@ -23,7 +23,9 @@ The engine's arguments (`gated_realign`, `phase_timers`, `readback_depth`,
 NEMOTRON_TPU_PHASE_TIMERS, NEMOTRON_TPU_READBACK_DEPTH and
 NEMOTRON_TPU_MAX_TICK_CHUNKS in main(), as the JAX engine reads them, and
 NEMOTRON_TPU_CONFIDENCE selects ASRModel(confidence=True). `--native`
-serves through serving/native_server.py (the C++ ingest thread).
+serves through serving/native_server.py (the C++ ingest thread). `--dp` /
+`--tp` serve one engine over a device mesh (parallel/mesh.py): the first
+dp x tp CUDA cards, or ["cpu"] * (dp x tp) with `--device cpu`.
 """
 
 from __future__ import annotations
@@ -545,17 +547,8 @@ class StreamServer:
                 self._engine_task.result()  # re-raise the engine failure
 
 
-# Options of the JAX server that the port refuses until it runs them.
-_NOT_PORTED = (
-    ("--dp", {"type": int, "default": 1}, "multi-GPU serving"),
-    ("--tp", {"type": int, "default": 1}, "multi-GPU serving"),
-)
-
-
-def main(argv=None) -> int:
+def build_parser():
     import argparse
-
-    import torch
 
     ap = argparse.ArgumentParser(
         description="nemotron_tpu_torch streaming server (PyTorch / CUDA)")
@@ -594,19 +587,39 @@ def main(argv=None) -> int:
                          "with {\"diarize\": true} get OP_DIARIZE word "
                          "JSONL frames and a final result frame. Not "
                          "supported with --native.")
-    for flag, kw, what in _NOT_PORTED:
-        ap.add_argument(flag, help=f"not supported by the torch port yet "
-                                   f"({what})", **kw)
-    args = ap.parse_args(argv)
-    for flag, kw, what in _NOT_PORTED:
-        if getattr(args, flag[2:].replace("-", "_")) != ap.get_default(
-                flag[2:].replace("-", "_")):
-            ap.error(f"{flag}: {what} is not supported by the torch port "
-                     "yet (see ROADMAP.md)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="split the stream batch over this many devices "
+                         "(one engine ticks dp x tp devices; --batch must "
+                         "divide by --dp)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="additionally split the large layer matrices "
+                         "(Megatron-style) over this many devices per dp "
+                         "shard")
+    return ap
 
+
+def parse_args(argv=None):
+    """The parsed options, with the refusals made before any model loads:
+    --diarize with --native (as in the JAX package), a mesh axis below 1,
+    and a batch that dp does not divide (the JAX package's ValueError at
+    its first stream state, here before the load)."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if args.native and args.diarize:
         ap.error("--diarize is not supported with --native (the native "
                  "ingest path has no per-stream event hook)")
+    if args.dp < 1 or args.tp < 1:
+        ap.error("--dp and --tp must be at least 1")
+    if args.batch % args.dp:
+        ap.error(f"stream batch {args.batch} must be divisible by the "
+                 f"mesh's dp={args.dp}")
+    return args
+
+
+def load_model_from_args(args):
+    """The model main() serves: loaded (or random) on --device, with the
+    blank bias, then placed on a dp x tp mesh where either is above 1."""
+    import torch
 
     from ..api import ASRModel
 
@@ -629,6 +642,22 @@ def main(argv=None) -> int:
                                    confidence=confidence)
     if args.blank_bias:
         model.params.joint.out_b[model.hp.blank_id] += args.blank_bias
+    if args.dp * args.tp > 1:
+        from ..parallel.mesh import make_mesh
+
+        n = args.dp * args.tp
+        model.shard(make_mesh(args.dp, args.tp, devices=(
+            [device] * n if device.type == "cpu" else None)))
+        print(f"mesh serving: dp={args.dp} x tp={args.tp} "
+              f"({model.backend_name})", file=sys.stderr)
+    return model
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    model = load_model_from_args(args)
+    device = model.device
+    env = os.environ.get
 
     # the JAX engine's switches, as the engine's arguments here
     engine_kw = dict(

@@ -419,7 +419,7 @@ class EngineGroup:
             raise ValueError("snapshot latency mode differs from this group")
         if int(snap["n_phases"]) != int(self.cfg.n_phases):
             raise ValueError("snapshot n_phases differs from this group")
-        if bool(snap["kv_int8"]) != bool(is_quant(self.state.k_cache)):
+        if bool(snap["kv_int8"]) != bool(self.model.kv_int8):
             raise ValueError("snapshot kv-int8 mode differs from this group")
         fp = snap.get("model_fp")
         if (not trust_model and fp is not None

@@ -27,7 +27,8 @@ import torch
 from ..audio.frontend import StreamPreprocessor
 from ..models.asr import tokens_to_list
 from ..config import CacheConfig, LatencyMode
-from .state import from_numpy, state_leaves, to_numpy
+from .state import (from_numpy, install_slot, state_from_leaves,
+                    state_leaves, to_numpy)
 
 
 def _leaves(obj, prefix=""):
@@ -227,7 +228,11 @@ class StreamSession:
             if tuple(a.shape) != tuple(t.shape):
                 raise ValueError(f"checkpoint leaf shape {a.shape} != "
                                  f"{tuple(t.shape)}")
-            t.copy_(from_numpy(a, t.dtype))
+        if "n_leaves" in z.files:  # into the state's own layout (a mesh's)
+            install_slot(fresh, 0, state_from_leaves(src, self.model.kv_int8))
+        else:
+            for t, a in zip(dst, src):
+                t.copy_(from_numpy(a, t.dtype))
         self.state = fresh
         self.mel_buffer = z["mel_buffer"]
         self.preprocessor.buf = z["pp_buf"]

@@ -7,7 +7,16 @@ dataclass fields in order, a `QuantKV` cache as q then s, the decode
 state's four fields), the order of its snapshots and session checkpoints;
 `state_from_leaves` is the inverse. `extract_slot` / `install_slot` move one
 slot between a batched state on the device and a batch-1 state of numpy
-leaves (live-stream migration)."""
+leaves (live-stream migration).
+
+On a mesh (parallel/mesh.py) a state is a `MeshState`: one StreamState per
+dp shard, shard d holding global slots [d * b, (d + 1) * b) on its lead
+device, and with tp its K/V caches as HeadShards over its tp devices.
+`reset_slots`, `extract_slots`, `install_slot` and `state_leaves` take it
+as they take a StreamState and see the logical state: its leaves are the
+single device's (the shards' batches and heads in order), so a snapshot
+from a mesh equals one from a single device, byte for byte, and installs
+into either."""
 
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.decoder import DecodeState, init_decode_state
-from ..ops.kvquant import QuantKV, is_quant, kv_parts, kv_zeros
+from ..ops.kvquant import HeadShards, QuantKV, is_quant, kv_parts, kv_zeros
 from ..config import CacheConfig, Hparams
 
 # Steady-state preprocessor tail: with the carry primed as [256 centre-pad
@@ -40,16 +49,27 @@ class StreamState:
 
 def init_stream_state(batch: int, hp: Hparams, cfg: CacheConfig,
                       dtype=torch.float32, *, device,
-                      kv_int8: bool = False) -> StreamState:
-    """Zero state; kv_int8 allocates int8 QuantKV K/V caches."""
+                      kv_int8: bool = False,
+                      kv_devices=None) -> StreamState:
+    """Zero state; kv_int8 allocates int8 QuantKV K/V caches. kv_devices
+    (a dp shard's tp devices, more than one) allocates each K/V cache as
+    HeadShards, H / len(kv_devices) heads on each."""
     L, D = hp.n_layers, hp.d_model
-    kv_shape = (L, batch, hp.n_heads, cfg.cache_buf_len(hp), hp.d_head)
+    n = len(kv_devices) if kv_devices else 1
+    if hp.n_heads % n:
+        raise ValueError(f"tp={n} does not divide n_heads={hp.n_heads}")
+    kv_shape = (L, batch, hp.n_heads // n, cfg.cache_buf_len(hp), hp.d_head)
     f32 = dict(dtype=torch.float32, device=device)
 
-    def kv():
+    def one(dev):
         if kv_int8:
-            return kv_zeros(kv_shape, device=device)
-        return torch.zeros(kv_shape, dtype=dtype, device=device)
+            return kv_zeros(kv_shape, device=dev)
+        return torch.zeros(kv_shape, dtype=dtype, device=dev)
+
+    def kv():
+        if n == 1:
+            return one(device)
+        return HeadShards([one(dev) for dev in kv_devices])
 
     return StreamState(
         k_cache=kv(),
@@ -65,13 +85,44 @@ def init_stream_state(batch: int, hp: Hparams, cfg: CacheConfig,
     )
 
 
-def reset_slots(state: StreamState, mask, hp: Hparams) -> StreamState:
+@dataclasses.dataclass
+class MeshState:
+    """A stream batch over a mesh's dp shards: shards[d], a StreamState on
+    shard d's devices, holds global slots [d * b, (d + 1) * b)."""
+    shards: list
+
+    @property
+    def per_shard(self) -> int:
+        return int(self.shards[0].cache_valid.shape[0])
+
+    def locate(self, slot: int) -> tuple[int, int]:
+        """Global slot -> (dp shard, slot within it)."""
+        return divmod(int(slot), self.per_shard)
+
+    @property
+    def decode(self) -> DecodeState:
+        """The logical decode state, gathered on shard 0's device (a copy,
+        for reading)."""
+        dev = self.shards[0].cache_valid.device
+        return DecodeState(*(
+            torch.cat([getattr(s.decode, f.name).to(dev)
+                       for s in self.shards])
+            for f in dataclasses.fields(DecodeState)))
+
+
+def reset_slots(state, mask, hp: Hparams):
     """Zero the slots where mask[b] is True (stream join), in place."""
+    if isinstance(state, MeshState):
+        mask = np.asarray(mask)
+        b = state.per_shard
+        for d, shard in enumerate(state.shards):
+            reset_slots(shard, mask[d * b:(d + 1) * b], hp)
+        return state
     rows = torch.nonzero(torch.as_tensor(mask, device=state.cache_valid.device)
                          ).flatten()
-    for buf in (*kv_parts(state.k_cache), *kv_parts(state.v_cache),
-                state.conv_cache):
-        buf[:, rows] = 0
+    for buf in (*kv_parts(state.k_cache), *kv_parts(state.v_cache)):
+        buf[:, rows.to(buf.device)] = 0  # a head shard's device
+    state.conv_cache[:, rows] = 0
     for buf in (state.cache_valid, state.decode.h, state.decode.c,
                 state.decode.frame_offset, state.pp_tail, state.pp_last,
                 state.mel_ov):
@@ -97,17 +148,34 @@ def prime_frontend(state: StreamState, mask, tails, lasts) -> StreamState:
 _BATCH_AXIS1 = ("k_cache", "v_cache", "conv_cache")
 
 
-def state_leaves(state: StreamState) -> list:
-    """The leaves in the JAX package's `jax.tree.leaves(StreamState)`
-    order."""
+def _leaf_pieces(state: StreamState) -> list[list]:
+    """Each leaf of the JAX package's `jax.tree.leaves(StreamState)` order
+    as its pieces: one tensor, or a HeadShards cache's parts' tensors,
+    which split the leaf on its head axis (2)."""
     out = []
     for f in dataclasses.fields(StreamState):
         v = getattr(state, f.name)
         if f.name == "decode":
-            out.extend(getattr(v, g.name) for g in dataclasses.fields(v))
+            out.extend([getattr(v, g.name)] for g in dataclasses.fields(v))
+        elif isinstance(v, HeadShards):
+            out.extend(map(list, zip(*(kv_parts(p) for p in v.parts))))
         else:
-            out.extend(kv_parts(v))
+            out.extend([t] for t in kv_parts(v))
     return out
+
+
+def state_leaves(state) -> list:
+    """The leaves in the JAX package's `jax.tree.leaves(StreamState)`
+    order. A StreamState's own tensors; of a MeshState, or of head-sharded
+    caches, the logical leaves gathered on the lead device (copies)."""
+    if isinstance(state, MeshState):
+        dev = state.shards[0].cache_valid.device
+        per = [state_leaves(s) for s in state.shards]
+        return [torch.cat([x.to(dev) for x in xs], dim=ax)
+                for xs, ax in zip(zip(*per), _leaf_axes(state.shards[0]))]
+    return [p[0] if len(p) == 1 else
+            torch.cat([x.to(p[0].device) for x in p], dim=2)
+            for p in _leaf_pieces(state)]
 
 
 def state_from_leaves(leaves, kv_int8: bool) -> StreamState:
@@ -134,6 +202,8 @@ def _leaf_axes(state: StreamState) -> list[int]:
     out = []
     for f in dataclasses.fields(StreamState):
         v = getattr(state, f.name)
+        if isinstance(v, HeadShards):
+            v = v.parts[0]
         n = 4 if f.name == "decode" else len(kv_parts(v))
         out.extend([1 if f.name in _BATCH_AXIS1 else 0] * n)
     return out
@@ -167,39 +237,70 @@ def extract_slot(state: StreamState, idx: int) -> StreamState:
     return extract_slots(state, [idx])[0]
 
 
-def extract_slots(state: StreamState, idxs) -> list[StreamState]:
+def extract_slots(state, idxs) -> list[StreamState]:
     """extract_slot of each slot in `idxs`, with one gather on the device
     and one device-to-host copy per leaf for all of them (the snapshots'
-    leaves are views of those copies)."""
-    rows = torch.as_tensor(list(idxs), dtype=torch.long,
+    leaves are views of those copies). Of a MeshState, each shard's slots
+    from that shard; head shards' pieces joined on the host."""
+    idxs = list(idxs)
+    if isinstance(state, MeshState):
+        by = {}
+        for j, i in enumerate(idxs):
+            d, local = state.locate(i)
+            by.setdefault(d, []).append((j, local))
+        out = [None] * len(idxs)
+        for d, items in by.items():
+            snaps = extract_slots(state.shards[d], [lo for _, lo in items])
+            for (j, _), snap in zip(items, snaps):
+                out[j] = snap
+        return out
+    rows = torch.as_tensor(idxs, dtype=torch.long,
                            device=state.cache_valid.device)
-    host = [(to_numpy(t.index_select(ax, rows)), ax)
-            for t, ax in zip(state_leaves(state), _leaf_axes(state))]
+    host = []
+    for pieces, ax in zip(_leaf_pieces(state), _leaf_axes(state)):
+        parts = [to_numpy(t.index_select(ax, rows.to(t.device)))
+                 for t in pieces]
+        host.append((parts[0] if len(parts) == 1
+                     else np.concatenate(parts, axis=2), ax))
     quant = is_quant(state.k_cache)
     return [state_from_leaves(
         [h[(slice(None),) * ax + (slice(j, j + 1),)] for h, ax in host],
         quant) for j in range(len(rows))]
 
 
-def install_slot(state: StreamState, idx: int, snap: StreamState
-                 ) -> StreamState:
+def install_slot(state, idx: int, snap: StreamState):
     """Write a batch-1 snapshot (from extract_slot) into slot `idx`, in
     place. Every leaf's shape is checked against the slot's before any is
     written: a broadcasting copy would silently install a foreign-shaped
     snapshot (other Hparams, CacheConfig or kv-int8 mode), and a failure
-    leaves the state untouched."""
-    dst = state_leaves(state)
+    leaves the state untouched. Into a MeshState, the slot's shard takes
+    it; head-sharded leaves are split on the host."""
+    if isinstance(state, MeshState):
+        d, local = state.locate(idx)
+        install_slot(state.shards[d], local, snap)
+        return state
+    dst = _leaf_pieces(state)
     src = state_leaves(snap)
     if len(src) != len(dst):
         raise ValueError(f"snapshot has {len(src)} leaves, the state "
                          f"{len(dst)} (mismatched kv-int8 mode?)")
     axes = _leaf_axes(state)
     for d, s, ax in zip(dst, src, axes):
-        want = d.shape[:ax] + (1,) + d.shape[ax + 1:]
+        want = list(d[0].shape)
+        if len(d) > 1:  # head shards: the heads of all of them
+            want[2] = sum(t.shape[2] for t in d)
+        want[ax] = 1
         if tuple(np.shape(s)) != tuple(want):
             raise ValueError(
                 f"snapshot leaf shape {tuple(np.shape(s))} != expected "
                 f"{tuple(want)} (mismatched Hparams/CacheConfig?)")
     for d, s, ax in zip(dst, src, axes):
-        d.narrow(ax, idx, 1).copy_(from_numpy(np.asarray(s), d.dtype))
+        s = np.asarray(s)
+        if len(d) > 1:  # head shards: each its heads
+            bounds = np.cumsum([0] + [t.shape[2] for t in d])
+            parts = [s[:, :, lo:hi] for lo, hi in zip(bounds, bounds[1:])]
+        else:
+            parts = [s]
+        for t, part in zip(d, parts):
+            t.narrow(ax, idx, 1).copy_(from_numpy(part, t.dtype))
     return state

@@ -1,7 +1,10 @@
 """The port's own copies of the JAX package's jax-free modules against the
 originals: config, the GGUF reader and writer, the tokenizer, the wire
 protocol and client, the native host runtime, the native ingest
-bindings (with their C++ source, byte for byte) and the wav reader. The port
+bindings (with their C++ source, byte for byte), the wav reader, the
+tensor dump appenders, and the replica launcher and routed client (which
+launch the port's server module, SERVER_MODULE, where the original names
+its own). The port
 may import nothing of `nemotron_tpu`, so it keeps these copies at the same
 module paths; they must behave byte for byte as the originals. Each test
 feeds the same inputs to both and compares what comes out exactly."""
@@ -50,6 +53,16 @@ COPIES = {
     "serving.ingest": {"_PKG", "_SRC", "_SO", "_load", "_load_error",
                        "require_native_ingest"},
     "audio.wavio": set(),
+    "utils.dump": set(),
+    # the server module each replica runs, a constant in the port's copy
+    "serving.replicas": {"SERVER_MODULE"},
+}
+
+# module path -> (AST dump in the original, its stand-in in the copy)
+RENAMED = {
+    "serving.replicas": (
+        ast.dump(ast.Constant("nemotron_tpu.serving.server")),
+        ast.dump(ast.Name("SERVER_MODULE", ast.Load()))),
 }
 
 
@@ -82,6 +95,10 @@ def test_copy_has_the_originals_code(mod):
     rel = mod.replace(".", "/") + ".py"
     want = _top_level(ROOT / "nemotron_tpu" / rel)
     got = _top_level(ROOT / "nemotron_tpu_torch" / rel)
+    if mod in RENAMED:
+        old, new = RENAMED[mod]
+        assert any(old in d for d in want.values())
+        want = {n: d.replace(old, new) for n, d in want.items()}
     allowed = COPIES[mod]
     assert set(want) - allowed <= set(got)
     changed = [n for n in want if n not in allowed and got[n] != want[n]]

@@ -501,11 +501,13 @@ def test_mel_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert kernels.MEL_FRAMES.launches == before + 1
 
 
-def _block_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0):
+def _block_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0, D=None):
     """Kernel B3's inputs at the main path's shape: random validity windows
-    (dead slots at -1e9 in the mask, 0 in pp), the new frame live."""
+    (dead slots at -1e9 in the mask, 0 in pp), the new frame live. D (the
+    model width) defaults to H * Dh; a tp shard's heads give less."""
     rng = np.random.default_rng(seed)
-    D = H * Dh
+    D = D or H * Dh
+    E = H * Dh
 
     def t(*shape, scale=1.0, dt=dtype):
         return torch.tensor((rng.standard_normal(shape) * scale).astype(
@@ -519,7 +521,8 @@ def _block_inputs(dev, dtype, B=32, H=8, S=78, Dh=128, seed=0):
     mask = torch.tensor(np.where(live, 0.0, -1e9).astype(np.float32),
                         device=dev).to(dtype)
     pp = t(H, Dh, S + 1, scale=0.5, dt=torch.float32)
-    w = [t(D, D, scale=D ** -0.5) for _ in range(4)]
+    w = [t(E, D, scale=D ** -0.5) for _ in range(3)] + [
+        t(D, E, scale=E ** -0.5)]
     return dict(x=t(B, D), ln_w=1 + t(D, scale=0.1), ln_b=t(D, scale=0.1),
                 q_w=w[0], k_w=w[1], v_w=w[2], out_w=w[3],
                 bias_u=t(H, Dh, scale=0.1), bias_v=t(H, Dh, scale=0.1),
@@ -926,3 +929,74 @@ def test_native_server_texts_on_card(cuda):
             await s.stop(server)
 
     assert native == asyncio.run(plain()) == want and all(want)
+
+
+# the tp shards' heads of the full-width model (H = 8, Dh = 128, D = 1024):
+# tp = 2 and tp = 4 (parallel/mesh.py)
+TP_HEADS = (4, 2)
+
+
+@pytest.mark.parametrize("b", [32, 256])
+@pytest.mark.parametrize("h_l", TP_HEADS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_t1_attention_block_at_tp_heads(cuda, dtype, rel, int8, h_l, b):
+    """B3 as a tp shard runs it: H_l heads of D = 1024 (projections [H_l *
+    Dh, D], out projection [D, H_l * Dh]), the residual left out, against
+    its plain version with the rule of the unsharded test."""
+    a = _block_inputs(cuda, dtype, B=b, H=h_l, D=1024, seed=h_l)
+    if int8:
+        a["k_buf"], a["v_buf"] = _int8_caches(a["k_buf"], a["v_buf"])
+    before = kernels.T1_ATTENTION_BLOCK.launches
+    got = t1_attention_block(**a, residual=False)
+    torch.cuda.synchronize()
+    assert kernels.T1_ATTENTION_BLOCK.launches == before + 1
+    want = t1_attention_block_ref(**a, residual=False)
+    for name, g, w in zip(("out", "k_new", "v_new"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), (name, err)
+    # the residual switch only drops x: with it, out is x + the partial
+    # (in bf16 rounded once from f32, not twice: within a bf16 ulp)
+    with_res = t1_attention_block(**a)[0].float()
+    err = float((with_res - (a["x"].float() + got[0].float())).abs().max())
+    tol = rel if dtype == torch.float32 else 2.0 ** -7
+    assert err <= tol * float(with_res.abs().max()), err
+
+
+# the encoder's (N, K) at tp = 2 and tp = 4 (q / k / v / pos and ffn w1
+# split N, ffn w2 and attn_out split K): the full weight's (N, K), the axis
+# split, the shards
+TP_GEMM_SPLITS = [(1024, 1024, 1, 2), (4096, 1024, 1, 2), (1024, 4096, 2, 2),
+                  (1024, 1024, 2, 2), (1024, 1024, 1, 4), (1024, 4096, 2, 4)]
+
+
+@pytest.mark.parametrize("m", [256, 256 * 14])
+@pytest.mark.parametrize("split", TP_GEMM_SPLITS)
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linears_at_tp_shapes(cuda, bits, dtype, rel, split, m):
+    """B4 / B5 on a tp shard's slice of a full-width weight (params.tp_slice:
+    the Q4_0 nibbles re-packed per K slice) at a B=256 tick's rows at right
+    contexts 0 and 13, against the plain version."""
+    from nemotron_tpu_torch.params import tp_slice
+
+    full_n, full_k, axis, n_tp = split
+    rng = np.random.default_rng(full_n + full_k + axis + n_tp + bits)
+    w = (rng.standard_normal((1, full_n, full_k)) / np.sqrt(full_k)
+         ).astype(np.float32)
+    qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w)
+    part = tp_slice(qt, axis, n_tp, n_tp - 1)[0].to(cuda)
+    n = full_n // n_tp if axis == 1 else full_n
+    k = full_k // n_tp if axis == 2 else full_k
+    x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                     device=cuda).to(dtype)
+    fn, ref = ((quant.linear_q8, quant.linear_q8_ref) if bits == 8
+               else (quant.linear_q4, quant.linear_q4_ref))
+    got = fn(x, part)
+    assert got.shape == (m, n)
+    want = ref(x, part).float()
+    err = float((got.float() - want).abs().max())
+    assert err <= rel * float(want.abs().max()), err

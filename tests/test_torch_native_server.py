@@ -4,7 +4,8 @@ tests/test_native_server.py: through real TCP sockets, a stream's text
 equals the port's StreamSession and the JAX package's native server on the
 same random tiny weights (tests/helpers.tiny_hparams, seed 1); two streams
 on one connection; a bad opcode's OP_ERROR, an ACK and an abrupt
-disconnect; budget backpressure; the refusals of live-stream migration and
+disconnect; budget backpressure; a model on a dp mesh (the text of a
+single-device session); the refusals of live-stream migration and
 hot swap on a native-ingest engine; and a library that does not build
 raising the compiler's message instead of falling back.
 
@@ -141,6 +142,23 @@ def test_native_server_matches_session_and_jax_native_server(model):
     with running_server(jm, cls=JaxNativeServer) as rs:
         jax_text = serve_file(rs, audio)
     assert jax_text == got
+
+
+def test_native_server_on_dp_mesh_matches_session(model):
+    """The native ingest path with a model on a dp = 4 mesh of ["cpu"] * 4
+    (--native --dp, after tests/test_native_server.py:335): two streams'
+    texts equal the single-device session's."""
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    sharded = TorchModel.random(tiny_hparams(), seed=1, device="cpu").shard(
+        make_mesh(4, 1, devices=["cpu"] * 4))
+    audios = [make_audio(9600, seed=3), make_audio(6400, seed=4)]
+    want = [session_text(model, a) for a in audios]
+    assert all(want)
+    with running_server(sharded, batch=4) as rs:
+        got = [serve_file(rs, a) for a in audios]
+        assert rs.srv.engine.groups[0].state.shards[3] is not None
+    assert got == want
 
 
 def test_native_server_two_streams_one_connection(model):

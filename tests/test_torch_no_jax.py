@@ -5,7 +5,8 @@ module of nemotron_tpu_torch and chip_smoke import in a process in which
 kernel wrappers given CPU tensors take their plain versions without
 building or launching. The walk covers every module of the port, the
 session, frontend and both CLI modules, the diarization package and the
-native ingest server included. No file of the port or
+native ingest server, the device mesh, the replicas and the dump
+appenders included. No file of the port or
 chip_smoke.py names a path into `nemotron_tpu/` or `native/` (the port
 keeps its own copies of the modules it shares with the JAX package), and
 the port's entry points default to the card: without one, a model that
@@ -41,7 +42,8 @@ CHILD = textwrap.dedent("""
     assert "nemotron_tpu_torch.cli.transcribe" in names
     for mod in ("diarize.audio", "diarize.nets", "diarize.params",
                 "diarize.cluster", "diarize.pipeline", "serving.ingest",
-                "serving.native_server"):
+                "serving.native_server", "parallel.mesh",
+                "serving.replicas", "utils.dump"):
         assert "nemotron_tpu_torch." + mod in names, mod
     for name in names:
         importlib.import_module(name)
@@ -89,6 +91,8 @@ CHILD = textwrap.dedent("""
     from nemotron_tpu_torch.diarize.cluster import nmesc_cluster
     emb = np.random.default_rng(0).standard_normal((8, 16))
     assert nmesc_cluster(emb).labels.shape == (8,)
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+    assert make_mesh(2, 2, devices=["cpu"] * 4).shape == {"dp": 2, "tp": 2}
     assert len(kernels.KERNELS) == 5
     assert [k.launches for k in kernels.KERNELS] == [0] * 5
     assert kernels._lib is None  # nothing was built or loaded

@@ -101,10 +101,13 @@ def test_server_main_serves_quantized_kv_int8(tmp_path):
 
 @pytest.mark.parametrize("flag, message", [
     (["--native", "--diarize", "d.gguf"], "not supported with --native"),
-    (["--dp", "2"], "not supported by the torch port"),
-    (["--tp", "2"], "not supported by the torch port"),
-    (["--native", "--dp", "2"], "not supported by the torch port")])
+    (["--dp", "3", "--batch", "8"], "must be divisible by the mesh's dp=3"),
+    (["--tp", "0"], "must be at least 1"),
+    (["--native", "--dp", "5", "--batch", "8"], "the mesh's dp=5")])
 def test_main_still_refuses_with_int8_options(flag, message, capsys):
+    """The refusals main() makes before any model loads hold with the int8
+    options given: --diarize with --native, a batch that --dp does not
+    divide, a mesh axis below 1."""
     with pytest.raises(SystemExit) as e:
         main(["random", "--quantized", "--kv-int8", *flag])
     assert e.value.code == 2

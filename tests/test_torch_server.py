@@ -2,7 +2,9 @@
 port's direct tick loop over the same audio (tokens are exact, not within a
 tolerance), plus the refusals the port makes at START (a right context
 outside 0, 1, 6, 13; diarization on a server without a diarize model) and
-in main (--diarize with --native, multi-GPU serving). Right contexts 1, 6
+in main (--diarize with --native, a batch that --dp does not divide);
+main's --device cpu --dp 2 --tp 2 serves a mesh of ["cpu"] * 4, each text
+equal to a single-device session's. Right contexts 1, 6
 and 13 against the JAX server: tests/test_torch_right_context_serving.py;
 diarization: tests/test_torch_server_diarize.py; the native ingest server:
 tests/test_torch_native_server.py."""
@@ -19,7 +21,10 @@ from helpers import tiny_hparams
 from nemotron_tpu.serving import protocol as P
 from nemotron_tpu.serving.client import StreamClient, transcribe_file
 from nemotron_tpu_torch.api import ASRModel
-from nemotron_tpu_torch.serving.server import StreamServer, main
+from nemotron_tpu_torch.serving.server import (StreamServer,
+                                               load_model_from_args, main,
+                                               parse_args)
+from nemotron_tpu_torch.streaming.session import StreamSession
 from nemotron_tpu_torch.streaming.engine import PRIME_SAMPLES, prime_carry
 
 torch.set_num_threads(1)
@@ -135,13 +140,50 @@ def test_server_refuses_what_the_port_does_not_run():
 
 @pytest.mark.parametrize("flag, message", [
     (["--native", "--diarize", "d.gguf"], "not supported with --native"),
-    (["--dp", "2"], "not supported by the torch port"),
-    (["--tp", "2"], "not supported by the torch port"),
-    (["--native", "--tp", "2"], "not supported by the torch port")])
+    (["--dp", "3", "--batch", "8"], "must be divisible by the mesh's dp=3"),
+    (["--dp", "0"], "must be at least 1"),
+    (["--native", "--tp", "0"], "must be at least 1")])
 def test_main_refuses_unported_options(flag, message, capsys):
-    """Refused before any model loads: multi-GPU serving (not ported yet)
-    and diarization on the native ingest server (as in the JAX package)."""
+    """Refused before any model loads: diarization on the native ingest
+    server (as in the JAX package), a stream batch that --dp does not divide
+    (the JAX package's ValueError, with its words) and a mesh axis below
+    1."""
     with pytest.raises(SystemExit) as e:
         main(["random", *flag])
     assert e.value.code == 2
     assert message in capsys.readouterr().err
+
+
+def test_dp2_tp2_cpu_server_matches_session(tmp_path):
+    """main's options --device cpu --dp 2 --tp 2 (after tests/test_server.py:
+    272): the model on a 2x2 mesh of ["cpu"] * 4 behind the asyncio server,
+    two TCP clients, each text equal to a single-device session's."""
+    from scripts_support import export_random_checkpoint
+
+    path = str(tmp_path / "tiny.gguf")
+    export_random_checkpoint(tiny_hparams(), path, seed=1)
+    args = parse_args([path, "--device", "cpu", "--dp", "2", "--tp", "2",
+                       "--batch", "4"])
+    model = load_model_from_args(args)
+    assert model.mesh.shape == {"dp": 2, "tp": 2}
+    assert model.backend_name.startswith("mesh dp=2xtp=2@cpu")
+    plain = ASRModel.from_gguf(path, device="cpu")
+    audios = [make_audio(9000, seed=5), make_audio(6500, seed=6)]
+    want = []
+    for a in audios:
+        sess = StreamSession(plain, 0)
+        sess.process_incremental(a)
+        sess.finalize()
+        want.append(sess.get_transcript())
+    assert all(want), want
+
+    async def run():
+        srv, server, port = await _start(model, batch=args.batch)
+        try:
+            return await asyncio.wait_for(asyncio.gather(*[
+                transcribe_file(a, host="127.0.0.1", port=port, chunk_ms=100)
+                for a in audios]), timeout=120)
+        finally:
+            await srv.stop(server)
+
+    assert asyncio.run(run()) == want
