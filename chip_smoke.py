@@ -51,13 +51,9 @@ Phases, one line each, any failure exits non-zero:
              engine groups); the kernel launch counts of each run;
     cli      the streaming CLI in a subprocess on an F16 GGUF of the random
              model against an in-process StreamSession: at right context 0
-             with the block (the session without it), and at 13;
-    times    fused_tick_packed timed and profiled at B=32 and B=256 in f32,
-             and at B=256 in bf16 dense, bf16 + int8 K/V, bf16 Q8_0 + int8
-             K/V, bf16 Q4_0, f32 Q8_0 + int8 K/V, and f32, bf16 and bf16 +
-             int8 K/V with the block, all at right context 0, and in f32
-             and bf16 + int8 K/V at right contexts 6 and 13; the kernels
-             of each tick's decode half alone
+             with the block (the session without it), and at 13; the
+             first again with every tick eager (phase 10's RTF beside the
+             graphed one)
   6 offline  full width, the random model's blank bias OFFLINE_BIAS: a
              ragged batch of a 3 s and a 6 s file on the card vs the CPU
              (f32 and f32 Q8_0: encode_batch within F32_ATOL, tokens and
@@ -125,12 +121,36 @@ Phases, one line each, any failure exits non-zero:
              streams split 2 / 2, texts equal to a session's; host ms per
              B=256 tick at dp x tp = 1x1, 2x1, 2x2, busy share and the tp
              reduction's device ms (one card: overhead, not scaling)
+ 10 graphs   the compiled tick (graphs.py; every entry point above ran
+             graphed, the default): tools/graph_turns.run_schedule at
+             B=256 (every phase through the wrap, the k=4 backlog, a
+             masked tick with half the slots paused and their realign, a
+             join; three passes: warm-up, capture, replay) on an eager and
+             a graphed twin of f32, bf16 with the block, bf16 int8 K/V,
+             bf16 Q8_0 + int8 K/V and bf16 Q4_0 at R=0 and bf16 int8 K/V
+             at R=13: tokens equal, leaves bit-equal (f32 within 1e-6),
+             one capture per key, the replays under
+             set_sync_debug_mode("error"), launches through the replays
+             equal to eager's; the serving form's server with clients at
+             13, 13, 6, 0 in lockstep, twice each way (texts equal in
+             all four runs; each engine group's host
+             ms per dispatch, captures, capture seconds, pool bytes); the
+             phase timers eager beside phase 7's graphed ones; the CLI's
+             RTF both ways (phase 5); then the tick table in turns eager
+             and graphed: fused_tick_packed at B=32 and B=256 in f32, and
+             at B=256 in bf16 dense, bf16 + int8 K/V, bf16 Q8_0 + int8 K/V,
+             bf16 Q4_0, f32 Q8_0 + int8 K/V, and f32, bf16 and bf16 + int8
+             K/V with the block, all at right context 0, and in f32 and
+             bf16 + int8 K/V at right contexts 6 and 13 (host ms, device
+             busy, idle share, real-time streams, kernels per tick; the
+             eager rows' kernels and the decode half alone)
 The second-to-last line is the kernels JSON (launches: the streaming
-server runs; offline_launches: phase 6's counted run; diarize_launches
-and native_launches: phase 8's diarize server and native server runs;
-mesh_launches: phase 9's runs on the mesh; mesh_cases: phase 9's kernel
-checks at a tp shard's shapes), the line before it phase 7's launch
-counts, the last line the device JSON.
+server runs, graphed, counted through the replays; offline_launches:
+phase 6's counted run; diarize_launches and native_launches: phase 8's
+diarize server and native server runs; mesh_launches: phase 9's runs on
+the mesh; mesh_cases: phase 9's kernel checks at a tp shard's shapes;
+graph_launches: phase 10's graphed schedules), the line before it phase
+7's launch counts, the last line the device JSON.
 The package is imported from the checkout; nothing of jax or of the JAX
 package `nemotron_tpu` is imported.
 """
@@ -160,6 +180,7 @@ RC_ROWS = (512, 1792, 3584)  # B4/B5 rows of a B=256 tick at those modes
 # segment, 8 full segments
 OFFLINE_ROWS = (1032, 2048, 16384)
 RC_TICKS = {1: 9, 6: 5, 13: 3}  # phase 4: single ticks, one past a wrap
+TICK_BLOCKS = 4  # the timed ticks' blocks of audio, drawn before the loop
 # phase 6: the random model's blank bias offline. With full attention over
 # a file its decode swings between no token and the 10-symbol cap on every
 # frame as the bias moves: at 1.5 the ragged batch's 3 s file emits (its
@@ -776,11 +797,42 @@ def fmt(errs: dict) -> str:
     return json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
 
 
-async def _serve_clients(model, audios, batch, modes):
+async def _serve_clients(model, audios, batch, modes, lockstep=False):
+    """Clients i = 0.. streaming audios[i] at right context modes[i]
+    through the port's asyncio server: (texts, engine stats). With
+    lockstep the engine ticks only once every client has pushed all of
+    its audio and ended its stream. The ticks' schedule (joins, k-chunk
+    backlogs, masks) then follows from the audio alone, and two servers
+    given the same audio must give the same texts: a live run's schedule
+    follows the clients' timing, and a stream's rounding follows its
+    schedule (the ring phase it joins at, the chunks a tick takes), so in
+    bf16 its tokens may differ at a near-tie from one live run to the
+    next, on the same model."""
+    import threading
+
+    from nemotron_tpu_torch.serving import protocol as P
     from nemotron_tpu_torch.serving.client import transcribe_file
     from nemotron_tpu_torch.serving.server import StreamServer
 
     srv = StreamServer(model, batch_per_group=batch)
+    if lockstep:
+        gate, ended = threading.Event(), set()
+        dispatch, step = srv._dispatch, srv._engine_step
+
+        async def gated_dispatch(writer, opcode, stream_id, payload):
+            await dispatch(writer, opcode, stream_id, payload)
+            if opcode == P.OP_STREAM_END:
+                ended.add(stream_id)
+                if len(ended) == len(audios):
+                    gate.set()
+
+        def gated_step(engine):
+            while not gate.wait(0.05):
+                if srv._stop:
+                    return ([], {}, [], {}), False
+            return step(engine)
+
+        srv._dispatch, srv._engine_step = gated_dispatch, gated_step
     server = await srv.start("127.0.0.1", 0)
     port = server.sockets[0].getsockname()[1]
     try:
@@ -796,19 +848,23 @@ async def _serve_clients(model, audios, batch, modes):
 class TickLoop:
     """All-active fused ticks at right context `mode` on a fresh batch-b
     state, one per call, with the engine's phase advance and wrap
-    compaction."""
+    compaction. Each call packs and uploads its block of audio (drawn
+    before the loop, TICK_BLOCKS blocks in turn), as the engine does."""
 
     def __init__(self, model, b: int, mode: int = 0):
         self.model, self.b = model, b
         self.cfg = model.cache_config(mode)
         self.state = model.init_stream_state(b, self.cfg)
-        self.rng = np.random.default_rng(SEED + b)
+        rng = np.random.default_rng(SEED + b)
+        self.audio = (rng.standard_normal(
+            (TICK_BLOCKS, b, self.cfg.shift_samples)) * 3000).astype(np.int16)
         self.phase = 0
+        self.n = 0
 
     def __call__(self):
         cfg, b = self.cfg, self.b
-        audio = (self.rng.standard_normal((b, cfg.shift_samples)) * 3000
-                 ).astype(np.int16)
+        audio = self.audio[self.n % TICK_BLOCKS]
+        self.n += 1
         packed = self.model.put_batch(self.model.pack_tick_inputs(
             audio, np.full(b, cfg.valid_out_len), np.zeros(b), None))
         self.state, _ = self.model.fused_tick_packed(
@@ -819,21 +875,10 @@ class TickLoop:
             self.phase = 0
 
 
-def time_ticks(torch, model, b: int, n: int = 24, warmup: int = 4,
-               mode: int = 0) -> float:
-    """Median host ms of one all-active fused tick at batch b and right
-    context `mode` (synchronised before and after each tick)."""
-    loop, times = TickLoop(model, b, mode), []
-    for i in range(warmup + n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loop()
-        torch.cuda.synchronize()
-        if i >= warmup:
-            times.append((time.perf_counter() - t0) * 1e3)
-    del loop
-    torch.cuda.empty_cache()
-    return statistics.median(times)
+def graph_warmup(model, cfg) -> int:
+    """Ticks of a TickLoop before every key of a graphed model replays:
+    each phase's key is warmed up, then captured (graphs.py)."""
+    return 2 * cfg.n_phases if model.graphs.enabled else 0
 
 
 def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
@@ -861,16 +906,6 @@ def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
                    for k, (ns, calls) in by_name.items()),
                   key=lambda r: -r[1])
     return (sum(r[1] for r in rows), rows) if rows else None
-
-
-def profile_ticks(torch, model, b: int, n: int = 8, mode: int = 0):
-    """profile_rows of all-active fused ticks at batch b, right context
-    `mode`."""
-    loop = TickLoop(model, b, mode)
-    out = profile_rows(torch, loop, n)
-    del loop
-    torch.cuda.empty_cache()
-    return out
 
 
 def profile_decode(torch, model, b: int, n: int = 8, mode: int = 0):
@@ -933,13 +968,19 @@ def phase_server(torch, model, name: str, per_step: dict,
 
 # Runs a CLI module (argv[1], e.g. transcribe_stream) as `python -m` would,
 # and prints the kernels' launch counts of that process on stderr when it
-# exits.
+# exits. A first argument --eager builds every ASRModel of the run with
+# graphs=False (the eager ticks beside the graphed default).
 CLI_RUNNER = """
 import atexit, json, runpy, sys
-from nemotron_tpu_torch import kernels
+from nemotron_tpu_torch import api, kernels
 atexit.register(lambda: print("KERNEL_LAUNCHES " + json.dumps(
     {k.name: k.launches for k in kernels.KERNELS}), file=sys.stderr))
 sys.argv = sys.argv[1:]
+if sys.argv[0] == "--eager":
+    sys.argv = sys.argv[1:]
+    init = api.ASRModel.__init__
+    api.ASRModel.__init__ = lambda self, *a, **kw: init(
+        self, *a, **{**kw, "graphs": False})
 runpy.run_module("nemotron_tpu_torch.cli." + sys.argv[0],
                  run_name="__main__", alter_sys=True)
 """
@@ -949,12 +990,15 @@ def phase_cli(torch, hp, dense, vocab):
     """The streaming CLI on the card: the full-width random model written as
     an F16 GGUF (into the git-ignored _smoke/, deleted afterwards), 3 s of
     PCM through `python -m nemotron_tpu_torch.cli.transcribe_stream` in a
-    subprocess, twice: at right context 0 with
-    NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1, and at right context 13. Each run's
-    stdout must equal the text of an in-process StreamSession of the same
-    GGUF at the same right context without the block, its stderr show the
-    RTF line; the first run launches B3 24 times per chunk and B1 never,
-    the second neither (its attention is T=14)."""
+    subprocess, three times: at right context 0 with
+    NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1, at right context 13, and (phase 10)
+    the first again with every tick eager (CLI_RUNNER --eager) beside the
+    graphed default. Each run's stdout must equal the text of an
+    in-process StreamSession (graphed) of the same GGUF at the same right
+    context without the block, its stderr show the RTF line; the block
+    runs launch B3 24 times per chunk and B1 never, the R=13 run neither
+    (its attention is T=14). Returns {eager: RTF line} of the two R=0
+    runs."""
     import os
     import shutil
     from pathlib import Path
@@ -992,31 +1036,38 @@ def phase_cli(torch, hp, dense, vocab):
             log(f"[5 cli] in-process StreamSession R={mode}, no block: "
                 f"{chunks} chunks, {len(text.strip())} chars, launches "
                 f"{counts}")
-            runs.append((mode, block, text, chunks))
+            runs.append((mode, block, False, text, chunks))
+        runs.append(runs[0][:2] + (True,) + runs[0][3:])
         del sess, model
         torch.cuda.empty_cache()
 
-        for i, (mode, block, text, chunks) in enumerate(runs):
+        for i, (mode, block, eager, text, chunks) in enumerate(runs):
             env = dict(os.environ)
             env.pop("NEMOTRON_TPU_PALLAS_ATTN_BLOCK", None)
             if block:
                 env["NEMOTRON_TPU_PALLAS_ATTN_BLOCK"] = "1"
             t0 = time.perf_counter()
             out = subprocess.run(
-                [sys.executable, "-c", CLI_RUNNER, "transcribe_stream",
+                [sys.executable, "-c", CLI_RUNNER,
+                 *(["--eager"] if eager else []), "transcribe_stream",
                  str(gguf), str(pcm), "80", str(mode)], cwd=root, env=env,
                 capture_output=True, text=True, timeout=600)
             runs[i] += (out, time.perf_counter() - t0)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for mode, block, text, chunks, out, secs in runs:
+    rtfs = {}
+    for mode, block, eager, text, chunks, out, secs in runs:
         rtf = [ln for ln in out.stderr.splitlines() if "RTF: " in ln]
         got = [ln for ln in out.stderr.splitlines()
                if ln.startswith("KERNEL_LAUNCHES ")]
         sub = json.loads(got[-1].split(" ", 1)[1]) if got else {}
         want_b3 = L * chunks if block else 0
-        log(f"[5 cli] python -m nemotron_tpu_torch.cli.transcribe_stream "
-            f"... 80 {mode}{' with NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1' if block else ''}: "
+        if mode == 0:
+            rtfs[eager] = rtf[-1].strip() if rtf else None
+        log(f"[{'10' if eager else '5'} cli] python -m "
+            f"nemotron_tpu_torch.cli.transcribe_stream ... 80 {mode}"
+            f"{' with NEMOTRON_TPU_PALLAS_ATTN_BLOCK=1' if block else ''}"
+            f"{', every tick eager' if eager else ', graphed'}: "
             f"rc {out.returncode} in {secs:.1f} s; stdout equal to the "
             f"session's: {out.stdout == text}; "
             f"{rtf[-1].strip() if rtf else 'no RTF line'}; launches {sub} "
@@ -1029,6 +1080,9 @@ def phase_cli(torch, hp, dense, vocab):
                 f"phase 5 (cli R={mode}): the CLI run does not match:\n"
                 f"stdout {out.stdout!r}\nsession {text!r}\nstderr "
                 f"{out.stderr[-3000:]}")
+    log(f"[10 cli] R=0 with the block, 3.0 s: stdout equal eager and "
+        f"graphed; graphed {rtfs[False]} | eager {rtfs[True]}")
+    return rtfs
 
 
 def quant_bytes(model) -> int:
@@ -1056,79 +1110,137 @@ TICK_TIMES = (("f32", 32, 0), ("f32", 256, 0), ("bf16", 256, 0),
 DECODE_AT_R0 = (("f32", 256), ("bf16 int8-KV", 256))
 
 
-def phase_tick_times(torch, models, card: str):
-    """fused_tick_packed at full width, all-active: host ms per tick, then
-    the device's kernel time per tick from a profile of the same loop, and
-    the kernels of the tick's decode half alone. Real-time streams: B x
-    the chunk period (shift_mel_frames x 10 ms: 80 / 160 / 560 / 1,120 ms
-    at right context 0 / 1 / 6 / 13) / tick ms."""
-    from nemotron_tpu_torch.ops.kvquant import is_quant
+def twin(model, graphs: bool = False):
+    """A model on `model`'s weights and options with its own graph cache:
+    eager (graphs False), or graphed from a clean cache."""
+    from nemotron_tpu_torch.api import ASRModel
 
+    return ASRModel(model.hp, model.params, model.tokenizer.vocab,
+                    device=model.device, kv_int8=model.kv_int8,
+                    attn_block=model.attn_block,
+                    confidence=model.confidence, graphs=graphs)
+
+
+def tick_row(torch, model, b: int, mode: int, n_time: int, n_prof: int):
+    """One TickLoop of all-active ticks at batch b, right context `mode`:
+    the median host ms of n_time ticks (synchronised before and after
+    each) after 4 warm-up ticks (and, graphed, after every key's warm-up
+    and capture), then profile_rows of n_prof more ticks of the same loop
+    (a graphed model replays what it captured)."""
+    loop = TickLoop(model, b, mode)
+    warm = 4 + graph_warmup(model, loop.cfg)
+    times = []
+    for i in range(warm + n_time):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_rows(torch, loop, n_prof, 0)
+    del loop
+    torch.cuda.empty_cache()
+    return statistics.median(times), prof
+
+
+def phase_tick_times(torch, models, card: str) -> list:
+    """Phase 10's tick table: fused_tick_packed at full width, all-active,
+    in turns eager (a twin with graphs=False) and graphed (the model):
+    host ms per tick, the device's kernel time per tick from a profile of
+    the same loop, its idle share, real-time streams (B x the chunk period
+    (shift_mel_frames x 10 ms: 80 / 160 / 560 / 1,120 ms at right context
+    0 / 1 / 6 / 13) / tick ms), and the graphed keys' captures, capture
+    seconds and pool bytes; eager, the kernels of the tick's decode half
+    alone and the kernels' rows. Returns the table's rows."""
+    table = []
     for name, b, mode in TICK_TIMES:
-        model = models[name]
-        cfg = model.cache_config(mode)
+        graphed = models[name]
+        cfg = graphed.cache_config(mode)
         period = cfg.shift_mel_frames * 10.0
         # past R=0 a tick issues 3-6x the kernels: fewer ticks, timed and
         # traced, keep the phase inside its time
-        n_time, n_prof = (16, 8) if mode == 0 else (8, 2)
-        ms = time_ticks(torch, model, b, n=n_time, mode=mode)
-        log(f"[5 tick time] B={b} R={mode} all-active {name}: {ms:.2f} "
-            f"ms/tick, {period / ms * b:.0f} real-time {period:.0f} ms "
-            f"streams ({card})")
-        # the decode half alone past R=0, and at R=0 for two forms to set
-        # beside them
-        dec = (profile_decode(torch, model, b, n_prof, mode)
-               if mode or (name, b) in DECODE_AT_R0 else None)
-        if dec is not None:
-            log(f"[5 profile] {name} B={b} R={mode}: decode half alone "
-                f"{sum(r[2] for r in dec[1]):.0f} kernels, {dec[0]:.2f} ms "
-                f"device ({cfg.chunk_len(model.hp) * 11 + 1} loop "
-                f"iterations) ({card})")
-        prof = profile_ticks(torch, model, b, n_prof, mode)
-        if prof is None:
-            log(f"[5 profile] {name} B={b} R={mode}: device time not "
-                "measured (the trace holds no device events)")
-            continue
-        dev_ms, rows = prof
-        log(f"[5 profile] {name} B={b} R={mode}: device busy {dev_ms:.2f} "
-            f"ms of a {ms:.2f} ms tick (idle share "
-            f"{max(0.0, 1 - dev_ms / ms):.2f}); "
-            f"{sum(r[2] for r in rows):.0f} kernels/tick ({card})")
-        for kname, kms, calls in rows[:8]:
-            log(f"[5 profile]   {kms:7.3f} ms/tick {calls:6.1f} calls  "
-                f"{kname[:90]}")
-        mel = [r for r in rows if "mel_frames" in r[0]]
-        if mel:
-            log(f"[5 profile] {name} B={b} R={mode}: B2 "
-                f"{sum(r[1] for r in mel):.4f} ms/tick over "
-                f"{sum(r[2] for r in mel):.2f} launches ({card})")
-        hp = model.hp
-        attn = [r for r in rows if "t1_attention" in r[0]]
-        if attn:
-            per_launch = attn[0][1] / attn[0][2]
-            state = model.init_stream_state(1, cfg)  # the cache's own types
-            row = (hp.d_head + 4 if is_quant(state.k_cache)
-                   else hp.d_head * state.k_cache.element_size())
-            kv_bytes = 2 * b * hp.n_heads * cfg.cache_buf_len(hp) * row
-            log(f"[5 profile] {name} B={b}: t1_attention "
-                f"{per_launch * 1e3:.1f} us per launch, "
-                f"{kv_bytes / per_launch / 1e6:.0f} GB/s of K/V "
-                f"({kv_bytes / 1e6:.1f} MB per layer) ({card})")
-        block = [r for r in rows if "DenseW" in r[0] or "ln_stats" in r[0]
-                 or "gemm_dense_sm90" in r[0]
-                 or "block_attention_kernel" in r[0]]
-        if block:  # B3: its two GEMMs and its attention launch
-            log(f"[5 profile] {name} B={b}: attention block (B3) "
-                f"{sum(r[1] for r in block):.3f} ms/tick over "
-                f"{sum(r[2] for r in block):.0f} launches ({card})")
-        gemm = [r for r in rows if "wq::gemm" in r[0] and r not in block]
-        if gemm:
-            g_ms = sum(r[1] for r in gemm)
-            wbytes = quant_bytes(model)
-            log(f"[5 profile] {name} B={b}: quantized linears (B4/B5) "
-                f"{g_ms:.3f} ms/tick over {sum(r[2] for r in gemm):.0f} "
-                f"launches, {wbytes / g_ms / 1e6:.0f} GB/s of weights "
-                f"({wbytes / 1e9:.3f} GB per tick) ({card})")
+        n_time, n_prof = (10, 4) if mode == 0 else (4, 2)
+        row = {"config": name, "B": b, "R": mode}
+        for form, model in (("eager", twin(graphed)),
+                            ("graphed", graphed)):
+            ms, prof = tick_row(torch, model, b, mode, n_time, n_prof)
+            busy = prof[0] if prof else None
+            row[form] = {
+                "ms": round(ms, 3), "streams": round(period / ms * b),
+                "busy_ms": None if busy is None else round(busy, 3),
+                "idle": (None if busy is None
+                         else round(max(0.0, 1 - busy / ms), 3)),
+                "kernels": (None if prof is None
+                            else round(sum(r[2] for r in prof[1])))}
+            log(f"[10 tick] B={b} R={mode} all-active {name} {form}: "
+                f"{ms:.2f} ms/tick, {period / ms * b:.0f} real-time "
+                f"{period:.0f} ms streams; device busy "
+                + (f"{busy:.2f} ms (idle share {max(0.0, 1 - busy / ms):.2f}"
+                   f"), {row[form]['kernels']} kernels/tick"
+                   if prof else "not measured (no device events)")
+                + f" ({card})")
+            if form == "eager" and prof:
+                tick_profile_rows(model, name, b, mode, prof[1], card)
+        if mode or (name, b) in DECODE_AT_R0:  # the decode half alone
+            dec = profile_decode(torch, graphed, b, n_prof, mode)
+            if dec is not None:
+                log(f"[10 profile] {name} B={b} R={mode}: decode half alone "
+                    f"{sum(r[2] for r in dec[1]):.0f} kernels, {dec[0]:.2f} "
+                    f"ms device ({cfg.chunk_len(graphed.hp) * 11 + 1} loop "
+                    f"iterations) ({card})")
+        gs = graphed.graphs.stats(
+            lambda key, c=cfg, b=b: key[:3] == ("tick_packed", c, b))
+        row["graphs"] = {"captures": gs["captures"],
+                         "capture_s": round(gs["capture_seconds"], 3),
+                         "pool_MB": round(gs["pool_bytes"] / 2 ** 20, 1)}
+        log(f"[10 graphs] {name} B={b} R={mode}: {json.dumps(row)}")
+        graphed.graphs.clear()  # its pool goes before the next config's
+        torch.cuda.empty_cache()
+        table.append(row)
+    return table
+
+
+def tick_profile_rows(model, name, b, mode, rows, card):
+    """The eager tick's profile rows: the top kernels, B2, B1's K/V rate,
+    B3, B4/B5's weight rate."""
+    from nemotron_tpu_torch.ops.kvquant import is_quant
+
+    for kname, kms, calls in rows[:8]:
+        log(f"[10 profile]   {kms:7.3f} ms/tick {calls:6.1f} calls  "
+            f"{kname[:90]}")
+    cfg = model.cache_config(mode)
+    mel = [r for r in rows if "mel_frames" in r[0]]
+    if mel:
+        log(f"[10 profile] {name} B={b} R={mode}: B2 "
+            f"{sum(r[1] for r in mel):.4f} ms/tick over "
+            f"{sum(r[2] for r in mel):.2f} launches ({card})")
+    hp = model.hp
+    attn = [r for r in rows if "t1_attention" in r[0]]
+    if attn:
+        per_launch = attn[0][1] / attn[0][2]
+        state = model.init_stream_state(1, cfg)  # the cache's own types
+        row = (hp.d_head + 4 if is_quant(state.k_cache)
+               else hp.d_head * state.k_cache.element_size())
+        kv_bytes = 2 * b * hp.n_heads * cfg.cache_buf_len(hp) * row
+        log(f"[10 profile] {name} B={b}: t1_attention "
+            f"{per_launch * 1e3:.1f} us per launch, "
+            f"{kv_bytes / per_launch / 1e6:.0f} GB/s of K/V "
+            f"({kv_bytes / 1e6:.1f} MB per layer) ({card})")
+    block = [r for r in rows if "DenseW" in r[0] or "ln_stats" in r[0]
+             or "gemm_dense_sm90" in r[0]
+             or "block_attention_kernel" in r[0]]
+    if block:  # B3: its two GEMMs and its attention launch
+        log(f"[10 profile] {name} B={b}: attention block (B3) "
+            f"{sum(r[1] for r in block):.3f} ms/tick over "
+            f"{sum(r[2] for r in block):.0f} launches ({card})")
+    gemm = [r for r in rows if "wq::gemm" in r[0] and r not in block]
+    if gemm:
+        g_ms = sum(r[1] for r in gemm)
+        wbytes = quant_bytes(model)
+        log(f"[10 profile] {name} B={b}: quantized linears (B4/B5) "
+            f"{g_ms:.3f} ms/tick over {sum(r[2] for r in gemm):.0f} "
+            f"launches, {wbytes / g_ms / 1e6:.0f} GB/s of weights "
+            f"({wbytes / 1e9:.3f} GB per tick) ({card})")
 
 
 def offline_model(model, bias: float):
@@ -1849,10 +1961,11 @@ def phase_flows(torch, model, L):
                          "timers change a transcript")
 
 
-def phase_timers(torch, model, name, card):
+def phase_timers(torch, model, name, card, tag="7 timers"):
     """phase_timers=True at B=TIMER_B, R=0, every slot busy: the engine's
     encoder_seconds / decoder_seconds per tick over TIMER_TICKS ticks
-    after TIMER_WARM, then each half's device busy share: its kernels'
+    after TIMER_WARM (and, graphed, after each half's keys were warmed up
+    and captured), then each half's device busy share: its kernels'
     device time (profile_rows of the half alone on the same shapes) over
     its host time."""
     from nemotron_tpu_torch.models import asr
@@ -1860,7 +1973,8 @@ def phase_timers(torch, model, name, card):
                                                      PRIME_SAMPLES)
 
     cfg = model.cache_config(0)
-    n_ticks = TIMER_WARM + TIMER_TICKS
+    warm = TIMER_WARM + graph_warmup(model, cfg)
+    n_ticks = warm + TIMER_TICKS
     audios = stream_audio(TIMER_B, PRIME_SAMPLES + n_ticks * 1280 + 100,
                           SEED + 60)
     engine = BatchedEngine(model, TIMER_B, phase_timers=True)
@@ -1869,7 +1983,7 @@ def phase_timers(torch, model, name, card):
         engine.push_audio(sid, a)
     g = None
     for i in range(n_ticks):
-        if i == TIMER_WARM:
+        if i == warm:
             g = engine.groups[0]
             base = (g.total_encoder_seconds, g.total_decoder_seconds,
                     g.total_steps, g.total_tick_seconds)
@@ -1904,8 +2018,8 @@ def phase_timers(torch, model, name, card):
                       f"{sum(r[2] for r in prof[1]):.0f} kernels)")
     del state, holder
     torch.cuda.empty_cache()
-    log(f"[7 timers] {name} B={TIMER_B} R=0 phase_timers=True, {steps} "
-        f"ticks after {TIMER_WARM}: encoder {enc:.2f} ms/tick ({shares[0]}), "
+    log(f"[{tag}] {name} B={TIMER_B} R=0 phase_timers=True, {steps} "
+        f"ticks after {warm}: encoder {enc:.2f} ms/tick ({shares[0]}), "
         f"decoder {dec:.2f} ms/tick ({shares[1]}); decoder share "
         f"{dec / (enc + dec):.2f}; engine tick {tick:.2f} ms; stats "
         f"encoder_seconds {st['encoder_seconds']} decoder_seconds "
@@ -2908,8 +3022,7 @@ def mesh_times(torch, gpu, hp, vocab, card):
         model = ASRModel(hp, gpu["f32"].params, vocab, device="cuda")
         if n_dp * n_tp > 1:
             model.shard(one_card_mesh(n_dp, n_tp))
-        ms = time_ticks(torch, model, MESH_TIMED_B, n=12, warmup=3)
-        prof = profile_ticks(torch, model, MESH_TIMED_B, n=4)
+        ms, prof = tick_row(torch, model, MESH_TIMED_B, 0, 12, 4)
         busy = prof[0] if prof else float("nan")
         red = ""
         if n_tp > 1:
@@ -2978,6 +3091,130 @@ def phase_mesh(torch, hp, vocab, gpu, card, report) -> dict:
         raise SystemExit(f"phase 9: kernels {missing} never launched on the "
                          f"mesh's path")
     return counts.total
+
+
+# --- phase 10: the compiled tick (CUDA graphs) -------------------------------
+
+GRAPH_B = 256  # the parity schedule's streams
+# (model, right context) of the graphed-against-eager parity schedule
+GRAPH_PARITY = (("f32", 0), ("bf16 block", 0), ("bf16 int8-KV", 0),
+                ("bf16 Q8_0 int8-KV", 0), ("bf16 Q4_0", 0),
+                ("bf16 int8-KV", 13))
+GRAPH_F32_ATOL = 1e-6  # f32 graphed vs eager where not bit-equal
+
+
+def graph_parity(torch, name, model, mode, totals: dict) -> dict:
+    """tools/graph_turns.run_schedule at B=GRAPH_B on an eager twin, then
+    on a graphed twin (its last pass's replays under set_sync_debug_mode
+    ("error")): tokens equal, every leaf bit-equal (f32: within
+    GRAPH_F32_ATOL), one capture per key and none again, and the kernels'
+    launches through the replays equal to eager's (added to `totals`)."""
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.tools.graph_turns import compare, run_schedule
+
+    runs = {}
+    for form, m in (("eager", twin(model)),
+                    ("graphed", twin(model, graphs=True))):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        toks, state = run_schedule(m, GRAPH_B, mode,
+                                   sync_debug=form == "graphed")
+        runs[form] = (toks, state, kernel_counts(),
+                      time.perf_counter() - t0, m.graphs.stats())
+        del m
+    (tok_e, st_e, n_e, s_e, _), (tok_g, st_g, n_g, s_g, gs) = \
+        runs["eager"], runs["graphed"]
+    cmp = compare(st_g, st_e)
+    n_bad = sum(not np.array_equal(g, e) for g, e in zip(tok_g, tok_e))
+    f32 = not name.startswith("bf16")
+    log(f"[10 parity] {name} B={GRAPH_B} R={mode}: {len(tok_g)} ticks (3 "
+        f"passes: warm-up, capture, replay); tokens differ on {n_bad} "
+        f"ticks ({sum(int((t >= 0).sum()) for t in tok_g)} emitted); "
+        f"leaves {cmp}; graphs {json.dumps(gs)}; launches graphed "
+        f"{json.dumps(n_g)} eager {json.dumps(n_e)}; host s eager "
+        f"{s_e:.2f} graphed {s_g:.2f} (incl. warm-ups and captures)")
+    bad = []
+    if n_bad:
+        bad.append(f"tokens differ on {n_bad} ticks")
+    if not (cmp["equal"] or (f32 and cmp["max_abs"] <= GRAPH_F32_ATOL)):
+        bad.append(f"leaves {cmp}")
+    if gs["captures"] != gs["keys"] or gs["recaptures"]:
+        bad.append(f"captures {gs}")
+    if n_g != n_e:
+        bad.append(f"launches {n_g} vs {n_e}")
+    if bad:
+        raise SystemExit(f"phase 10 ({name} R={mode}): graphed and eager "
+                         f"differ: {bad}")
+    for k, v in n_g.items():
+        totals[k] = totals.get(k, 0) + v
+    del runs, st_e, st_g
+    torch.cuda.empty_cache()
+    return {"ticks": len(tok_g), **gs}
+
+
+def graph_server(torch, model, name):
+    """The serving form's server with clients at right contexts 13, 13, 6
+    and 0 (three engine groups, batch 8), in lockstep (_serve_clients)
+    and twice on each model, eager and graphed: texts equal in all four
+    runs. On the graphed model the first run warms up and captures the
+    keys it calls twice; the second run's engine has new state storage,
+    so each key is captured again and every tick replays. Logged: each
+    group's host seconds per dispatch and its graphs (keys, captures,
+    recaptures, replays, capture seconds, pool bytes)."""
+    audios = list(stream_audio(4, 48000, SEED + 2))
+    modes = (13, 13, 6, 0)
+    out = {}
+    for form, m in (("eager", twin(model)),
+                    ("graphed", twin(model, graphs=True))):
+        for run in (1, 2):
+            texts, stats = asyncio.run(_serve_clients(m, audios, 8, modes,
+                                                      lockstep=True))
+            per = {rc: {"dispatch_ms": round(
+                g["dispatch_seconds"] / max(g["steps"], 1) * 1e3, 2),
+                "steps": g["steps"], "graphs": g["graphs"]}
+                for rc, g in stats["groups"].items()}
+            out[f"{form} {run}"] = texts
+            log(f"[10 server] {name} {form} run {run}: clients at "
+                f"R={list(modes)}, chars {[len(t) for t in texts]}; per "
+                f"group {json.dumps(per)}")
+        del m
+        torch.cuda.empty_cache()
+    want = out["eager 1"]
+    bad = {k: [i for i, (a, b) in enumerate(zip(t, want)) if a != b]
+           for k, t in out.items() if t != want}
+    if bad or not all(want):
+        raise SystemExit(f"phase 10 (server): streams {bad} differ from "
+                         f"eager run 1's (chars "
+                         f"{ {k: [len(t) for t in v] for k, v in out.items()} }"
+                         f")")
+    return out
+
+
+def phase_graphs(torch, gpu, card, timers, cli_rtfs) -> dict:
+    """Phase 10: the compiled tick. Graphed against eager on the parity
+    schedule (GRAPH_PARITY), the server, the phase timers (graphed in
+    phase 7, eager here), the CLI (phase 5's runs) and the tick table in
+    turns. Returns the kernels' launches over the graphed schedules."""
+    totals: dict = {}
+    parity = {f"{name} R={mode}": graph_parity(torch, name, gpu[name], mode,
+                                               totals)
+              for name, mode in GRAPH_PARITY}
+    missing = [k for k, v in totals.items() if not v]
+    if missing or len(totals) < 5:
+        raise SystemExit(f"phase 10: kernels {missing or totals} never "
+                         f"launched through a replay")
+    graph_server(torch, gpu["bf16 Q8_0 int8-KV"], "bf16 Q8_0 int8-KV")
+    eager = phase_timers(torch, twin(gpu["f32"]), "f32 eager", card,
+                         tag="10 timers")
+    log(f"[10 timers] f32 B={TIMER_B}: encoder / decoder ms per tick "
+        f"graphed {timers['f32']['encoder_ms']:.2f} / "
+        f"{timers['f32']['decoder_ms']:.2f} (phase 7), eager "
+        f"{eager['encoder_ms']:.2f} / {eager['decoder_ms']:.2f}")
+    log(f"[10 cli] RTF graphed {cli_rtfs[False]} | eager {cli_rtfs[True]}")
+    table = phase_tick_times(torch, gpu, card)
+    log(f"[10 table] {json.dumps(table)}")
+    log(f"[10 parity] {json.dumps(parity)}")
+    return totals
 
 
 def main() -> int:
@@ -3106,10 +3343,8 @@ def main() -> int:
                  modes=(13, 13, 6, 0))
     for k in kernels.KERNELS:
         report[k.name]["launches"] = counts[k.name]
-    phase_cli(torch, hp, dense, vocab)
+    cli_rtfs = phase_cli(torch, hp, dense, vocab)
     elapsed("phase 5 server and cli")
-    phase_tick_times(torch, gpu, card)
-    elapsed("phase 5 times")
     offline_counts = phase_offline(torch, hp, dense, q8, vocab, gpu, card)
     elapsed("phase 6")
     surface = phase_surface(torch, hp, gpu, vocab, card)
@@ -3119,11 +3354,15 @@ def main() -> int:
     elapsed("phase 8")
     mesh_counts = phase_mesh(torch, hp, vocab, gpu, card, report)
     elapsed("phase 9")
+    graph_counts = phase_graphs(torch, gpu, card, surface["timers"],
+                                cli_rtfs)
+    elapsed("phase 10")
     for k in kernels.KERNELS:
         report[k.name]["offline_launches"] = offline_counts[k.name]
         report[k.name]["diarize_launches"] = phase8["diarize"][k.name]
         report[k.name]["native_launches"] = phase8["native_server"][k.name]
         report[k.name]["mesh_launches"] = mesh_counts[k.name]
+        report[k.name]["graph_launches"] = graph_counts[k.name]
 
     kernel_line = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,

@@ -19,6 +19,13 @@ port turns TF32 off for matmuls and for cuDNN convolutions (cuDNN runs f32
 convolutions in TF32 by default, which alone would move the subsampling
 output by ~1e-3 against the JAX package).
 
+On the card every serving entry point (`fused_tick_packed` in all its
+forms, `stream_step`, the two halves of `fused_tick_profiled`) runs as one
+CUDA graph per JAX key (nemotron_tpu/api.py `_memo`'s keys), captured on
+the key's second call and replayed after that (graphs.py; `model.graphs`
+holds them). `graphs=False` runs the same bodies eagerly on the card, as
+the CPU does. The offline path and a tp group's ticks stay eager.
+
 `shard(mesh)` serves over a device mesh (parallel/mesh.py): the parameters
 replicated over 'dp' and split over 'tp', each stream state a MeshState
 split over dp, each host input of put_batch a DPBatch split the same way;
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .audio.frontend import StreamPreprocessor, process_many
+from .graphs import GraphCache
 from .models import asr
 from .models.decoder import init_decode_state
 from .models.encoder import (check_attn_block_weights, compact_cache,
@@ -60,7 +68,8 @@ class ASRModel:
                  vocab: list[str] | None = None,
                  prompt_dict: dict[str, int] | None = None,
                  device="cuda", kv_int8: bool = False,
-                 attn_block: bool = False, confidence: bool = False):
+                 attn_block: bool = False, confidence: bool = False,
+                 graphs: bool = True):
         self.hp = hp
         self.params = params
         self.device = device_of(device)
@@ -89,28 +98,32 @@ class ASRModel:
         # the decode's iterations
         self.offline_stats: list[dict] = []
         self._weights_fp: str | None = None  # see weights_fingerprint
+        # the compiled ticks, one CUDA graph per JAX key (graphs.py)
+        self.graphs = GraphCache(enabled=graphs)
 
     @classmethod
     def from_gguf(cls, path: str, dtype=torch.float32, device="cuda",
                   keep_quantized: bool = False, kv_int8: bool = False,
-                  attn_block: bool = False, confidence: bool = False):
+                  attn_block: bool = False, confidence: bool = False,
+                  graphs: bool = True):
         hp, params, meta = load_model(path, dtype=dtype, device=device,
                                       keep_quantized=keep_quantized)
         return cls(hp, params, meta["vocab"], meta["prompt_dict"], device,
                    kv_int8=kv_int8, attn_block=attn_block,
-                   confidence=confidence)
+                   confidence=confidence, graphs=graphs)
 
     @classmethod
     def random(cls, hp: Hparams | None = None, seed: int = 0,
                dtype=torch.float32, device="cuda", kv_int8: bool = False,
-               attn_block: bool = False, confidence: bool = False):
+               attn_block: bool = False, confidence: bool = False,
+               graphs: bool = True):
         hp = hp or Hparams()
         vocab = [("▁w%d" % i) if i % 2 == 0 else ("p%d" % i)
                  for i in range(hp.vocab_size - 1)]
         return cls(hp, random_params(hp, seed=seed, dtype=dtype,
                                      device=device), vocab, device=device,
                    kv_int8=kv_int8, attn_block=attn_block,
-                   confidence=confidence)
+                   confidence=confidence, graphs=graphs)
 
     def cache_config(self, mode: LatencyMode | int = LatencyMode.PURE_CAUSAL):
         return CacheConfig.for_mode(mode, self.hp)
@@ -119,9 +132,11 @@ class ASRModel:
         """Serve over `mesh`: the parameters placed on its devices
         (parallel/mesh.place_params), and from now on every stream state
         a MeshState and every put_batch a DPBatch split over its dp
-        shards. One engine then ticks every shard. Returns self."""
+        shards. One engine then ticks every shard. Every graph is dropped
+        (the JAX package clears its executables). Returns self."""
         from .parallel.mesh import place_params
 
+        self.graphs.clear()
         self.groups = place_params(self.params, mesh)
         self.mesh = mesh
         self.device = mesh.devices[0][0]
@@ -140,18 +155,42 @@ class ASRModel:
         return [(g.lead, g if len(g.devices) > 1 else None, g.devices[0])
                 for g in self.groups]
 
-    def _per_shard(self, state, fn, *batched, with_tokens=True):
-        """fn(params, tp, state, *rows) on each dp shard (on a single
-        device: the model's params and state as they are); the shards'
-        states make a MeshState and their tokens (with_tokens) one tensor
-        in slot order on the lead device."""
+    def _shard_calls(self, state, fn, *batched, key=None) -> list:
+        """[fn(params, tp, state, *rows)] of each dp shard (on a single
+        device: the model's params and state as they are). With a JAX
+        `key`, fn returns (state, *outputs) and each shard's call goes
+        through the graph cache (graphs.py): one graph per key and dp
+        shard on that shard's device; a tp group's call runs eagerly
+        through the same bookkeeping (its reduction copies across
+        devices)."""
         if self.mesh is None:
-            return fn(self.params, None, state, *batched)
+            return [self._call(key, 0, self.params, None, self.device, state,
+                               fn, batched)]
         outs = []
         for d, (params, tp, dev) in enumerate(self._shards()):
             with on_device(dev):
-                outs.append(fn(params, tp, state.shards[d],
-                               *(b.parts[d] for b in batched)))
+                outs.append(self._call(key, d, params, tp, dev,
+                                       state.shards[d], fn,
+                                       [b.parts[d] for b in batched]))
+        return outs
+
+    def _call(self, key, shard, params, tp, dev, state, fn, rows):
+        if key is None:
+            return fn(params, tp, state, *rows)
+
+        def body(s, *r):
+            return fn(params, tp, s, *r)[1:]
+
+        return (state, *self.graphs.run(key, shard, dev, body, state,
+                                        tuple(rows), eager=tp is not None))
+
+    def _per_shard(self, state, fn, *batched, with_tokens=True, key=None):
+        """fn(params, tp, state, *rows) on each dp shard (_shard_calls);
+        the shards' states make a MeshState and their tokens (with_tokens)
+        one tensor in slot order on the lead device."""
+        outs = self._shard_calls(state, fn, *batched, key=key)
+        if self.mesh is None:
+            return outs[0]
         if not with_tokens:
             return state_mod.MeshState(outs)
         states, toks = zip(*outs)
@@ -243,6 +282,8 @@ class ASRModel:
         hp = self.hp
         shift = cfg.shift_samples
         flags = dict(attn_block=self.attn_block, confidence=self.confidence)
+        key = ("tick_packed", cfg, packed_dev.shape[0], all_active, phase, k,
+               fast_gated and not all_active)
 
         def tick(params, tp, state, packed):
             audio = packed[:, :k * shift]
@@ -258,7 +299,7 @@ class ASRModel:
                 params, state, audio, n_valid, act, prompt, hp=hp, cfg=cfg,
                 phase=phase, fast_gated=fast_gated, tp=tp, **flags)
 
-        return self._per_shard(state, tick, packed_dev)
+        return self._per_shard(state, tick, packed_dev, key=key)
 
     def fused_tick_profiled(self, cfg, state, audio_block, n_valid, active,
                             prompt_idx=None, phase: int = 0):
@@ -272,40 +313,39 @@ class ASRModel:
         encoder_seconds, decoder_seconds)."""
         import time
 
+        b = audio_block.shape[0]
         if prompt_idx is None:
             prompt_idx = self.put_batch(np.full(
-                (audio_block.shape[0],), max(self.default_prompt_index, 0),
-                np.int32))
+                (b,), max(self.default_prompt_index, 0), np.int32))
         use_prompt = self.hp.num_prompts > 0
         act = [] if active is None else [active]
-        encs = []
 
         def encode(params, tp, state, audio, prompt, act=None):
-            state, enc = asr.fused_encode_tick(
+            return asr.fused_encode_tick(
                 params, state, audio, act, prompt if use_prompt else None,
                 hp=self.hp, cfg=cfg, phase=phase, attn_block=self.attn_block,
                 tp=tp)
-            encs.append(enc)
-            return state
 
         def decode(params, tp, state, enc, nv, act=None):
             return asr.decode_tick(params, state, enc, nv, act, hp=self.hp,
                                    confidence=self.confidence)
 
         t0 = time.perf_counter()
+        outs = self._shard_calls(
+            state, encode, audio_block, prompt_idx, *act,
+            key=("fused_encode", cfg, b, active is None, phase))
         if self.mesh is None:
-            state = encode(self.params, None, state, audio_block, prompt_idx,
-                           *act)
-            enc = encs[0]
+            state, enc = outs[0]
         else:
             from .parallel.mesh import DPBatch
 
-            state = self._per_shard(state, encode, audio_block, prompt_idx,
-                                    *act, with_tokens=False)
-            enc = DPBatch(encs)
+            state = state_mod.MeshState([o[0] for o in outs])
+            enc = DPBatch([o[1] for o in outs])
         self.synchronize()
         t1 = time.perf_counter()
-        state, tokens = self._per_shard(state, decode, enc, n_valid, *act)
+        state, tokens = self._per_shard(
+            state, decode, enc, n_valid, *act,
+            key=("decode", active is None, cfg, b))
         self.synchronize()
         return state, tokens, t1 - t0, time.perf_counter() - t1
 
@@ -329,8 +369,11 @@ class ASRModel:
                 hp=self.hp, cfg=cfg, phase=phase, attn_block=self.attn_block,
                 confidence=self.confidence, tp=tp)
 
-        return self._per_shard(state, step, mel_chunk, n_valid, prompt_idx,
-                               *([] if active is None else [active]))
+        return self._per_shard(
+            state, step, mel_chunk, n_valid, prompt_idx,
+            *([] if active is None else [active]),
+            key=("stream_step", cfg, mel_chunk.shape[0], active is None,
+                 phase))
 
     def prime_frontend(self, state, mask, tails, lasts):
         """Install frontend carries for newly joined slots."""

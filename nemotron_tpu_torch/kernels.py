@@ -18,7 +18,9 @@ raises on a non-zero code. There is no fallback: a failed build or launch
 raises to the caller.
 
 `Kernel.launches` counts successful launches of that kernel, so a run can
-show that its main path went through the kernel (chip_smoke.py).
+show that its main path went through the kernel (chip_smoke.py). A launch
+recorded into a CUDA graph at capture launches nothing: the graph cache
+(graphs.py) takes those counts back and adds them on every replay.
 """
 
 from __future__ import annotations
@@ -219,3 +221,14 @@ KERNELS = (T1_ATTENTION, MEL_FRAMES, Q8_MATMUL, Q4_MATMUL, T1_ATTENTION_BLOCK)
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def counts() -> dict:
+    """Kernel -> its launch count now."""
+    return {k: k.launches for k in KERNELS}
+
+
+def add_counts(delta: dict, sign: int = 1) -> None:
+    """Add (or, with sign -1, take back) launches per kernel."""
+    for k, n in delta.items():
+        k.launches += sign * n

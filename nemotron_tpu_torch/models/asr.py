@@ -8,8 +8,13 @@ fused attention block B3 with `attn_block`) -> greedy RNNT. `stream_step`
 does the same from a mel chunk (the single-stream session computes its mel
 on the host side). The caches are updated in place (see models/encoder.py).
 `confidence` packs per-token confidences into the tokens
-(models/decoder.py). `transcribe_batch` is the offline path: the batch
-encoder over whole utterances, then the decode with its exit. `tp` (a
+(models/decoder.py). Every step keeps the caller's storage: what the layers
+do not update in place (the frontend carries, cache validity, the decoder
+state) is written back into the caller's tensors at the end (state.
+write_back), and the step returns the caller's state object, so a tick
+body replays as a CUDA graph on fixed addresses (api.ASRModel).
+`transcribe_batch` is the offline path: the batch encoder over whole
+utterances, then the decode with its exit. `tp` (a
 params.TPGroup) runs the encoder's layers over one dp shard's tp devices
 (models/encoder.py); everything else runs on the lead device.
 """
@@ -23,7 +28,7 @@ import torch
 
 from ..ops import mel as melops
 from ..config import CacheConfig, Hparams
-from ..streaming.state import StreamState
+from ..streaming.state import StreamState, write_back
 from .decoder import greedy_decode, init_decode_state, unpack_tokens
 from .encoder import compact_cache, encode_batch, stream_encode_step
 
@@ -67,9 +72,9 @@ def stream_step(params, state: StreamState, mel_chunk, n_valid, active,
         tp=tp)
     dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
                                       n_valid=n_valid, confidence=confidence)
-    return dataclasses.replace(
+    return write_back(state, dataclasses.replace(
         state, k_cache=k2, v_cache=v2, conv_cache=c2, cache_valid=valid2,
-        decode=dec_state), tokens
+        decode=dec_state)), tokens
 
 
 def fused_encode_tick(params, state: StreamState, audio_block, active,
@@ -108,10 +113,9 @@ def fused_encode_tick(params, state: StreamState, audio_block, active,
         tail2 = _gate0(act, tail2, state.pp_tail)
         last2 = torch.where(act, last2, state.pp_last)
         new_ov = _gate0(act, new_ov, state.mel_ov)
-    new_state = dataclasses.replace(
+    return write_back(state, dataclasses.replace(
         state, k_cache=k2, v_cache=v2, conv_cache=c2, cache_valid=valid2,
-        pp_tail=tail2, pp_last=last2, mel_ov=new_ov)
-    return new_state, enc
+        pp_tail=tail2, pp_last=last2, mel_ov=new_ov)), enc
 
 
 def decode_tick(params, state: StreamState, enc, n_valid, active=None, *,
@@ -122,7 +126,8 @@ def decode_tick(params, state: StreamState, enc, n_valid, active=None, *,
         n_valid = torch.where(active.to(torch.bool), n_valid, 0)
     dec_state, tokens = greedy_decode(params, hp, enc, state.decode,
                                       n_valid=n_valid, confidence=confidence)
-    return dataclasses.replace(state, decode=dec_state), tokens
+    return write_back(state, dataclasses.replace(state, decode=dec_state)), \
+        tokens
 
 
 def fused_serve_tick(params, state: StreamState, audio_block, n_valid, active,
@@ -169,8 +174,7 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
             attn_block=attn_block, confidence=confidence, tp=tp)
         toks.append(t)
     if phase + k == cfg.n_phases:  # wrap: move the window back to phase 0
-        k2, v2 = compact_cache(cfg, hp, state.k_cache, state.v_cache)
-        state = dataclasses.replace(state, k_cache=k2, v_cache=v2)
+        compact_cache(cfg, hp, state.k_cache, state.v_cache)  # in place
     return state, torch.cat(toks, dim=1)
 
 

@@ -125,7 +125,7 @@ def _phase_attn_constants(lc: int, chunk_len: int, s_buf: int, phase: int):
     return j_of_s, pos_index.astype(np.int64)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=None)  # kept: a captured tick holds them
 def _phase_tensors(lc, chunk_len, s_buf, phase, device):
     j_of_s, pos_index = _phase_attn_constants(lc, chunk_len, s_buf, phase)
     return (torch.tensor(j_of_s, device=device),
@@ -467,7 +467,10 @@ def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
     rows = _rows(mask)
     for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):  # q and s alike
         if rows is None:
-            buf[:, :, :, :lc] = buf[:, :, :, lo:lo + lc].clone()
+            # a layer at a time: the copy's temporary is one layer's window
+            # (a captured k-chunk tick's pool holds its largest temporary)
+            for layer in buf:
+                layer[:, :, :lc] = layer[:, :, lo:lo + lc].clone()
         else:
             r = rows.to(buf.device)  # a head shard's device
             sel = buf[:, r]  # [L, n, H, S(, Dh)] copy

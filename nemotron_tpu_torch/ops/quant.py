@@ -283,6 +283,7 @@ def f32_plan(m: int, n: int, k: int, sms: int,
 
 
 _COUNTERS: dict = {}
+_RETIRED: list = []  # grown-out counter buffers a CUDA graph may still use
 
 
 def f32_scratch(plan: F32Plan, device):
@@ -290,8 +291,9 @@ def f32_scratch(plan: F32Plan, device):
     f32 partials, and the per-tile arrival counters its last block reads
     and resets to 0: one zeroed int32 buffer per (device, stream), made
     once and grown when a call needs more tiles (stream order keeps a call
-    from seeing another's counts). Returns (workspace, counters), both None
-    without a split."""
+    from seeing another's counts; a grown-out buffer stays allocated, as
+    a captured tick keeps its address). Returns (workspace, counters),
+    both None without a split."""
     if plan.splits == 1:
         return None, None
     ws = torch.empty((plan.splits, plan.tiles, plan.bm * F32_ROWS),
@@ -299,6 +301,8 @@ def f32_scratch(plan: F32Plan, device):
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     cnt = _COUNTERS.get(key)
     if cnt is None or cnt.numel() < plan.tiles:
+        if cnt is not None:
+            _RETIRED.append(cnt)
         cnt = torch.zeros(max(plan.tiles, 1024), dtype=torch.int32,
                           device=device)
         _COUNTERS[key] = cnt

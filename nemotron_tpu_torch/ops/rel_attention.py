@@ -58,7 +58,7 @@ def rel_pos_mha_fullbuf(x, pos_emb, q_w, k_w, v_w, pos_w, out_w, bias_u,
                        attn_mask, f32_softmax=False)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)  # kept: a captured tick holds them
 def _window_pos_index(T: int, klen: int, device) -> torch.Tensor:
     """pos_index of a [window || new frames] key axis: query t reads row
     s + T - 1 - t for key s (the rel-shift, rel_shift_gather's values)."""

@@ -1008,8 +1008,10 @@ class BatchedEngine:
         return s.transcript if s else ""
 
     def stats(self) -> dict:
-        """Engine counters per latency group (host clock, seconds); with
-        phase_timers also each group's encoder_seconds / decoder_seconds."""
+        """Engine counters per latency group (host clock, seconds), each
+        group's compiled ticks (graphs: keys, captures, replays, pool
+        bytes, capture seconds; graphs.py); with phase_timers also each
+        group's encoder_seconds / decoder_seconds."""
         out = {"streams": len(self._route),
                "device": self.model.backend_name, "groups": {}}
         for rc, g in list(self.groups.items()):
@@ -1037,6 +1039,13 @@ class BatchedEngine:
                 out["groups"][rc]["emit_latency_ms"] = {
                     "p50": round(float(p50), 1), "p90": round(float(p90), 1),
                     "p99": round(float(p99), 1), "n": int(lat.size)}
+            gs = self.model.graphs.stats(
+                lambda key, g=g: (g.cfg, g.batch) in (key[1:3], key[2:4]))
+            out["groups"][rc]["graphs"] = {
+                k: gs[k] for k in ("keys", "captures", "replays",
+                                   "pool_bytes")}
+            out["groups"][rc]["graphs"]["capture_seconds"] = round(
+                gs["capture_seconds"], 3)
             if g.phase_timers:
                 out["groups"][rc]["encoder_seconds"] = round(
                     g.total_encoder_seconds, 3)

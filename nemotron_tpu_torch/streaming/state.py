@@ -134,13 +134,33 @@ def reset_slots(state, mask, hp: Hparams):
 def prime_frontend(state: StreamState, mask, tails, lasts) -> StreamState:
     """Install per-slot frontend carries (slot join: tail = 256 centre-pad
     zeros + the stream's first 96 pre-emphasized samples, so every later
-    shift_samples block yields exactly shift_mel_frames frames)."""
+    shift_samples block yields exactly shift_mel_frames frames), in
+    place."""
     m = mask.to(torch.bool)
-    return dataclasses.replace(
-        state,
-        pp_tail=torch.where(m[:, None], tails, state.pp_tail),
-        pp_last=torch.where(m, lasts, state.pp_last),
-    )
+    state.pp_tail.copy_(torch.where(m[:, None], tails, state.pp_tail))
+    state.pp_last.copy_(torch.where(m, lasts, state.pp_last))
+    return state
+
+
+def write_back(dst: StreamState, src: StreamState) -> StreamState:
+    """Copy every leaf of `src` that is not already `dst`'s own tensor
+    into `dst`'s storage and return `dst`: a tick body ends with it, so a
+    state's storage stays fixed across ticks (the JAX package donates the
+    state to its compiled tick; a captured CUDA graph replays on fixed
+    addresses)."""
+    for d, s in zip(state_tensors(dst), state_tensors(src)):
+        if s is not d:
+            d.copy_(s)
+    return dst
+
+
+def state_tensors(state) -> list:
+    """Every tensor a state owns, in state_leaves order (a QuantKV cache's
+    codes and scales, a HeadShards cache's parts; of a MeshState, each
+    shard's in turn): what a captured tick reads and writes."""
+    if isinstance(state, MeshState):
+        return [t for s in state.shards for t in state_tensors(s)]
+    return [t for pieces in _leaf_pieces(state) for t in pieces]
 
 
 # fields of StreamState with the batch at axis 1 (the caches); the others

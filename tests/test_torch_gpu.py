@@ -1000,3 +1000,118 @@ def test_quantized_linears_at_tp_shapes(cuda, bits, dtype, rel, split, m):
     want = ref(x, part).float()
     err = float((got.float() - want).abs().max())
     assert err <= rel * float(want.abs().max()), err
+
+
+# --- the compiled tick (graphs.py): graphed against eager at full width ---
+
+GRAPH_FORMS = ("f32", "bf16-block", "bf16-q8-int8kv")
+GRAPH_B = 32
+BLANK_BIAS = 2.4  # random full-width weights then emit ~2 tokens a frame
+
+
+def _graph_pair(form):
+    """(graphed, eager) full-width models on the same random weights."""
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float32
+    graphed = ASRModel.random(Hparams(), seed=0, dtype=dtype, device="cuda",
+                              kv_int8="int8kv" in form,
+                              attn_block="block" in form)
+    graphed.params.joint.out_b[graphed.hp.blank_id] += BLANK_BIAS
+    if "q8" in form:
+        graphed.params = quantize_encoder_layers(graphed.params, bits=8)
+    eager = ASRModel(graphed.hp, graphed.params, graphed.tokenizer.vocab,
+                     device="cuda", kv_int8=graphed.kv_int8,
+                     attn_block=graphed.attn_block, graphs=False)
+    return graphed, eager
+
+
+def _launches():
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("form", GRAPH_FORMS)
+def test_graphed_ticks_equal_eager_at_full_width(cuda, form):
+    """tools/graph_turns.run_schedule (wraps, the backlog, a masked tick,
+    a join; three passes: warm-up, capture, replay) at B=32, R=0 on both
+    models: tokens equal, every leaf bit-equal (f32: the largest
+    difference printed, within 1e-6), one capture per key, the last pass's
+    replays under set_sync_debug_mode("error"), and the kernels' launch
+    counts through the replays equal to eager's."""
+    from nemotron_tpu_torch.tools.graph_turns import compare, run_schedule
+
+    graphed, eager = _graph_pair(form)
+    kernels.reset_counts()
+    tok_e, st_e = run_schedule(eager, GRAPH_B)
+    n_eager = _launches()
+    kernels.reset_counts()
+    tok_g, st_g = run_schedule(graphed, GRAPH_B, sync_debug=True)
+    n_graphed = _launches()
+    cmp = compare(st_g, st_e)
+    stats = graphed.graphs.stats()
+    print(f"{form}: {cmp}, graphs {stats}, launches {n_graphed}")
+    assert len(tok_g) == len(tok_e)
+    assert all(np.array_equal(g, e) for g, e in zip(tok_g, tok_e))
+    assert sum(int((t >= 0).sum()) for t in tok_g) > 0
+    if form == "f32":
+        assert cmp["max_abs"] <= 1e-6, cmp
+    else:
+        assert cmp["equal"], cmp
+    assert stats["captures"] == stats["keys"] == 11, stats
+    assert stats["recaptures"] == 0 and stats["replays"] > stats["captures"]
+    assert n_graphed == n_eager
+    assert n_graphed["mel_frames"] > 0
+
+
+def test_graphed_stream_step_and_profiled_halves_equal_eager(cuda):
+    """stream_step and the two halves of fused_tick_profiled at B=32 in
+    f32, three calls each (warm-up, capture, replay): outputs and states
+    bit-equal to the eager model's, one capture per key."""
+    graphed, eager = _graph_pair("f32")
+    hp, cfg = graphed.hp, graphed.cache_config(0)
+    rng = np.random.default_rng(5)
+    states = [m.init_stream_state(GRAPH_B, cfg) for m in (graphed, eager)]
+    for _ in range(3):
+        mel = rng.standard_normal((GRAPH_B, cfg.chunk_mel_frames, hp.n_mels))
+        outs = [m.stream_step(cfg, s, m.put_batch(mel.astype(np.float32)),
+                              m.put_batch(np.full(GRAPH_B, 1, np.int32)),
+                              None)[1].cpu()
+                for m, s in zip((graphed, eager), states)]
+        assert torch.equal(*outs)
+        audio = (rng.standard_normal((GRAPH_B, cfg.shift_samples)) * 3000
+                 ).astype(np.int16)
+        outs = [m.fused_tick_profiled(
+            cfg, s, m.put_batch(audio), m.put_batch(
+                np.full(GRAPH_B, 1, np.int32)), None)[1].cpu()
+            for m, s in zip((graphed, eager), states)]
+        assert torch.equal(*outs)
+    from nemotron_tpu_torch.tools.graph_turns import compare
+
+    assert compare(*states)["equal"]
+    stats = graphed.graphs.stats()
+    assert stats["keys"] == stats["captures"] == 3 and stats["replays"] == 6
+
+
+def test_graph_recaptures_a_state_with_other_storage(cuda):
+    """Two states of one key in turns from its first capture on (as two
+    engines of one model, or an engine and a migration's target): each
+    change of storage captures the key again (counted), the pool keeps a
+    graph throughout, and every tick equals the eager model's."""
+    graphed = ASRModel.random(_tiny_hp(), seed=1, device=cuda)
+    eager = ASRModel(graphed.hp, graphed.params, graphed.tokenizer.vocab,
+                     device=cuda, graphs=False)
+    cfg = graphed.cache_config(0)
+    rng = np.random.default_rng(3)
+    states = {m: [m.init_stream_state(2, cfg) for _ in range(2)]
+              for m in (graphed, eager)}
+    for i, which in enumerate((0, 0, 1, 0, 1, 1)):
+        audio = (rng.standard_normal((2, cfg.shift_samples)) * 3000
+                 ).astype(np.int16)
+        toks = []
+        for m in (graphed, eager):
+            packed = m.put_batch(m.pack_tick_inputs(
+                audio, np.full(2, cfg.valid_out_len), np.zeros(2), None))
+            _, t = m.fused_tick_packed(cfg, states[m][which], packed, True)
+            toks.append(t.cpu())
+        assert torch.equal(*toks), i
+    stats = graphed.graphs.stats()
+    assert stats["keys"] == 1 and stats["recaptures"] == 3
+    assert stats["captures"] == 4 and stats["replays"] == 5
