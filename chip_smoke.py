@@ -6,7 +6,7 @@ TCP clients through the port's own server, transcribes files offline
 (the ragged batch encoder, the API and the offline CLI), and drives the
 engine's migration, hot swap, events, legacy flow and phase timers,
 runs diarization (nets, pipeline, server, CLI) and the native ingest
-server, and serves on a dp x tp device mesh and through two replicas —
+server, and serves on a dp x tp device mesh and through four replicas —
 all on one CUDA card (phase 9 also across two where there are two).
 
     python3 chip_smoke.py     # every phase; needs one CUDA card
@@ -30,8 +30,8 @@ Phases, one line each, any failure exits non-zero:
              silence, B4 (Q8_0) and B5 (Q4_0) in bf16 at M in {32, 141,
              256} and in f32 at M in {256, 141}, both also at M in {512,
              1792, 3584} (a B=256 tick at right context 1 / 6 / 13) and
-             at the offline rows M in {1032, 2048, 16384} (8 short files,
-             one segment, 8 segments), for the four (N, K) of the
+             at the offline rows M in {769, 6152, 16384} (one and eight
+             60 s files, 8 full segments), for the four (N, K) of the
              encoder's matrices (dense_ms: cuBLAS on the weight
              dequantized beforehand, its f32 FFMA product in f32; B5's
              library_ms: torch._weight_int4pack_mm); B2 also at 1 x 16376
@@ -58,15 +58,23 @@ Phases, one line each, any failure exits non-zero:
              ragged batch of a 3 s and a 6 s file on the card vs the CPU
              (f32 and f32 Q8_0: encode_batch within F32_ATOL, tokens and
              texts equal; bf16 within 2x its own error); the launch counts
-             of transcribe_audios with Q8_0 and Q4_0 matrices (B2 once a
-             call, B4 / B5 264 a segment, B1 and B3 never); a 170 s file
-             (two segments) beside a 5 s one at CAP_BIAS: transcribe_audios
-             equal to transcribe_audio of each, with timestamps; the
-             offline CLI in a subprocess on an F16 GGUF, its stdout equal
-             to the in-process texts; times at B=1 and B=8 on 60 s files
-             in f32, bf16 and bf16 Q8_0 (host s, audio-s/s, RTF, decode
-             iterations and share, peak memory, device busy and idle
-             share, kernels per segment)
+             of transcribe_audios with Q8_0 and Q4_0 matrices through the
+             offline graphs' replays (B2 once a call, B4 / B5 264 a
+             segment, B1 and B3 never); a 170 s file (two segments)
+             beside a 5 s one at CAP_BIAS: transcribe_audios equal to
+             transcribe_audio of each, with timestamps, then graphed
+             (capture, then replay; both segments on one decode key)
+             against eager: texts, token ids and the decoder state bit
+             for bit; the offline CLI in a
+             subprocess on an F16 GGUF, its stdout equal to the in-process
+             texts; graphed against eager in turns at B=1 and B=8 on 60 s
+             files in f32, bf16, bf16 Q8_0 and bf16 Q4_0 (bit for bit as
+             above; bf16 Q4_0, whose random weights emit, timed by its
+             parity calls alone; host s, audio-s/s, device busy and idle
+             share, kernels
+             per segment, decode iterations, peak memory, each offline
+             key's captures, capture s, pool MB and replays; each form's
+             offline graphs dropped after its runs)
   7 surface  the engine's remaining surface at full width: two streams of
              a batch-8 engine exported mid-flight at a phase other than 0
              through snapshot_to_bytes / snapshot_from_bytes into an
@@ -91,9 +99,13 @@ Phases, one line each, any failure exits non-zero:
              random ASR model in f32 at R=0: VAD over 256 windows and
              TitaNet-L over 64 sub-segments (half of them ragged) card vs
              CPU, their device times and windows/s; NME-SC's host time for
-             200 embeddings; a fixed 30 s two-speaker signal through
-             DiarizePipeline on the card and the CPU (segments, RTTM and
-             speaker count equal); StreamServer with the diarize model, 4
+             200 embeddings; both nets through DiarizePipeline graphed
+             (one CUDA graph per net and bucket) against eager, bit for
+             bit, host ms per call both ways; a fixed 30 s two-speaker
+             signal through DiarizePipeline on the card and the CPU
+             (segments, RTTM and speaker count equal) and eagerly on the
+             card (every embedding bit-equal to the graphed run's);
+             StreamServer with the diarize model, 4
              TCP clients x 6 s, two of them diarize streams (word frames and
              a result frame each; every text equal to a plain server's; B1
              24 and B2 >= 1 per chunk step); the streaming CLI with
@@ -117,8 +129,8 @@ Phases, one line each, any failure exits non-zero:
              the 2x2 mesh and the native server on dp=2, 4 clients x 3 s,
              texts equal to one device's; a stream exported from a dp=2
              engine finishing on one device with the text of never moving;
-             2 replicas of the port's server behind a RoutedClient, 4
-             streams split 2 / 2, texts equal to a session's; host ms per
+             4 replicas of the port's server behind a RoutedClient, 4
+             streams one per replica, texts equal to a session's; host ms per
              B=256 tick at dp x tp = 1x1, 2x1, 2x2, busy share and the tp
              reduction's device ms (one card: overhead, not scaling)
  10 graphs   the compiled tick (graphs.py; every entry point above ran
@@ -146,7 +158,7 @@ Phases, one line each, any failure exits non-zero:
              eager rows' kernels and the decode half alone)
 The second-to-last line is the kernels JSON (launches: the streaming
 server runs, graphed, counted through the replays; offline_launches:
-phase 6's counted run; diarize_launches and native_launches: phase 8's
+phase 6's counted run, every key replayed; diarize_launches and native_launches: phase 8's
 diarize server and native server runs; mesh_launches: phase 9's runs on
 the mesh; mesh_cases: phase 9's kernel checks at a tp shard's shapes;
 graph_launches: phase 10's graphed schedules), the line before it phase
@@ -176,9 +188,9 @@ BF16_VS_REF = 2.0  # card vs CPU in bf16, in units of bf16's own error
 GEMM_REL = {"f32": 1e-5, "bf16": 1e-2}  # B4/B5 vs plain, x max|y|
 RC_MODES = (1, 6, 13)  # right contexts past 0: chunk_len 2, 7, 14
 RC_ROWS = (512, 1792, 3584)  # B4/B5 rows of a B=256 tick at those modes
-# B4/B5 rows of the offline path: 8 short files x 129 frames, one full
-# segment, 8 full segments
-OFFLINE_ROWS = (1032, 2048, 16384)
+# B4/B5 rows of the offline path: one and eight 60 s files (769 encoder
+# frames each), eight full segments (2,048 each)
+OFFLINE_ROWS = (769, 6152, 16384)
 RC_TICKS = {1: 9, 6: 5, 13: 3}  # phase 4: single ticks, one past a wrap
 TICK_BLOCKS = 4  # the timed ticks' blocks of audio, drawn before the loop
 # phase 6: the random model's blank bias offline. With full attention over
@@ -1277,23 +1289,27 @@ def ragged_batch(model, audios):
 
 def offline_outputs(model, x, n_mel, n_sub):
     """encode_batch's valid rows (one f32 CPU tensor, row after row) and
-    the tokens (numpy) of the greedy decode with its exit, as
-    transcribe_batch runs them, of one ragged batch."""
+    the tokens (numpy) of the block decode with its exit, as
+    transcribe_batch runs them, of one ragged batch (eagerly)."""
     import torch
 
+    from nemotron_tpu_torch.models import decoder as dec
     from nemotron_tpu_torch.models.asr import DECODE_EXIT_EVERY
-    from nemotron_tpu_torch.models.decoder import (greedy_decode,
-                                                   init_decode_state)
     from nemotron_tpu_torch.models.encoder import encode_batch
 
+    hp, p = model.hp, model.params
     n_valid = model.put_batch(n_sub)
-    enc = encode_batch(model.params, model.hp, model.put_batch(x),
-                       n_frames=n_valid, n_mel_frames=model.put_batch(n_mel))
-    _, tokens = greedy_decode(
-        model.params, model.hp, enc,
-        init_decode_state(len(n_sub), model.hp, dtype=enc.dtype,
-                          device=enc.device), n_valid=n_valid,
-        exit_every=DECODE_EXIT_EVERY)
+    enc = encode_batch(p, hp, model.put_batch(x), n_frames=n_valid,
+                       n_mel_frames=model.put_batch(n_mel))
+    b, t = enc.shape[:2]
+    carry = dec.init_carry(b, t, hp, enc.dtype, device=enc.device)
+    state = dec.init_decode_state(b, hp, dtype=enc.dtype, device=enc.device)
+    dec.start_carry(carry, state, n_valid)
+    carry.enc_proj.copy_(dec.enc_projection(p.joint, enc))
+    dec.decode_in_blocks(
+        carry, t, int(n_sub.max()), DECODE_EXIT_EVERY,
+        lambda: dec.decode_block(p, hp, carry, DECODE_EXIT_EVERY))
+    tokens = dec.carry_result(carry, state, n_valid, t)[1]
     enc = enc.float().cpu()
     return (torch.cat([enc[i, :n] for i, n in enumerate(n_sub)]),
             tokens.cpu().numpy())
@@ -1352,24 +1368,69 @@ def phase_offline_parity(torch, cpu, gpu):
 
 def phase_offline_launches(torch, models, audios) -> dict:
     """The offline main path's launch counts: transcribe_audios of two
-    files with Q8_0 and with Q4_0 encoder matrices (bf16), the counts set
-    to 0 just before and read just after: B2 once per call, B4 and B5 264
-    (11 matrices x 24 layers) per segment, B1 and B3 never."""
+    files with Q8_0 and with Q4_0 encoder matrices (bf16), each model's
+    offline keys first warmed up and captured in two calls, then the
+    counts set to 0 just before a third call of each (every key replayed)
+    and read just after: B2 once per call, B4 and B5 264 (11 matrices x
+    24 layers) per segment through the replays, B1 and B3 never."""
     from nemotron_tpu_torch import kernels
 
+    names = ("bf16 Q8_0", "bf16 Q4_0")
+    for name in names:
+        for _ in range(2):
+            models[name].transcribe_audios(audios)
+    torch.cuda.synchronize()
     kernels.reset_counts()
-    for name in ("bf16 Q8_0", "bf16 Q4_0"):
+    for name in names:
         models[name].transcribe_audios(audios)
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in kernels.KERNELS}
+    hows = [how for name in names for seg in models[name].offline_stats
+            for how in seg["graphs"].values()]
+    replayed = all(how["replays"] == how["calls"] for how in hows)
     n_q = 11 * models["bf16 Q8_0"].hp.n_layers
     want = {"mel_frames": 2, "q8_matmul": n_q, "q4_matmul": n_q,
             "t1_attention": 0, "t1_attention_block": 0}
     log(f"[6 offline] launches of transcribe_audios, one segment each, "
-        f"bf16 Q8_0 then bf16 Q4_0: {counts} (want {want})")
-    if counts != want:
-        raise SystemExit(f"phase 6 (offline): launches {counts}, want {want}")
+        f"bf16 Q8_0 then bf16 Q4_0, every offline key replayed ({replayed}:"
+        f" {hows}): {counts} (want {want})")
+    if counts != want or not replayed:
+        raise SystemExit(f"phase 6 (offline): launches {counts}, want {want};"
+                         f" keys {hows}")
+    for name in names:
+        models[name].drop_offline_graphs()
     return counts
+
+
+def offline_graphs(model) -> dict:
+    """Each offline key's captures, capture s, pool MB and replays."""
+    from nemotron_tpu_torch.api import OFFLINE_KEYS
+
+    return {str(key): {"captures": e.captures,
+                       "capture_s": round(e.capture_seconds, 3),
+                       "pool_mb": round(e.pool_bytes / 1e6, 1),
+                       "replays": e.replays}
+            for (key, _shard), e in model.graphs.entries.items()
+            if key[0] in OFFLINE_KEYS}
+
+
+def offline_parity(torch, graphed, eager, mels):
+    """One more _transcribe_mels of `mels` on each model, graphed first:
+    (token ids and frames and the final decoder state's leaves compared
+    bit for bit; each call's outputs; each call's host seconds)."""
+    import dataclasses as dc
+
+    outs, states, secs = [], [], []
+    for m in (graphed, eager):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state = m._transcribe_mels(mels, None)
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        states.append([getattr(state, f.name) for f in dc.fields(state)])
+    return {"ids_equal": outs[0] == outs[1],
+            "state_equal": all(torch.equal(x, y) for x, y in zip(*states)),
+            "tokens": sum(len(ids) for ids, _ in outs[0])}, outs, secs
 
 
 def phase_offline_long(torch, model):
@@ -1377,8 +1438,14 @@ def phase_offline_long(torch, model):
     624) beside a 5 s one, on the card: transcribe_audios of the two equal
     to transcribe_audio of each, with word timestamps (the decoder state
     carried across the segment boundary, the short file's rows padded);
-    the model at CAP_BIAS, where every frame emits."""
+    the model at CAP_BIAS, where every frame emits. Then graphed against
+    eager (`twin`): the batch's keys captured in the next call and
+    replayed in offline_parity's, whose ids (and texts) and final decoder
+    state are bit-equal to the eager call's; the
+    second segment calls the first one's decode key. The offline graphs
+    are dropped at the end."""
     from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.audio.frontend import process_many
 
     long = stream_audio(1, LONG_SAMPLES, SEED + 6)[0]
     short = stream_audio(1, 80000, SEED + 7)[0]
@@ -1396,16 +1463,51 @@ def phase_offline_long(torch, model):
     its = sum(s["iterations"] for s in segs)
     log(f"[6 offline] f32 {LONG_SAMPLES / 16000:.1f} s + 5.0 s files, "
         f"blank bias {CAP_BIAS:g}: transcribe_audios in {t_batch:.2f} s "
-        f"(segments {segs}; {t_batch / its * 1e3:.3f} ms of host per decode "
-        f"iteration at most) equal to transcribe_audio of each "
-        f"({t_per:.2f} s): {batch == per}; chars {[len(t) for t in batch]}, "
-        f"timestamps {[t.count('{') for t in batch]}; B2 launches {mel} "
-        f"(want 3)")
+        f"(its keys' first calls; segments {segs}; {t_batch / its * 1e3:.3f}"
+        f" ms of host per decode iteration at most) equal to "
+        f"transcribe_audio of each ({t_per:.2f} s): {batch == per}; chars "
+        f"{[len(t) for t in batch]}, timestamps "
+        f"{[t.count('{') for t in batch]}; B2 launches {mel} (want 3)")
     if batch != per or len(segs) != 2 or mel != 3 \
             or not all("{" in t for t in batch):
         raise SystemExit(f"phase 6 (offline, long file): batch {batch!r:.300}"
                          f" != per file {per!r:.300}, segments {segs}, "
                          f"B2 launches {mel}")
+    eager = twin(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    captured = model.transcribe_audios([long, short], timestamp_words=True)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    pre = model._preprocessor
+    same, outs, secs = offline_parity(torch, model, eager, process_many(
+        [pre(), pre()], [long, short]))
+    segs = model.offline_stats  # the parity call's: every key replayed
+    texts = [[m.tokenizer.decode(ids, True, frames) for ids, frames in out]
+             for m, out in zip((model, eager), outs)]
+    dec_keys = [k for s in segs for k in s["graphs"] if k[0] != "batch"]
+    replayed = all(how["replays"] == how["calls"] for s in segs
+                   for how in s["graphs"].values())
+    gs = model.graphs.stats()
+    # the batch's keys; the per-file call's B=1 long segment ran once
+    captured_once = all(model.graphs.entries[k, 0].captures == 1
+                        for s in segs for k in s["graphs"])
+    log(f"[6 offline long] graphed against eager: host s of the capture "
+        f"call {t_capture:.2f}, of the parity calls replay "
+        f"{secs[0]:.2f}, eager {secs[1]:.2f}; texts equal "
+        f"{texts[0] == texts[1] == captured == batch}; {same}; the replay "
+        f"call's keys {[s['graphs'] for s in segs]} (one decode key for "
+        f"both segments: {len(set(dec_keys)) == 1}); graphs "
+        f"{json.dumps(offline_graphs(model))}")
+    if not (texts[0] == texts[1] == captured == batch
+            and same["ids_equal"] and same["state_equal"] and replayed
+            and len(dec_keys) == 2 and len(set(dec_keys)) == 1
+            and captured_once and not gs["recaptures"]):
+        raise SystemExit(f"phase 6 (offline, long file): graphed and eager "
+                         f"differ: {same}, keys {segs}, graphs {gs}")
+    model.drop_offline_graphs()
+    del eager
+    torch.cuda.empty_cache()
 
 
 def phase_offline_cli(torch, hp, dense, vocab, audios):
@@ -1462,83 +1564,90 @@ def phase_offline_cli(torch, hp, dense, vocab, audios):
                          f"want {want!r}\nstderr {out.stderr[-3000:]}")
 
 
-def time_offline(torch, model, audios, card: str, name: str, n: int = 3):
-    """Host seconds of one synchronised transcribe_audios call (median of
-    n after one warm-up), the decode's iterations, peak device memory (and
-    its part above what was allocated before the call: the other models of
-    the smoke stay resident); the
-    encoder and decode halves of the first segment timed apart on the same
-    ragged batch (the decode's share); the device busy ms and kernels of
-    one more call (idle share = 1 - busy / host time)."""
-    from nemotron_tpu_torch.models.asr import DECODE_EXIT_EVERY
-    from nemotron_tpu_torch.models.decoder import (greedy_decode,
-                                                   init_decode_state)
-    from nemotron_tpu_torch.models.encoder import encode_batch
+def time_offline(torch, graphed, audios, card: str, name: str,
+                 n: int = 2, eager_busy: bool = True) -> dict:
+    """`graphed` against its eager twin on `audios`, in turns within one
+    call, after two calls of the graphed model (its offline keys warmed
+    up, then captured): host seconds of one synchronised transcribe_audios
+    call (median of n each; with n = 0 the parity call's, which starts
+    from the mels), audio-s/s; one more call of each compared bit for bit
+    (offline_parity) and the timed calls' texts equal; the
+    device busy ms of one more call each (idle share = 1 - busy / host;
+    the eager one only with eager_busy); the decode's iterations; peak
+    device memory (and its part above what was allocated before: the
+    other models stay resident); the offline keys' captures, capture s,
+    pool MB, replays. The graphed model's offline graphs are dropped at
+    the end."""
+    from nemotron_tpu_torch.audio.frontend import process_many
 
-    hp = model.hp
+    t_start = time.perf_counter()
+    eager = twin(graphed)
+    models = {"eager": eager, "graphed": graphed}
     secs = len(audios) * len(audios[0]) / 16000.0
-    model.transcribe_audios(audios)
-    times = []
+    for _ in range(2):
+        graphed.transcribe_audios(audios)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 1e9
+    times = {"eager": [], "graphed": []}
+    texts = []
     for i in range(n):
-        torch.cuda.synchronize()
-        if i == 0:
-            torch.cuda.reset_peak_memory_stats()
-            resident = torch.cuda.memory_allocated() / 1e9
-        t0 = time.perf_counter()
-        model.transcribe_audios(audios)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if i == 0:
-            peak = torch.cuda.max_memory_allocated() / 1e9
-    host = statistics.median(times)
-    stats = model.offline_stats
-    # the two halves of the first segment apart, at the call's own
-    # (bucketed) shape
-    x, n_mel, _ = ragged_batch(model, audios)
-    t_pad = stats[0]["mel_frames"]
-    n_mel = np.minimum(n_mel, model.max_seg_mel_frames)
-    n_sub = np.array([hp.subsampled_len(v) for v in n_mel], np.int32)
-    xp = np.zeros((x.shape[0], t_pad, x.shape[2]), np.float32)
-    xp[:, :n_mel.max()] = x[:, :n_mel.max()]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    enc = encode_batch(model.params, hp, model.put_batch(xp),
-                       n_frames=model.put_batch(n_sub),
-                       n_mel_frames=model.put_batch(n_mel))
-    torch.cuda.synchronize()
-    t_enc = time.perf_counter() - t0
-    greedy_decode(model.params, hp, enc,
-                  init_decode_state(len(audios), hp, dtype=enc.dtype,
-                                    device=enc.device),
-                  n_valid=model.put_batch(n_sub),
-                  exit_every=DECODE_EXIT_EVERY)
-    torch.cuda.synchronize()
-    t_dec = time.perf_counter() - t0 - t_enc
-    del enc
-    prof = profile_rows(torch, lambda: model.transcribe_audios(audios), n=1,
-                        warmup=0)
-    busy = ("device time not measured" if prof is None else
-            f"device busy {prof[0]:.1f} ms (idle share "
-            f"{max(0.0, 1 - prof[0] / 1e3 / host):.2f}), "
-            f"{sum(r[2] for r in prof[1]) / len(stats):.0f} kernels per "
-            f"segment")
+        for form in ("eager", "graphed")[::1 if i % 2 == 0 else -1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts.append(models[form].transcribe_audios(audios))
+            torch.cuda.synchronize()
+            times[form].append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre = graphed._preprocessor
+    same, _, parity_s = offline_parity(
+        torch, graphed, eager, process_many([pre() for _ in audios], audios))
+    if not n:
+        times = {"graphed": parity_s[:1], "eager": parity_s[1:]}
+    row = {"name": name, "B": len(audios), "card": card, **same,
+           "texts_equal": all(t == texts[0] for t in texts),
+           "iterations": [s["iterations"] for s in graphed.offline_stats],
+           "peak_gb": round(peak, 2),
+           "above_resident_gb": round(peak - resident, 2),
+           "graphs": offline_graphs(graphed)}
+    for form, m in models.items():
+        host = statistics.median(times[form])
+        prof = (profile_rows(torch, lambda m=m: m.transcribe_audios(audios),
+                             n=1, warmup=0)
+                if form == "graphed" or eager_busy else None)
+        busy = None if prof is None else prof[0] / 1e3
+        row[form] = {"host_s": host, "times": times[form],
+                     "audio_s_per_s": secs / host,
+                     "busy_s": busy,
+                     "idle": None if busy is None else max(0.0,
+                                                           1 - busy / host),
+                     "kernels_per_segment": None if prof is None else
+                     sum(r[2] for r in prof[1]) / len(m.offline_stats)}
+    gs = graphed.graphs.stats()
     log(f"[6 offline time] {name} B={len(audios)} x "
-        f"{len(audios[0]) / 16000:.0f} s: {host:.3f} s per call "
-        f"({', '.join(f'{t:.3f}' for t in times)}), {secs / host:.1f} "
-        f"audio-s/s, RTF {host / secs:.4f}; decode iterations "
-        f"{[s['iterations'] for s in stats]} per segment; encoder "
-        f"{t_enc:.3f} s + decode {t_dec:.3f} s apart (decode share "
-        f"{t_dec / (t_enc + t_dec):.2f}); peak {peak:.2f} GB "
-        f"({peak - resident:.2f} GB above the resident {resident:.2f}); "
-        f"{busy} ({card})")
+        f"{len(audios[0]) / 16000:.0f} s (its runs {time.perf_counter() - t_start:.0f}"
+        f" s): host s per call eager "
+        f"{row['eager']['host_s']:.3f}, graphed {row['graphed']['host_s']:.3f}"
+        f" ({row['eager']['audio_s_per_s']:.1f} -> "
+        f"{row['graphed']['audio_s_per_s']:.1f} audio-s/s); {json.dumps(row)}")
+    if not (same["ids_equal"] and same["state_equal"]
+            and row["texts_equal"]
+            and gs["captures"] == gs["keys"] and not gs["recaptures"]):
+        raise SystemExit(f"phase 6 (offline time, {name} B={len(audios)}): "
+                         f"graphed and eager differ: {row}, graphs {gs}")
+    graphed.drop_offline_graphs()
+    del eager
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_offline(torch, hp, dense, q8, vocab, gpu, card: str):
     """Phase 6, the offline path at full width: card against CPU, the
-    main path's launch counts, a file past one segment, the CLI, times.
-    The card's models share the weights of phase 4-5's (`gpu`; their int8
-    K/V option does not touch the offline path); dense and q8 are the CPU's
-    f32 and Q8_0 weights."""
+    main path's launch counts through graph replays, a file past one
+    segment graphed against eager, the CLI, graphed against eager in
+    turns with times. The card's models share the weights of phase 4-5's
+    (`gpu`; their int8 K/V option does not touch the offline path); dense
+    and q8 are the CPU's f32 and Q8_0 weights."""
     from nemotron_tpu_torch.api import ASRModel
     from nemotron_tpu_torch.params import params_to
 
@@ -1555,14 +1664,21 @@ def phase_offline(torch, hp, dense, q8, vocab, gpu, card: str):
            "f32 Q8_0": cpu_m(q8)}
     audios = phase_offline_parity(torch, cpu, card_m)
     del cpu
+    card_m["f32"].drop_offline_graphs()
     counts = phase_offline_launches(torch, card_m, audios)
     phase_offline_long(torch, offline_model(gpu["f32"], CAP_BIAS))
     phase_offline_cli(torch, hp, dense, vocab, audios)
-    for name in ("f32", "bf16", "bf16 Q8_0"):
-        for b in (1, 8):
-            time_offline(torch, card_m[name],
+    # bf16 Q4_0's random weights emit on these files (~11x the decode
+    # iterations of the others, ~10 s per eager call): timed by its parity
+    # calls alone, its eager busy not measured
+    rows = [time_offline(torch, card_m[name],
                          list(stream_audio(b, OFFLINE_SECS * 16000,
-                                           SEED + 10)), card, name)
+                                           SEED + 10)), card, name,
+                         **({"n": 0, "eager_busy": False}
+                            if name == "bf16 Q4_0" else {}))
+            for name in ("f32", "bf16", "bf16 Q8_0", "bf16 Q4_0")
+            for b in (1, 8)]
+    log(f"[6 offline table] {json.dumps(rows)}")
     return counts
 
 
@@ -2197,13 +2313,18 @@ def _pipeline_run(params, audio: np.ndarray, chunk: int = 16000):
     return p, p.finalize()
 
 
-def phase_diarize_nets(torch, gpu, cpu, card: str) -> None:
+def phase_diarize_nets(torch, gpu, cpu, eager, card: str) -> None:
     """MarbleNet over DIAR_VAD_WINDOWS windows and TitaNet-L over
     DIAR_SPK_WINDOWS sub-segments (full and ragged lengths) on the card
-    against the CPU in f32; their times; NME-SC's host time."""
+    against the CPU in f32; their times; then each through
+    DiarizePipeline._run graphed (gpu: one graph per net and bucket, three
+    calls: warm-up, capture, replay) against eager (`eager`, graphs off):
+    bit for bit, one capture per key, host ms per call both ways in
+    turns; NME-SC's host time."""
     from nemotron_tpu_torch.diarize import audio as daudio
     from nemotron_tpu_torch.diarize.cluster import nmesc_cluster
     from nemotron_tpu_torch.diarize.nets import spk_embed, vad_probs
+    from nemotron_tpu_torch.diarize.pipeline import DiarizePipeline
 
     sig = diarize_signal()
     rng = np.random.default_rng(SEED + 8)
@@ -2247,6 +2368,30 @@ def phase_diarize_nets(torch, gpu, cpu, card: str) -> None:
             f"CPU {cpu_s * 1e3:.0f} ms ({card})")
         if not ok:
             bad[name] = err
+        # graphed against eager through the pipeline's call of the net
+        fn = "_vad_fn" if name == "vad" else "_spk_fn"
+        run_g = getattr(DiarizePipeline(gpu), fn)
+        run_e = getattr(DiarizePipeline(eager), fn)
+        outs = [run_g(w, lens) for _ in range(3)]
+        ref = run_e(w, lens)
+        equal = all(np.array_equal(o, ref) for o in outs)
+        ms = {"graphed": [], "eager": []}
+        for i in range(6):
+            form, f = (("graphed", run_g), ("eager", run_e))[(i + i // 2) % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f(w, lens)
+            ms[form].append((time.perf_counter() - t0) * 1e3)
+        key = gpu.graphs.entries[((name, count), 0)]
+        log(f"[8 nets] {name} x {count} through the pipeline: graphed equal "
+            f"to eager bit for bit over warm-up, capture, replay: {equal}; "
+            f"host ms per call (with the upload and the host copy) graphed "
+            f"{statistics.median(ms['graphed']):.2f}, eager "
+            f"{statistics.median(ms['eager']):.2f}; captures {key.captures} "
+            f"({key.capture_seconds:.3f} s, pool "
+            f"{key.pool_bytes / 1e6:.1f} MB), replays {key.replays} ({card})")
+        if not equal or key.captures != 1:
+            bad[f"{name} graphed"] = (equal, key.captures)
     centers = rng.standard_normal((4, 192))
     emb = np.concatenate([c + 0.4 * rng.standard_normal((DIAR_NMESC_N // 4,
                                                           192))
@@ -2263,27 +2408,41 @@ def phase_diarize_nets(torch, gpu, cpu, card: str) -> None:
         raise SystemExit(f"phase 8 (nets): card and CPU disagree: {bad}")
 
 
-def phase_diarize_pipeline(torch, gpu, cpu) -> None:
-    """The same 30 s signal through DiarizePipeline on the card and on the
-    CPU: segments, RTTM and speaker count equal; at least one segment and
-    one embedding."""
+def phase_diarize_pipeline(torch, gpu, cpu, eager) -> None:
+    """The same 30 s signal through DiarizePipeline on the card (graphed,
+    the default) and on the CPU: segments, RTTM and speaker count equal;
+    at least one segment and one embedding. And on the card eagerly
+    (graphs off): segments, RTTM and every embedding bit-equal to the
+    graphed run's."""
     sig = diarize_signal()
     t0 = time.perf_counter()
     pg, rg = _pipeline_run(gpu, sig)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    pe, re_ = _pipeline_run(eager, sig)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     pc, rc = _pipeline_run(cpu, sig)
     cpu_s = time.perf_counter() - t0
     same = (pg.segments == pc.segments and rg.rttm == rc.rttm
             and rg.n_speakers == rc.n_speakers)
-    log(f"[8 pipeline] 30 s signal: card {card_s:.2f} s, CPU {cpu_s:.2f} s; "
-        f"{pg.n_segments} segments, {pg.n_embeddings} embeddings, "
-        f"{rg.n_speakers} speakers, {len(rg.rttm.splitlines())} RTTM lines; "
-        f"card equal to CPU: {same}")
-    if not same or not pg.n_segments or not pg.n_embeddings:
+    graphed_same = (pg.segments == pe.segments and rg.rttm == re_.rttm
+                    and len(pg.embs) == len(pe.embs)
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(pg.embs, pe.embs)))
+    log(f"[8 pipeline] 30 s signal: card graphed {card_s:.2f} s, eager "
+        f"{eager_s:.2f} s, CPU {cpu_s:.2f} s; {pg.n_segments} segments, "
+        f"{pg.n_embeddings} embeddings, {rg.n_speakers} speakers, "
+        f"{len(rg.rttm.splitlines())} RTTM lines; card equal to CPU: {same};"
+        f" graphed equal to eager bit for bit: {graphed_same}; graphs "
+        f"{json.dumps(gpu.graphs.stats())}")
+    if not same or not pg.n_segments or not pg.n_embeddings \
+            or not graphed_same or gpu.graphs.stats()["recaptures"]:
         raise SystemExit(f"phase 8 (pipeline): card {pg.segments} "
-                         f"{rg.rttm!r} vs CPU {pc.segments} {rc.rttm!r}")
+                         f"{rg.rttm!r} vs CPU {pc.segments} {rc.rttm!r}, "
+                         f"graphed vs eager {graphed_same}")
 
 
 async def _diarize_clients(srv, audios, diarize):
@@ -2567,12 +2726,15 @@ def phase_diarize(torch, hp, dense, vocab, model, card: str) -> dict:
         t0 = time.perf_counter()
         write_random_diarize_gguf(str(dpath))
         gpu = load_diarize_model(str(dpath), device="cuda")
+        eager = load_diarize_model(str(dpath), device="cuda")
+        eager.graphs.enabled = False
         cpu = load_diarize_model(str(dpath), device="cpu")
         log(f"[8 diarize] random diarize GGUF (seed {DIAR_SEED}, "
             f"{dpath.stat().st_size / 1e6:.1f} MB) written and loaded in "
             f"{time.perf_counter() - t0:.1f} s")
-        phase_diarize_nets(torch, gpu, cpu, card)
-        phase_diarize_pipeline(torch, gpu, cpu)
+        phase_diarize_nets(torch, gpu, cpu, eager, card)
+        phase_diarize_pipeline(torch, gpu, cpu, eager)
+        del eager
         launches = {"diarize": phase_diarize_server(torch, model, gpu)}
         phase_diarize_cli(torch, hp, dense, vocab, gpu, work)
     finally:
@@ -2956,11 +3118,17 @@ def mesh_migrate(torch, counts, single, mesh_dp2):
         raise SystemExit(f"phase 9 (migrate): {text!r} vs {want!r}")
 
 
+REPLICAS = 4
+
+
 def mesh_replicas(torch, single, audios):
-    """ReplicaSet of 2 of the port's servers ('random', seed 0, the blank
-    bias, each with CUDA_VISIBLE_DEVICES=0) and a RoutedClient with 4
-    streams: the streams split 2 / 2, each text equal to a single-device
-    StreamSession's."""
+    """ReplicaSet of REPLICAS of the port's servers ('random', seed 0, the
+    blank bias, each with CUDA_VISIBLE_DEVICES=0) and a RoutedClient with
+    one stream per replica (the least-loaded pick): each text equal to a
+    single-device StreamSession's. A stream alone on a fresh replica joins
+    at ring phase 0 and never pauses behind another stream, so its ticks
+    are a session's; two streams on one live server are not (trap "live
+    server texts")."""
     import socket
 
     from nemotron_tpu_torch.serving.replicas import ReplicaSet, RoutedClient
@@ -2972,18 +3140,19 @@ def mesh_replicas(torch, single, audios):
         s.process_incremental(a)
         s.finalize()
         want.append(s.get_transcript())
-    for base in range(23000, 40000, 97):  # two free consecutive ports
+    for base in range(23000, 40000, 97):  # free consecutive ports
         try:
-            for p in (base, base + 1):
+            for p in range(base, base + REPLICAS):
                 with socket.socket() as sk:
                     sk.bind(("127.0.0.1", p))
             break
         except OSError:
             continue
     t0 = time.perf_counter()
-    rs = ReplicaSet("random", 2, port_base=base, batch_per_group=8,
+    rs = ReplicaSet("random", REPLICAS, port_base=base, batch_per_group=8,
                     extra_args=["--blank-bias", str(BLANK_BIAS)],
-                    env_per_replica=[{"CUDA_VISIBLE_DEVICES": "0"}] * 2)
+                    env_per_replica=[{"CUDA_VISIBLE_DEVICES": "0"}]
+                    * REPLICAS)
     try:
         rs.wait_ready(timeout=300)
         t_ready = time.perf_counter() - t0
@@ -3000,11 +3169,11 @@ def mesh_replicas(torch, single, audios):
         live, got = asyncio.run(asyncio.wait_for(run(), timeout=300))
     finally:
         rs.close()
-    log(f"[9 replicas] 2 replicas of nemotron_tpu_torch.serving.server on "
-        f"cuda:0 (ready in {t_ready:.1f} s), RoutedClient with 4 streams: "
-        f"split {live}; texts equal to a session's: {got == want} (chars "
-        f"{[len(t) for t in got]})")
-    if live != [2, 2] or got != want or not any(want):
+    log(f"[9 replicas] {REPLICAS} replicas of nemotron_tpu_torch.serving."
+        f"server on cuda:0 (ready in {t_ready:.1f} s), RoutedClient with "
+        f"{len(audios)} streams: split {live}; texts equal to a session's: "
+        f"{got == want} (chars {[len(t) for t in got]})")
+    if live != [1] * REPLICAS or got != want or not any(want):
         raise SystemExit(f"phase 9 (replicas): split {live}; {got} vs "
                          f"{want}")
 

@@ -23,8 +23,13 @@ On the card every serving entry point (`fused_tick_packed` in all its
 forms, `stream_step`, the two halves of `fused_tick_profiled`) runs as one
 CUDA graph per JAX key (nemotron_tpu/api.py `_memo`'s keys), captured on
 the key's second call and replayed after that (graphs.py; `model.graphs`
-holds them). `graphs=False` runs the same bodies eagerly on the card, as
-the CPU does. The offline path and a tp group's ticks stay eager.
+holds them). So does the offline path: each segment's encoder is one
+graph per JAX key ("batch", T, B) (`_batch_fn`'s), and its greedy decode
+replays one graph per batch size, a block of models/asr.DECODE_EXIT_EVERY
+iterations, between the host's exit tests (`_transcribe_mels`). The
+offline graphs have a pool of their own, which `drop_offline_graphs`
+frees while the ticks' graphs stay. `graphs=False` runs the same bodies
+eagerly on the card, as the CPU does. A tp group's calls stay eager.
 
 `shard(mesh)` serves over a device mesh (parallel/mesh.py): the parameters
 replicated over 'dp' and split over 'tp', each stream state a MeshState
@@ -45,7 +50,7 @@ import torch
 from .audio.frontend import StreamPreprocessor, process_many
 from .graphs import GraphCache
 from .models import asr
-from .models.decoder import init_decode_state
+from .models.decoder import init_carry, init_decode_state
 from .models.encoder import (check_attn_block_weights, compact_cache,
                              realign_cache)
 from .params import (ModelParams, device_of, load_model, on_device,
@@ -61,6 +66,14 @@ torch.backends.cudnn.allow_tf32 = False
 DEFAULT_PROMPT_INDEX = 101
 
 MEL_BUCKET = 1024  # offline segments are padded to a multiple of this
+OFFLINE_KEYS = ("batch", "batch_decode")  # the offline graphs' key kinds
+
+
+def _offline_counts(graphs: GraphCache) -> dict:
+    """Each offline key's (calls, captures, replays) so far."""
+    return {key: (e.calls, e.captures, e.replays)
+            for (key, _shard), e in graphs.entries.items()
+            if key[0] in OFFLINE_KEYS}
 
 
 class ASRModel:
@@ -95,8 +108,13 @@ class ASRModel:
             t -= 8
         self.max_seg_mel_frames = t
         # per segment of the last offline call: batch, padded mel frames,
-        # the decode's iterations
+        # the decode's iterations, and each graph key's "calls",
+        # "captures" and "replays" in the segment ("graphs"; a call that
+        # did not replay ran eagerly)
         self.offline_stats: list[dict] = []
+        # the graphed offline decode's fixed storage, one per (batch,
+        # device)
+        self._carries: dict = {}
         self._weights_fp: str | None = None  # see weights_fingerprint
         # the compiled ticks, one CUDA graph per JAX key (graphs.py)
         self.graphs = GraphCache(enabled=graphs)
@@ -137,6 +155,7 @@ class ASRModel:
         from .parallel.mesh import place_params
 
         self.graphs.clear()
+        self._carries.clear()
         self.groups = place_params(self.params, mesh)
         self.mesh = mesh
         self.device = mesh.devices[0][0]
@@ -410,6 +429,24 @@ class ASRModel:
         return self._per_shard(state, realign, self.put_batch(mask),
                                with_tokens=False)
 
+    def drop_offline_graphs(self) -> None:
+        """Free the offline path's graphs, their pool and the decode's
+        carries (a graph holds the encoder's working set while it lives);
+        the ticks' graphs stay. The next offline call warms up again."""
+        self.graphs.drop(lambda key: key[0] in OFFLINE_KEYS)
+        self._carries.clear()
+
+    def _carry(self, b: int, dev):
+        """The graphed offline decode's carry for batch b on dev, at the
+        longest segment's frames, so every segment of a batch size replays
+        one decode graph. Kept while the graphs live (an eager decode
+        makes its carry per segment, at the segment's frames)."""
+        if (b, dev) not in self._carries:
+            self._carries[b, dev] = init_carry(
+                b, self.hp.subsampled_len(self.max_seg_mel_frames), self.hp,
+                self.params.pos_emb.dtype, device=dev)
+        return self._carries[b, dev]
+
     def _preprocessor(self):
         return StreamPreprocessor(self.params.preproc.filterbank,
                                   self.params.preproc.window)
@@ -418,8 +455,12 @@ class ASRModel:
         """Offline transcription of mels ([T_i, n_mels] host arrays) as one
         zero-padded batch per segment of max_seg_mel_frames (each padded
         to a multiple of MEL_BUCKET), the decoder state carried from one
-        segment to the next. Returns [(token_ids, frame_indices)] per
-        mel. On a mesh, on dp shard 0 (its tp devices in the encoder)."""
+        segment to the next. Returns ([(token_ids, frame_indices)] per
+        mel, the last segment's decoder state). On a mesh, on dp shard 0
+        (its tp devices in the encoder, eagerly). A segment is the
+        encoder's graph, key ("batch", T, B), then the decode's blocks,
+        key ("batch_decode", B, frames, confidence), then the tokens' host
+        copy."""
         hp = self.hp
         params, tp, dev = self._shards()[0]
         b = len(mels)
@@ -432,6 +473,13 @@ class ASRModel:
         out = [([], []) for _ in range(b)]
         offsets = [0] * b
         seg = self.max_seg_mel_frames
+        graphed = self.graphs.enabled and dev.type == "cuda" and tp is None
+        carry = self._carry(b, dev) if graphed else None
+
+        def run(key, body, state, inputs):
+            return self.graphs.run(key, 0, dev, body, state, inputs,
+                                   eager=tp is not None, pool="offline")
+
         self.offline_stats = []
         for start in range(0, max(max(m.shape[0] for m in mels), 1), seg):
             parts = [m[start:start + seg] for m in mels]
@@ -446,6 +494,8 @@ class ASRModel:
             for i, p in enumerate(parts):
                 padded[i, :p.shape[0]] = p
             stats = {"batch": b, "mel_frames": t_pad}
+            before = _offline_counts(self.graphs)
+
             def put(a):
                 return torch.tensor(a, device=dev)
 
@@ -453,7 +503,13 @@ class ASRModel:
                 params, put(padded), hp=hp, prompt_idx=pidx,
                 n_frames=put(n_sub), dec_state=dec_state,
                 n_mel_frames=put(n_mel), confidence=self.confidence,
-                stats=stats, tp=tp)
+                stats=stats, tp=tp, carry=carry, run=run)
+            stats["graphs"] = {
+                key: {f: x - y for f, x, y in zip(
+                    ("calls", "captures", "replays"), n,
+                    before.get(key, (0, 0, 0)))}
+                for key, n in _offline_counts(self.graphs).items()
+                if n != before.get(key)}
             self.offline_stats.append(stats)
             seqs = asr.tokens_to_list(
                 tokens, n_sub,
@@ -463,14 +519,14 @@ class ASRModel:
                     out[i][0].append(tok)
                     out[i][1].append(offsets[i] + t)
                 offsets[i] += int(n_sub[i])
-        return out
+        return out, dec_state
 
     def transcribe_mel(self, mel: np.ndarray,
                        prompt_index: int | None = None):
         """Offline transcription of one mel sequence [T, n_mels]; long
         audio runs in segments at the pos table's cap with the decoder
         state carried across them. Returns (token_ids, frame_indices)."""
-        return self._transcribe_mels([np.asarray(mel)], prompt_index)[0]
+        return self._transcribe_mels([np.asarray(mel)], prompt_index)[0][0]
 
     def transcribe_audio(self, audio_i16, prompt_index: int | None = None,
                          timestamp_words: bool = False) -> str:
@@ -492,7 +548,8 @@ class ASRModel:
             return []
         mels = process_many([self._preprocessor() for _ in audios], audios)
         return [self.tokenizer.decode(ids, timestamp_words, frames)
-                for ids, frames in self._transcribe_mels(mels, prompt_index)]
+                for ids, frames in self._transcribe_mels(mels,
+                                                         prompt_index)[0]]
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (block_until_ready); on a

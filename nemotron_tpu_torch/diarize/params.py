@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..gguf.reader import read_gguf
+from ..graphs import GraphCache
 # the ASR loader's filterbank normalisation: a layout quirk fixed in one
 # loader must not ship broken in the other
 from ..params import device_of, norm_featurizer_fb as _norm_fb
@@ -97,6 +98,12 @@ class DiarizeModelParams:
     spk: SpkParams
     kv: dict
     device: torch.device = torch.device("cpu")
+
+    def __post_init__(self):
+        # the nets' compiled calls, one CUDA graph per (net, bucket),
+        # shared by every pipeline of this model (diarize/pipeline.py);
+        # not a field: the fields are the JAX package's tree
+        self.graphs = GraphCache()
 
 
 def _fold(raw, prefix, eps):

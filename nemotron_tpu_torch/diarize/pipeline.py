@@ -10,7 +10,9 @@ ASR fragments, finalize -> cluster -> overlap-resolved timeline -> outputs).
 Every advance scores all ready VAD windows in one batched call of the nets
 on the params' device (the card unless the caller asks for the CPU), padded
 to a power-of-two bucket as the JAX package pads them, and speaker
-embeddings batch across sub-segments the same way.
+embeddings batch across sub-segments the same way. On the card each
+(net, bucket) is one CUDA graph (the JAX package's jitted nets), kept in
+the model's graph cache (`params.graphs`) and shared by its pipelines.
 """
 
 from __future__ import annotations
@@ -139,11 +141,16 @@ class DiarizePipeline:
 
     def _run(self, net, name: str, windows: np.ndarray,
              lens: np.ndarray) -> np.ndarray:
-        """One batched call of a net on the params' device."""
+        """One batched call of a net on the params' device: one graph per
+        (net, bucket) on the card (graphs.py), its output copied to the
+        host at once (the key's next replay overwrites it)."""
         dev = self.params.device
-        out = net(getattr(self.params, name),
-                  torch.from_numpy(np.ascontiguousarray(windows)).to(dev),
-                  torch.from_numpy(np.ascontiguousarray(lens)).to(dev))
+        weights = getattr(self.params, name)
+        out, = self.params.graphs.run(
+            (name, len(windows)), 0, dev,
+            lambda _state, w, n: (net(weights, w, n),), (),
+            (torch.from_numpy(np.ascontiguousarray(windows)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(lens)).to(dev)))
         return out.cpu().numpy()
 
     # ------------------------------------------------------------------

@@ -1,8 +1,10 @@
-"""Compiled ticks: the port's counterpart of the JAX package's jitted
-serving executables (nemotron_tpu/api.py `_memo`: one XLA program per key,
-built once and reused, its state argument donated). Here each key's tick
-body is captured once as a `torch.cuda.CUDAGraph` and replayed after that;
-the hand-written kernels B1-B5 launch inside the graph.
+"""Compiled executables: the port's counterpart of the JAX package's jitted
+programs (nemotron_tpu/api.py `_memo`: one XLA program per key, built once
+and reused, its state argument donated; the diarize nets' `jax.jit`). Here
+each key's body (a tick, the offline encoder, a block of the offline
+decode, a diarize net) is captured once as a `torch.cuda.CUDAGraph` and
+replayed after that; the hand-written kernels B1-B5 launch inside the
+graph.
 
 A key's first call runs the body eagerly. It is the warm-up, a real tick
 whose result is returned, and it does what a capture cannot: host-to-device
@@ -10,14 +12,18 @@ constants (the encoder's phase tensors), the mel constants' host copy,
 cuBLAS's handles and workspaces, each kernel's shared-memory attribute and
 the split-K counters of the capture stream. It runs on the cache's capture
 stream, which first waits for the caller's stream and is waited for after.
-The second call captures the body on that stream into the model's graph
-memory pool (one per device, shared by its graphs) and replays it at once;
-every later call replays.
+The second call captures the body on that stream into a graph memory pool
+of the cache's (one per device and `pool` name, shared by those graphs:
+api.ASRModel keeps its ticks and its offline graphs apart, so `drop` can
+free the offline ones alone) and replays it at once; every later call
+replays. A key's entry counts its calls, captures and replays: a call
+that did not replay ran eagerly.
 
 What a graph holds fixed, every replay keeps fixed:
 - the inputs are copied into the key's static input buffers;
 - the state is the caller's, written in place by the body (JAX's
-  donation; models/asr.py). Before a replay every state tensor's data_ptr
+  donation; models/asr.py), or `()` for a body without one (the diarize
+  nets). Before a replay every state tensor's data_ptr
   is checked against the captured ones: a state with other storage is
   captured anew (counted in `recaptures`), never replayed over stale
   addresses;
@@ -33,6 +39,13 @@ Kernel launch counts (kernels.Kernel.launches): what the graph launches is
 counted at capture, taken back, and added on every replay, so a replayed
 tick counts as an eager one does.
 
+Python's cyclic garbage collector is paused while a capture runs (and
+resumed once no capture runs): a collection, which may start at any
+allocation on the capturing thread, can free another graph left in a
+reference cycle (a dropped model's, a diarize model's), and destroying a
+graph is a call that a capture does not permit: it invalidates the
+capture.
+
 On the CPU, and with graphs off, the body runs eagerly through the same
 bookkeeping (the key is recorded and its calls counted). There is no
 fallback on the card: a failed capture or replay raises.
@@ -40,7 +53,10 @@ fallback on the card: a failed capture or replay raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import threading
 import time
 
 import torch
@@ -58,6 +74,7 @@ class _Entry:
     inputs: list | None = None        # static input buffers
     outputs: list | None = None       # static output tensors
     launches: dict | None = None      # Kernel -> launches per replay
+    pool: tuple = ()                  # (device, pool name)
     captures: int = 0
     capture_seconds: float = 0.0
     pool_bytes: int = 0               # reserved memory's growth at capture
@@ -65,13 +82,14 @@ class _Entry:
 
 
 class GraphCache:
-    """One model's compiled ticks: (JAX key, dp shard) -> a captured graph
-    (see the module docstring). `enabled` False runs every body eagerly."""
+    """One model's compiled executables: (JAX key, dp shard) -> a captured
+    graph (see the module docstring). `enabled` False runs every body
+    eagerly."""
 
     def __init__(self, enabled: bool = True):
         self.enabled = enabled
         self.entries: dict = {}
-        self._pools: dict = {}    # device -> graph memory pool
+        self._pools: dict = {}    # (device, pool name) -> graph memory pool
         self._streams: dict = {}  # device -> capture stream
 
     def keys(self) -> set:
@@ -84,6 +102,15 @@ class GraphCache:
         moved)."""
         self.entries.clear()
         self._pools.clear()
+
+    def drop(self, select) -> None:
+        """Drop the graphs whose key passes `select`, and every pool that
+        no graph left uses: its memory goes back to the allocator's cache
+        (torch.cuda.empty_cache returns it to the device)."""
+        self.entries = {k: e for k, e in self.entries.items()
+                        if not select(k[0])}
+        used = {e.pool for e in self.entries.values()}
+        self._pools = {k: p for k, p in self._pools.items() if k in used}
 
     def stats(self, select=None) -> dict:
         """Totals over the entries whose key passes `select` (all by
@@ -100,11 +127,11 @@ class GraphCache:
                 "replays": sum(e.replays for e in es)}
 
     def run(self, key, shard: int, device: torch.device, body, state,
-            inputs: tuple, eager: bool = False) -> tuple:
+            inputs: tuple, eager: bool = False, pool: str = "") -> tuple:
         """body(state, *inputs) -> a tuple of output tensors, the state
         written in place: eagerly (the CPU, graphs off, `eager`, a key's
-        first call), captured (its second call, or a state with other
-        storage), or replayed."""
+        first call), captured into the pool named `pool` (its second call,
+        or a state with other storage), or replayed."""
         entry = self.entries.setdefault((key, shard), _Entry())
         entry.calls += 1
         if eager or not self.enabled or device.type != "cuda":
@@ -115,6 +142,7 @@ class GraphCache:
         if entry.graph is None or entry.ptrs != ptrs:
             # the old graph goes once the new one is captured: the pool
             # must not lose its last graph before a capture into it
+            entry.pool = (device, pool)
             self._capture(key, entry, device, body, state, inputs, ptrs)
         return self._replay(entry, inputs)
 
@@ -142,15 +170,15 @@ class GraphCache:
         static_in = [torch.empty_like(x) for x in inputs]
         static_out = [torch.empty(shape, dtype=dtype, device=device)
                       for shape, dtype in entry.outputs_meta]
-        pool = self._pools.get(device)
+        pool = self._pools.get(entry.pool)
         if pool is None:
-            pool = self._pools[device] = torch.cuda.graph_pool_handle()
+            pool = self._pools[entry.pool] = torch.cuda.graph_pool_handle()
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
         before = kernels.counts()
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _gc_paused():
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 outs = tuple(body(state, *static_in))
@@ -162,12 +190,12 @@ class GraphCache:
                     dst.copy_(o)
             except BaseException:
                 _end_failed(graph)
-                self._failed(device, before)
+                self._failed(entry.pool, before)
                 raise
             try:
                 graph.capture_end()
             except BaseException:
-                self._failed(device, before)
+                self._failed(entry.pool, before)
                 raise
         cur.wait_stream(side)
         launches = _delta(before)
@@ -179,12 +207,12 @@ class GraphCache:
         entry.graph, entry.ptrs, entry.launches = graph, ptrs, launches
         entry.inputs, entry.outputs = static_in, static_out
 
-    def _failed(self, device, before: dict) -> None:
+    def _failed(self, pool, before: dict) -> None:
         """After a failed capture: its recorded launches taken back, and
-        the device's pool left behind (a pool whose last graph is gone
-        cannot take another capture)."""
+        its pool left behind (a pool whose last graph is gone cannot take
+        another capture)."""
         kernels.add_counts(_delta(before), -1)
-        self._pools.pop(device, None)
+        self._pools.pop(pool, None)
 
     def _replay(self, entry, inputs) -> tuple:
         for dst, x in zip(entry.inputs, inputs):
@@ -198,6 +226,28 @@ class GraphCache:
         kernels.add_counts(entry.launches)
         entry.replays += 1
         return tuple(entry.outputs)
+
+
+_gc_lock = threading.Lock()
+_gc_pause = {"captures": 0, "was_enabled": False}
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's automatic garbage collection off while any thread's
+    capture runs; on again, if it was on, once the last one ends."""
+    with _gc_lock:
+        if not _gc_pause["captures"]:
+            _gc_pause["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_pause["captures"] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pause["captures"] -= 1
+            if not _gc_pause["captures"] and _gc_pause["was_enabled"]:
+                gc.enable()
 
 
 def _delta(before: dict) -> dict:

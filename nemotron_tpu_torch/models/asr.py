@@ -14,7 +14,8 @@ state) is written back into the caller's tensors at the end (state.
 write_back), and the step returns the caller's state object, so a tick
 body replays as a CUDA graph on fixed addresses (api.ASRModel).
 `transcribe_batch` is the offline path: the batch encoder over whole
-utterances, then the decode with its exit. `tp` (a
+utterances, then the decode in blocks with its exit between them, each
+part a body that api.ASRModel replays as a CUDA graph. `tp` (a
 params.TPGroup) runs the encoder's layers over one dp shard's tp devices
 (models/encoder.py); everything else runs on the lead device.
 """
@@ -29,7 +30,10 @@ import torch
 from ..ops import mel as melops
 from ..config import CacheConfig, Hparams
 from ..streaming.state import StreamState, write_back
-from .decoder import greedy_decode, init_decode_state, unpack_tokens
+from .decoder import (DecodeCarry, carry_result, decode_block,
+                      decode_in_blocks, enc_projection, greedy_decode,
+                      init_carry, init_decode_state, start_carry,
+                      unpack_tokens)
 from .encoder import compact_cache, encode_batch, stream_encode_step
 
 
@@ -178,14 +182,32 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
     return state, torch.cat(toks, dim=1)
 
 
-# the offline decode tests its exit on the host every this many iterations
+# the offline decode runs in graphed blocks of this many iterations, its
+# exit tested on the host between blocks
 DECODE_EXIT_EVERY = 16
+
+
+def _eager(_key, body, state, inputs):
+    return body(state, *inputs)
+
+
+def offline_encode(params, carry: DecodeCarry, mel, n_frames=None,
+                   n_mel_frames=None, prompt_idx=None, *, hp: Hparams,
+                   tp=None) -> tuple:
+    """The offline encoder's body (one graph per JAX key ("batch", T, B)):
+    encode_batch, then the joint's encoder projection written into the
+    carry's first T' frames. No outputs."""
+    enc = encode_batch(params, hp, mel,
+                       prompt_onehot=_prompt_onehot(params, prompt_idx, hp),
+                       n_frames=n_frames, n_mel_frames=n_mel_frames, tp=tp)
+    carry.enc_proj[:, :enc.shape[1]].copy_(enc_projection(params.joint, enc))
+    return ()
 
 
 def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
                      n_frames=None, dec_state=None, n_mel_frames=None,
                      confidence: bool = False, stats: dict | None = None,
-                     tp=None):
+                     tp=None, carry: DecodeCarry | None = None, run=None):
     """Offline path (nemotron_tpu/models/asr.py:transcribe_batch): mel
     [B, T, n_mels] -> (tokens [B, T', S], dec_state'), the full-context
     encoder over each utterance, then the greedy decode with its exit.
@@ -193,18 +215,49 @@ def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
     n_frames ([B] subsampled frames) and n_mel_frames ([B] mel frames)
     make a zero-padded ragged batch equal to exact-length runs (see
     encode_batch); dec_state carries the decoder across the segments of
-    a long file. stats, where given, gets the decode's "iterations".
+    a long file.
+
+    The segment is the encoder's body (offline_encode), then blocks of
+    DECODE_EXIT_EVERY loop-labels iterations (decoder.decode_block), both
+    on `carry` (decoder.init_carry of at least T' frames; made here at T'
+    when None). `run(key, body, state, inputs)` runs each body under its
+    key, the encoder's JAX key ("batch", T, B) and the decode block's
+    ("batch_decode", B, carry frames, confidence) (api.ASRModel's graph
+    cache); by default body(state, *inputs). The exit is tested on the
+    host between blocks (decoder.decode_in_blocks). stats, where given,
+    gets the iterations run, in whole blocks, under "iterations".
     """
-    enc = encode_batch(params, hp, mel,
-                       prompt_onehot=_prompt_onehot(params, prompt_idx, hp),
-                       n_frames=n_frames, n_mel_frames=n_mel_frames, tp=tp)
+    b, t_mel = mel.shape[:2]
+    t = hp.subsampled_len(t_mel)
+    dev = mel.device
+    dtype = params.pos_emb.dtype  # the activations'
+    if carry is None:
+        carry = init_carry(b, t, hp, dtype, device=dev)
     if dec_state is None:
-        dec_state = init_decode_state(enc.shape[0], hp, dtype=enc.dtype,
-                                      device=enc.device)
-    n_valid = None if n_frames is None else n_frames.to(torch.int32)
-    dec_state, tokens = greedy_decode(
-        params, hp, enc, dec_state, n_valid=n_valid, confidence=confidence,
-        exit_every=DECODE_EXIT_EVERY, stats=stats)
+        dec_state = init_decode_state(b, hp, dtype=dtype, device=dev)
+    n_valid = (torch.full((b,), t, dtype=torch.int32, device=dev)
+               if n_frames is None else n_frames.to(torch.int32))
+    most = int(n_valid.max()) if b else 0
+    run = run or _eager
+    start_carry(carry, dec_state, n_valid)
+    opt = {k: v for k, v in (("n_frames", n_frames),
+                             ("n_mel_frames", n_mel_frames),
+                             ("prompt_idx", prompt_idx)) if v is not None}
+
+    def encode(c, x, *vals):
+        return offline_encode(params, c, x, hp=hp, tp=tp,
+                              **dict(zip(opt, vals)))
+
+    def block(c):
+        return decode_block(params, hp, c, DECODE_EXIT_EVERY, confidence)
+
+    run(("batch", t_mel, b), encode, carry, (mel, *opt.values()))
+    key = ("batch_decode", b, carry.frames, confidence)
+    it = decode_in_blocks(carry, t, most, DECODE_EXIT_EVERY,
+                          lambda: run(key, block, carry, ()))
+    if stats is not None:
+        stats["iterations"] = it
+    dec_state, tokens = carry_result(carry, dec_state, n_valid, t)
     return tokens, dec_state
 
 

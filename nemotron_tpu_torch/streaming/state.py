@@ -157,9 +157,16 @@ def write_back(dst: StreamState, src: StreamState) -> StreamState:
 def state_tensors(state) -> list:
     """Every tensor a state owns, in state_leaves order (a QuantKV cache's
     codes and scales, a HeadShards cache's parts; of a MeshState, each
-    shard's in turn): what a captured tick reads and writes."""
+    shard's in turn): what a captured tick reads and writes. Of another
+    graphed body's state (graphs.py): a dataclass's fields in order (the
+    offline decode's DecodeCarry), or the tensors of a tuple (`()` for a
+    body with no state, the diarize nets)."""
     if isinstance(state, MeshState):
         return [t for s in state.shards for t in state_tensors(s)]
+    if isinstance(state, tuple):
+        return list(state)
+    if not isinstance(state, StreamState):
+        return [getattr(state, f.name) for f in dataclasses.fields(state)]
     return [t for pieces in _leaf_pieces(state) for t in pieces]
 
 

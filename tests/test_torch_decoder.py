@@ -1,8 +1,8 @@
 """The port's loop-labels greedy RNNT decode against the JAX package's: the
 tokens exactly equal, the decoder state within 5e-5 (f32). The streaming
 tick runs the loop's fixed bound instead of the JAX early exit, the
-offline path an exit tested every few iterations; neither may change the
-tokens, and the exit must equal the fixed bound bit for bit and the JAX
+offline path blocks of iterations with the exit tested between them;
+neither may change the tokens, and the exit must equal the fixed bound bit for bit and the JAX
 package's frame-scan form too. With bf16 weights, encoder frames and state in both packages the
 tokens are exactly equal too, and the state within 7.8e-3, one bf16 ulp of
 a value in [1, 2)."""
@@ -147,10 +147,13 @@ EXIT_CASES = [
 @pytest.mark.parametrize("exit_every", [1, 16])
 def test_decode_exit_equals_the_fixed_bound_and_both_jax_forms(
         monkeypatch, t, blank_bias, n_valid, exit_every):
-    """greedy_decode with the exit (the offline path's) against its fixed
-    bound: tokens and state bit-equal, in fewer iterations where streams
-    blank early (tested every iteration); and against the JAX package's loop-labels form and its
-    frame-scan form (LOOP_LABELS off): tokens equal, state within 5e-5."""
+    """The offline path's decode, in blocks of exit_every iterations on a
+    carry (decode_block, the exit tested between blocks by
+    decode_in_blocks), against greedy_decode's fixed bound (its
+    iterations counted: t*11+1): tokens and state bit-equal, in fewer iterations where streams blank early (tested
+    every iteration), never more than a block past the bound; and against
+    the JAX package's loop-labels form and its frame-scan form
+    (LOOP_LABELS off): tokens equal, state within 5e-5."""
     hp = tiny_hparams()
     jp, tp = j_random(hp, seed=9), t_random(hp, seed=9, device="cpu")
     jp.joint.out_b = jp.joint.out_b.at[hp.blank_id].add(blank_bias)
@@ -163,18 +166,30 @@ def test_decode_exit_equals_the_fixed_bound_and_both_jax_forms(
     off = np.array([0, 4, 9, 2], np.int32)
     nv = np.asarray(n_valid, np.int32)
 
-    def port(**kw):
-        ts = td.DecodeState(h=torch.tensor(h), c=torch.tensor(c),
-                            prev_token=torch.tensor(prev),
-                            frame_offset=torch.tensor(off))
-        stats = {}
-        st, tok = td.greedy_decode(tp, hp, torch.tensor(enc), ts,
-                                   torch.tensor(nv), stats=stats, **kw)
-        return st, tok.numpy(), stats["iterations"]
+    def state():
+        return td.DecodeState(h=torch.tensor(h), c=torch.tensor(c),
+                              prev_token=torch.tensor(prev),
+                              frame_offset=torch.tensor(off))
 
-    fixed, fixed_tok, n_fixed = port()
-    st, tok, n_exit = port(exit_every=exit_every)
+    # the loop's iterations, counted where each one runs
+    ran = []
+    step = td._iteration
+    monkeypatch.setattr(td, "_iteration",
+                        lambda *a, **k: ran.append(1) or step(*a, **k))
+    fixed, fixed_tok = td.greedy_decode(tp, hp, torch.tensor(enc), state(),
+                                        torch.tensor(nv))
+    fixed_tok, n_fixed = fixed_tok.numpy(), len(ran)
     assert n_fixed == t * 11 + 1
+    carry = td.init_carry(b, t + 3, hp, device="cpu")  # frames past t unused
+    carry.enc_proj.fill_(7.0)
+    carry.enc_proj[:, :t] = td.enc_projection(tp.joint, torch.tensor(enc))
+    td.start_carry(carry, state(), torch.tensor(nv))
+    n_exit = td.decode_in_blocks(
+        carry, t, int(nv.max()), exit_every,
+        lambda: td.decode_block(tp, hp, carry, exit_every))
+    st, tok = td.carry_result(carry, state(), torch.tensor(nv), t)
+    tok = tok.numpy()
+    assert n_exit % exit_every == 0 and len(ran) - n_fixed == n_exit
     np.testing.assert_array_equal(tok, fixed_tok)
     for name in ("h", "c", "prev_token", "frame_offset"):
         assert torch.equal(getattr(st, name), getattr(fixed, name)), name
@@ -188,7 +203,7 @@ def test_decode_exit_equals_the_fixed_bound_and_both_jax_forms(
         assert n_exit < n_fixed and emitted
     # a stream takes an iteration per frame and per emission
     least = (nv + (tok >= 0).sum(axis=(1, 2))).max()
-    assert least <= n_exit <= n_fixed
+    assert least <= n_exit < n_fixed + exit_every
 
     js = jd.DecodeState(h=jnp.asarray(h), c=jnp.asarray(c),
                         prev_token=jnp.asarray(prev),

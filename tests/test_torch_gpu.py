@@ -14,7 +14,7 @@ import torch
 
 from nemotron_tpu_torch import Hparams, kernels
 from nemotron_tpu_torch.api import ASRModel
-from nemotron_tpu_torch.audio.frontend import mel_full
+from nemotron_tpu_torch.audio.frontend import mel_full, process_many
 from nemotron_tpu_torch.ops import quant
 from nemotron_tpu_torch.ops.attn_block import (t1_attention_block,
                                                t1_attention_block_ref)
@@ -23,7 +23,8 @@ from nemotron_tpu_torch.ops.attn_kernel import (t1_attention_core,
 from nemotron_tpu_torch.ops.kvquant import QuantKV, quantize_kv
 from nemotron_tpu_torch.ops.mel import padded_window
 from nemotron_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_ref
-from nemotron_tpu_torch.params import params_to, quantize_encoder_layers
+from nemotron_tpu_torch.params import (QUANT_LAYER_FIELDS, params_to,
+                                      quantize_encoder_layers)
 from nemotron_tpu_torch.tools.gemm_turns import mel_exact, slaney_filterbank
 
 pytestmark = pytest.mark.gpu
@@ -1115,3 +1116,136 @@ def test_graph_recaptures_a_state_with_other_storage(cuda):
     stats = graphed.graphs.stats()
     assert stats["keys"] == 1 and stats["recaptures"] == 3
     assert stats["captures"] == 4 and stats["replays"] == 5
+
+
+def test_capture_survives_a_collected_graph(cuda):
+    """A graph cache left in a reference cycle (a dropped model's) is
+    freed by the cyclic collector, which may start at any allocation, and
+    so in the middle of another key's capture on the same thread, where a
+    graph's destruction invalidates the capture. Here the cycle becomes
+    garbage inside the capture, and the body then asks for a collection at
+    the next allocation: the capture still succeeds (the collector is
+    paused), and the replay is right."""
+    import gc
+
+    from nemotron_tpu_torch.graphs import GraphCache
+
+    x = torch.arange(4096, dtype=torch.float32, device=cuda)
+    doomed = []
+
+    def body(_state, a):
+        if doomed:  # the capture's call
+            doomed.clear()  # the old cache's last reference: garbage now
+            gc.set_threshold(1)  # a collection at the next allocation
+        junk = [[] for _ in range(64)]  # noqa: F841
+        return (a * 2.0 + 1.0,)
+
+    threshold = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(10 ** 6, 10 ** 6, 10 ** 6)  # none until the body's
+    try:
+        new = GraphCache()
+        new.run(("k",), 0, cuda, body, (), (x,))  # the warm-up
+        old = GraphCache()
+        for _ in range(2):
+            old.run(("old",), 0, cuda, lambda _s, a: (a - 1.0,), (), (x,))
+        assert old.stats()["captures"] == 1
+        old.cycle = old  # only the cyclic collector frees it
+        doomed.append(old)
+        del old
+        for _ in range(2):
+            out, = new.run(("k",), 0, cuda, body, (), (x,))
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert not doomed and torch.equal(out, x * 2.0 + 1.0)
+    assert new.stats()["captures"] == 1 and new.stats()["replays"] == 2
+
+
+OFFLINE_GRAPH_FORMS = ("f32", "bf16", "f32-q8", "f32-q4")
+
+
+@pytest.mark.parametrize("form", OFFLINE_GRAPH_FORMS)
+def test_graphed_offline_equals_eager(cuda, form):
+    """The offline path over three files, one past the segment cap (two
+    segments, both of one encoder key and one decode key), three times on
+    the graphed model and once eagerly: token ids, frames and texts equal,
+    the final decoder state bit-equal, each key captured once and replayed
+    after, and the third call's launches through the replays equal to the
+    eager call's (B4 or B5 once per quantized matrix per segment). The
+    eager model keeps no decode carry."""
+    dtype = torch.bfloat16 if form == "bf16" else torch.float32
+    graphed = ASRModel.random(_tiny_hp(), seed=1, dtype=dtype, device=cuda)
+    if "q" in form:
+        graphed.params = quantize_encoder_layers(graphed.params,
+                                                 bits=int(form[-1]))
+    eager = ASRModel(graphed.hp, graphed.params, graphed.tokenizer.vocab,
+                     device=cuda, graphs=False)
+    rng = np.random.default_rng(4)
+    audios = [(rng.standard_normal(n) * 3000).astype(np.int16)
+              for n in (7000, 96000, 12800)]
+    mels = process_many([eager._preprocessor() for _ in audios], audios)
+    kernels.reset_counts()
+    want, want_state = eager._transcribe_mels(mels, None)
+    torch.cuda.synchronize()
+    n_eager = _launches()
+    assert not eager._carries
+    for call in ("warm-up", "capture", "replay"):
+        kernels.reset_counts()
+        got, state = graphed._transcribe_mels(mels, None)
+        torch.cuda.synchronize()
+        assert got == want and all(ids for ids, _ in want), call
+        for f in ("h", "c", "prev_token", "frame_offset"):
+            assert torch.equal(getattr(state, f),
+                               getattr(want_state, f)), (call, f)
+        enc = [how for s in graphed.offline_stats
+               for key, how in s["graphs"].items() if key[0] == "batch"]
+        assert len(enc) == 2
+    assert enc == [{"calls": 1, "captures": 0, "replays": 1}] * 2
+    assert _launches() == n_eager
+    assert (graphed.transcribe_audios(audios, timestamp_words=True)
+            == eager.transcribe_audios(audios, timestamp_words=True))
+    # the quantized matrices (Q4_0 leaves d_ff = 96 dense), per segment
+    n_q = 2 * graphed.hp.n_layers * sum(
+        quant.is_quantized(getattr(graphed.params.layers, f))
+        for f in QUANT_LAYER_FIELDS)
+    assert n_eager["q8_matmul"] == (n_q if form == "f32-q8" else 0)
+    assert n_eager["q4_matmul"] == (n_q if form == "f32-q4" else 0)
+    stats = graphed.graphs.stats()
+    # both segments pad to the cap: one encoder key, one decode key
+    assert stats["keys"] == stats["captures"] == 2, stats
+    assert stats["recaptures"] == 0 and stats["replays"] > 6
+    graphed.drop_offline_graphs()
+    assert not graphed.graphs.entries and not graphed.graphs._pools
+
+
+def test_graphed_diarize_nets_equal_eager(cuda, tmp_path):
+    """The diarize nets through DiarizePipeline._run at the published
+    widths, graphed (one graph per net and bucket, three calls each) and
+    eager: probabilities and embeddings bit-equal, one capture per key;
+    the 30 s pipeline's segments and RTTM equal both ways."""
+    from chip_smoke import (_pipeline_run, diarize_signal,
+                            write_random_diarize_gguf)
+    from nemotron_tpu_torch.diarize.params import load_diarize_model
+    from nemotron_tpu_torch.diarize.pipeline import DiarizePipeline
+
+    path = str(tmp_path / "diarize.gguf")
+    write_random_diarize_gguf(path)
+    models = [load_diarize_model(path, device=cuda) for _ in range(2)]
+    models[1].graphs.enabled = False
+    pipes = [DiarizePipeline(m) for m in models]
+    sig = diarize_signal()
+    for name, n, count in (("vad", 10080, 16), ("spk", 24000, 4)):
+        w = np.stack([sig[i * 16000:i * 16000 + n] for i in range(count)])
+        lens = np.full(count, n, np.int32)
+        lens[1::2] = n * 2 // 3
+        fn = "_vad_fn" if name == "vad" else "_spk_fn"
+        for _ in range(3):
+            got, want = (getattr(p, fn)(w, lens) for p in pipes)
+            assert np.array_equal(got, want), name
+    stats = models[0].graphs.stats()
+    assert stats["keys"] == stats["captures"] == 2 and stats["replays"] == 4
+    (pg, rg), (pe, re_) = (_pipeline_run(m, sig) for m in models)
+    assert pg.segments == pe.segments and rg.rttm == re_.rttm
+    assert pg.n_segments and models[0].graphs.stats()["recaptures"] == 0

@@ -460,6 +460,37 @@ def test_other_storage_recaptures_its_key(monkeypatch):
     assert len(done) == 9  # the CPU runs the body eagerly
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_captures_pause_the_garbage_collector(enabled):
+    """The collector is off while any capture runs, nested or on two
+    threads at once, and back as it was once the last one ends."""
+    import gc
+    import threading
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        inner, seen = threading.Event(), []
+
+        def other():
+            with graphs_mod._gc_paused():
+                inner.set()
+                seen.append(gc.isenabled())
+
+        with graphs_mod._gc_paused():
+            with graphs_mod._gc_paused():
+                seen.append(gc.isenabled())
+            t = threading.Thread(target=other)
+            t.start()
+            inner.wait(5)
+            t.join(5)
+            seen.append(gc.isenabled())
+        assert seen == [False, False, False]
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_graph_turns_schedule_runs_every_tick_key():
     """tools/graph_turns.run_schedule, which phase 10 of chip_smoke.py and
     the GPU tests run graphed against eager: on the CPU both models run
