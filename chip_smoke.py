@@ -34,8 +34,11 @@ Phases, one line each, any failure exits non-zero:
              60 s files, 8 full segments), for the four (N, K) of the
              encoder's matrices (dense_ms: cuBLAS on the weight
              dequantized beforehand, its f32 FFMA product in f32; B5's
-             library_ms: torch._weight_int4pack_mm); B2 also at 1 x 16376
-             (one offline segment)
+             library_ms: torch._weight_int4pack_mm), each with the plan
+             ops/quant.py takes (in bf16 the route: the M <= 256 form
+             below gemm_plan's crossover, the large-M form from it; the
+             rows past 256 timed over 3 repeats, not 5); B2 also at 1 x
+             16376 (one offline segment)
   4 tick     full-width random model (Hparams() defaults), 4 streams x 10
              fused ticks (through the slack-buffer wrap) on the card vs the
              same ticks on the CPU: f32 and bf16 dense; the same with the
@@ -416,17 +419,20 @@ def phase_kernels(torch, report):
     ok = True
 
     def check(kname, case, got, want, tol, fn, plain, nbytes, ops, dname,
-              library=None, **extra_fns):
+              library=None, repeats=5, **extra_fns):
         nonlocal ok
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         good = bool(torch.isfinite(got).all()) and err <= tol
         ok &= good
         b_ms, b_by = bound(nbytes, ops, dname)
-        res = dict(max_abs_err=err, ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+        res = dict(max_abs_err=err, ms=cuda_ms(fn, repeats=repeats),
+                   plain_ms=cuda_ms(plain, repeats=repeats),
                    bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None if library is None else cuda_ms(library))
-        res.update({k: cuda_ms(f) for k, f in extra_fns.items()})
+                   library_ms=None if library is None else cuda_ms(
+                       library, repeats=repeats))
+        res.update({k: cuda_ms(f, repeats=repeats)
+                    for k, f in extra_fns.items()})
         log(f"[3 kernels] {kname} {case}: max|err| {err:.3e} (bound "
             f"{tol:.3g}) {'ok' if good else 'FAIL'}; kernel {res['ms']:.4f} "
             f"ms, plain {res['plain_ms']:.4f} ms, bound {b_ms:.5f} ms "
@@ -541,12 +547,19 @@ def phase_kernels(torch, report):
                             f"_weight_int4pack_mm max|diff| to the plain "
                             f"version {float((lib(x).float() - want.float()).abs().max()):.3e} "
                             f"(max|y| {float(want.float().abs().max()):.3g})")
+                    plan = (quant.gemm_plan(m, n, k, bits, sms)
+                            if dname == "bf16" else
+                            quant.f32_plan(m, n, k, sms))
+                    log(f"[3 kernels] {kname} {dname} M={m} N={n} K={k}: "
+                        f"plan {plan}")
+                    # the rows of many streams: 3 repeats, not 5
                     res = check(
                         kname, f"{dname} M={m} N={n} K={k}", fn(x, qt), want,
                         GEMM_REL[dname] * float(want.abs().max()),
                         lambda x=x: fn(x, qt), lambda x=x: ref(x, qt),
                         tensor_bytes(codes, qt.scales, x, want),
                         2.0 * m * n * k, dname, library,
+                        repeats=5 if m <= 256 else 3,
                         dense_ms=lambda x=x, w=w_dense: torch.matmul(x, w.T))
                     if (m, n, k, dname) == (256, 4096, 1024, "bf16"):
                         report[kname].update(res)

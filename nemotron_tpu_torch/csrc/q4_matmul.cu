@@ -15,11 +15,15 @@
 // N*K/8 bytes of scales). The bf16 export runs wq_gemm_sm90.cuh: each
 // pipeline step loads 64 packed columns and the two x tiles they pair with
 // (columns j.. and K/2 + j..), so a packed byte is read once per batch
-// tile of 64-128 rows; its header has the design. With f32 x the flops
+// tile of 64-128 rows; its header has the design. The calls of many rows
+// take the large-M form of wq_gemm_large.cuh from gemm_plan's crossover,
+// as B4's: pass 1 unpacks both nibbles of each packed byte once into the
+// bf16 weight. With f32 x the flops
 // bind on the CUDA cores (67 TFLOP/s, full f32 FFMA) as for B4: the f32
 // export runs wq_matmul.cuh's FFMA body, B4's design with the nibble
 // loader below (each code dequantized once per block).
 
+#include "wq_gemm_large.cuh"
 #include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
 
@@ -67,4 +71,15 @@ extern "C" int q4_matmul_bf16(const void* x, const void* w,
                               int steps_per, void* stream) {
   return wq::launch_sm90<true>(x, w, scales, y, ws, M, N, K, m_tile, splits,
                                steps_per, stream);
+}
+
+// x, the codes, scales, y, bf16 scratch of the dequantized weight [N, K],
+// M, N, K (unpacked), then the large-M plan (ops/quant.py:gemm_plan): the
+// weight-row tile and the persistent blocks; stream
+extern "C" int q4_matmul_bf16_large(const void* x, const void* w,
+                                    const void* scales, void* y, void* wbuf,
+                                    int M, int N, int K, int bn, int blocks,
+                                    void* stream) {
+  return wq::launch_large<true>(x, w, scales, y, wbuf, M, N, K, bn, blocks,
+                                stream);
 }

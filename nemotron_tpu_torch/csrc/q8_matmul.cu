@@ -13,14 +13,21 @@
 // us for 4M weights at 3.35 TB/s). The bf16 export runs wq_gemm_sm90.cuh:
 // wgmma with the streams as its N, a TMA ring, every code dequantized once
 // per batch tile of 64-128 rows, split-K for narrow N; its header has the
-// design. With f32 x the flops bind from M ~ 16 up on the CUDA cores (67
-// TFLOP/s, full f32 FFMA: 32 us for 4M weights at M = 256): the f32 export
-// runs wq_matmul.cuh's FFMA body, 128 x 128 (or 64 x 128) output tiles with
+// design. The calls of many rows (M = B x chunk_len past right context 0,
+// B x T' offline: 512 to 16,384) bind on the flops (0.139 ms at 16,384 and
+// (4096, 1024)), and there the swap form re-reads and re-dequantizes each
+// code tile once per 128 rows: from gemm_plan's crossover they take the
+// large-M form of wq_gemm_large.cuh, the weight dequantized once to bf16
+// and a persistent, warp-specialised wgmma GEMM on 128 x 256 tiles. With
+// f32 x the flops bind from M ~ 16 up on the CUDA cores (67 TFLOP/s, full
+// f32 FFMA: 32 us for 4M weights at M = 256): the f32 export runs
+// wq_matmul.cuh's FFMA body, 128 x 128 (or 64 x 128) output tiles with
 // 8 x 8 (4 x 8) outputs per thread, a two-stage register-staged ring, each
 // code dequantized once per block, and split-K summed in split order by the
 // tile's last block (plan: ops/quant.py:f32_plan); its header has the
 // design.
 
+#include "wq_gemm_large.cuh"
 #include "wq_gemm_sm90.cuh"
 #include "wq_matmul.cuh"
 
@@ -62,4 +69,15 @@ extern "C" int q8_matmul_bf16(const void* x, const void* w,
                               int steps_per, void* stream) {
   return wq::launch_sm90<false>(x, w, scales, y, ws, M, N, K, m_tile, splits,
                                 steps_per, stream);
+}
+
+// x, the codes, scales, y, bf16 scratch of the dequantized weight [N, K],
+// M, N, K, then the large-M plan (ops/quant.py:gemm_plan): the
+// weight-row tile and the persistent blocks; stream
+extern "C" int q8_matmul_bf16_large(const void* x, const void* w,
+                                    const void* scales, void* y, void* wbuf,
+                                    int M, int N, int K, int bn, int blocks,
+                                    void* stream) {
+  return wq::launch_large<false>(x, w, scales, y, wbuf, M, N, K, bn, blocks,
+                                stream);
 }

@@ -16,6 +16,10 @@
 // N*K/8 bytes of f32 scales), x (2*M*K bytes) and y (2*M*N), and does 2*M*N*K
 // flops. At M = 256 the flops bind (2.2 us at 989 TFLOP/s for (4096, 1024),
 // against 1.4 us of bytes at 3.35 TB/s); below M ~ 100 the bytes bind.
+// From ops/quant.py:gemm_plan's crossover (M >= 1,024: the right-context
+// ticks' and the offline path's rows) B4/B5 run wq_gemm_large.cuh instead:
+// there this body's re-reads and re-dequantizations per 128 rows bound it
+// (PERF.md).
 //
 // Design (what the earlier body, wq_matmul.cuh's gemm_bf16, lacked):
 //   * Swapped operands. The block computes y^T = W . x^T on wgmma: 64 weight

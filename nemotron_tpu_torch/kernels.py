@@ -73,6 +73,11 @@ _SIGNATURES = {
     # (ops/quant.py:gemm_plan): m_tile, splits, steps per split; stream
     "q8_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
     "q4_matmul_bf16": [_P] * 5 + [_I] * 6 + [_P],
+    # x, weight codes, scales, y, the dequantized weight's bf16 scratch, M,
+    # N, K, then the large-M plan (ops/quant.py:gemm_plan): weight-row
+    # tile, persistent blocks; stream
+    "q8_matmul_bf16_large": [_P] * 5 + [_I] * 5 + [_P],
+    "q4_matmul_bf16_large": [_P] * 5 + [_I] * 5 + [_P],
     # x, ln_w, ln_b, q_w, k_w, v_w, out_w, bias_u, bias_v, pp, mask, k_buf,
     # v_buf, out, k_new, v_new, qkv scratch, ctx scratch, (f32, else null)
     # LN statistics, the out projection's split-K workspace and tile

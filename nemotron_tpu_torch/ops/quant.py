@@ -1,10 +1,13 @@
 """Weight-only Q8_0 / Q4_0 linears: the CUDA kernels `csrc/q8_matmul.cu`
 (B4) and `csrc/q4_matmul.cu` (B5) and their plain PyTorch versions (port of
-nemotron_tpu/ops/quant.py). With bf16 activations the kernels run the
-Hopper body `csrc/wq_gemm_sm90.cuh` on the plan of `gemm_plan` (batch
-tiles, split-K), which sizes the f32 workspace of the splits; with f32
-activations they run the FFMA body `csrc/wq_matmul.cuh` on the plan of
-`f32_plan`, whose splits the kernel sums itself (`f32_scratch`).
+nemotron_tpu/ops/quant.py). With bf16 activations `gemm_plan` picks the
+form by shape: below LARGE_MIN_M rows of x the Hopper body
+`csrc/wq_gemm_sm90.cuh` on the plan of `swap_plan` (batch tiles, split-K),
+which sizes the f32 workspace of the splits; from there the large-M form
+`csrc/wq_gemm_large.cuh` on the plan of `large_plan` (the weight
+dequantized once into bf16 scratch, then a persistent wgmma GEMM). With
+f32 activations they run the FFMA body `csrc/wq_matmul.cuh` on the plan
+of `f32_plan`, whose splits the kernel sums itself (`f32_scratch`).
 
 A Q8_0 weight is (w_i8 [..., out, in] int8, scales [..., out, in/32] f32):
 element (n, k) is w_i8[n, k] * scales[n, k // 32]. A Q4_0 weight keeps the
@@ -180,13 +183,13 @@ class GemmPlan:
         return out
 
 
-def gemm_plan(m: int, n: int, k: int, bits: int, sms: int) -> GemmPlan:
-    """The plan of one bf16 B4 (bits 8) / B5 (bits 4) call on a card with
-    `sms` SMs, toward one block per SM: the batch is cut into tiles of at
-    most 128 rows, and into more tiles of at least 64 rows while the
-    blocks still fit the SMs (a second read of a code tile comes from L2;
-    f32 partials of split-K cost more); then K is split where SMs are
-    still idle, at least GEMM_MIN_STEPS steps per split."""
+def swap_plan(m: int, n: int, k: int, bits: int, sms: int) -> GemmPlan:
+    """The M <= 256 form of one bf16 B4 (bits 8) / B5 (bits 4) call on a
+    card with `sms` SMs, toward one block per SM: the batch is cut into
+    tiles of at most 128 rows, and into more tiles of at least 64 rows
+    while the blocks still fit the SMs (a second read of a code tile comes
+    from L2; f32 partials of split-K cost more); then K is split where SMs
+    are still idle, at least GEMM_MIN_STEPS steps per split."""
     blocks_n = -(-n // GEMM_ROWS)
     tiles_m = -(-m // GEMM_M_TILES[-1])
     while tiles_m < m // GEMM_MIN_ROWS and blocks_n * (tiles_m + 1) <= sms:
@@ -197,6 +200,78 @@ def gemm_plan(m: int, n: int, k: int, bits: int, sms: int) -> GemmPlan:
     want = max(1, sms // (blocks_n * tiles_m))
     steps_per = min(steps, max(GEMM_MIN_STEPS, -(-steps // want)))
     return GemmPlan(m_tile, tiles_m, -(-steps // steps_per), steps, steps_per)
+
+
+# The large-M form of the bf16 body (csrc/wq_gemm_large.cuh): the weight
+# dequantized once to bf16, then persistent blocks (at most one per SM)
+# over output tiles of LARGE_ROWS x rows by one of LARGE_BN weight rows, K
+# in steps of GEMM_STEP columns.
+LARGE_ROWS = 128
+LARGE_BN = (256, 128)
+# gemm_plan's crossover: the large-M form from this many rows of x on
+# (tools/gemm_turns.py --plans, NVIDIA H100 80GB HBM3: at 512 rows the M <=
+# 256 form is as fast or faster at every (N, K); at 769 the large-M form
+# wins at every Q8_0 (N, K) and loses at three of Q4_0's; from 1,792 it
+# wins at all but Q4_0's (1024, 4096))
+LARGE_MIN_M = 1024
+# the cost of a 128 x bn tile in units of its bn weight rows, plus this
+# many for its fixed cost (fill, epilogue): a 128-wide tile measured 0.72
+# of a 256-wide one's time
+LARGE_TILE_FIXED = 200
+
+
+@dataclasses.dataclass(frozen=True)
+class LargePlan:
+    """How the large-M form covers one call: tiles_m x tiles_n output tiles
+    of LARGE_ROWS x bn, walked by `blocks` persistent blocks (block b takes
+    tiles b, b + blocks, ...; tile t at x rows (t // tiles_n) * LARGE_ROWS
+    and weight rows (t % tiles_n) * bn), each over all `steps` steps of
+    GEMM_STEP columns of K: no split of K."""
+    bn: int
+    tiles_m: int
+    tiles_n: int
+    blocks: int
+    steps: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    def block_tiles(self, b: int) -> list[tuple[int, int]]:
+        """(first x row, first weight row) of each tile of block b, in the
+        order the block takes them."""
+        return [((t // self.tiles_n) * LARGE_ROWS,
+                 (t % self.tiles_n) * self.bn)
+                for t in range(b, self.tiles, self.blocks)]
+
+
+def _large_cost(m: int, n: int, bn: int, sms: int) -> float:
+    tiles = -(-m // LARGE_ROWS) * -(-n // bn)
+    return -(-tiles // sms) * (bn + LARGE_TILE_FIXED)
+
+
+def large_plan(m: int, n: int, k: int, sms: int,
+               bn: int | None = None) -> LargePlan:
+    """The large-M form's plan (of `bn` weight rows per tile, or of the
+    LARGE_BN width of least modelled time: waves of one tile per SM, each
+    tile's weight rows plus LARGE_TILE_FIXED; ties to the wider tile), one
+    block per SM or per tile, the fewer."""
+    if bn is None:
+        bn = min(LARGE_BN, key=lambda b: (_large_cost(m, n, b, sms), -b))
+    tiles_m, tiles_n = -(-m // LARGE_ROWS), -(-n // bn)
+    return LargePlan(bn, tiles_m, tiles_n, min(sms, tiles_m * tiles_n),
+                     -(-k // GEMM_STEP))
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_plan(m: int, n: int, k: int, bits: int, sms: int):
+    """The plan of one bf16 B4 (bits 8) / B5 (bits 4) call on a card with
+    `sms` SMs, by shape alone: from LARGE_MIN_M rows of x on (N % 8 == 0)
+    the large-M form (large_plan), below them the M <= 256 form
+    (swap_plan)."""
+    if m >= LARGE_MIN_M and n % 8 == 0:
+        return large_plan(m, n, k, sms)
+    return swap_plan(m, n, k, bits, sms)
 
 
 # The f32 body (csrc/wq_matmul.cuh): blocks of F32_ROWS weight rows (output
@@ -238,10 +313,13 @@ class F32Plan:
 # The plan's cost model, fitted to the body's times over (batch tile,
 # splits) at the encoder's shapes (tools/gemm_turns.py --plans, NVIDIA
 # H100 80GB HBM3): a block's time is its steps x its batch rows (64-row
-# tiles F32_COST_64 dearer per row: 4 x 8 outputs per thread), and each
+# tiles F32_COST_64 dearer per row: 4 x 8 outputs per thread; where the
+# tiles take more than one wave of the SMs, as at the right-context and
+# offline rows, F32_COST_64_WAVES, fitted at M = 1,792 to 16,384), and each
 # extra split adds F32_COST_SPLIT (in 128-row step units) for its
 # partial's write and read.
 F32_COST_64 = 1.1
+F32_COST_64_WAVES = 1.25
 F32_COST_SPLIT = 11.7
 F32_MAX_SPLITS = 16
 
@@ -251,7 +329,9 @@ def _f32_cost(m: int, n: int, steps: int, bm: int, steps_per: int,
     tiles = -(-m // bm) * -(-n // F32_ROWS)
     splits = -(-steps // steps_per)
     waves = -(-tiles // sms)  # splits only where the tiles leave SMs
-    return (waves * steps_per * bm * (F32_COST_64 if bm == 64 else 1.0)
+    per_row = 1.0 if bm != 64 else (F32_COST_64 if waves == 1
+                                     else F32_COST_64_WAVES)
+    return (waves * steps_per * bm * per_row
             + F32_COST_SPLIT * (splits - 1) * bm / 128)
 
 
@@ -325,8 +405,9 @@ def _sm_count(device) -> int:
 
 def _launch(kernel, prefix, x, w, scales, n, k, k_multiple, bits):
     """Shared wrapper of B4 / B5: checks, then one launch over x [M, K]
-    (bf16: on the plan of gemm_plan, with its f32 workspace; f32: on the
-    plan of f32_plan, with its workspace and tile counters)."""
+    (bf16: on the plan of gemm_plan, the M <= 256 form with its f32
+    workspace or the large-M form with its bf16 weight scratch; f32: on
+    the plan of f32_plan, with its workspace and tile counters)."""
     name = kernel.name
     if x.dtype not in _SYMBOL:
         raise ValueError(f"{name}: unsupported activation dtype {x.dtype}")
@@ -362,6 +443,11 @@ def _launch(kernel, prefix, x, w, scales, n, k, k_multiple, bits):
                       plan.bm, plan.splits, plan.steps_per)
     else:
         plan = gemm_plan(m, n, k, bits, _sm_count(x.device))
+        if isinstance(plan, LargePlan):
+            wbuf = torch.empty((n, k), dtype=torch.bfloat16, device=x.device)
+            kernel.launch(f"{prefix}_bf16_large", *ptrs, wbuf.data_ptr(), m,
+                          n, k, plan.bn, plan.blocks)
+            return out.reshape(*lead, n)
         ws = (torch.empty((plan.splits, m, n), dtype=torch.float32,
                           device=x.device) if plan.splits > 1 else None)
         kernel.launch(f"{prefix}_bf16", *ptrs,

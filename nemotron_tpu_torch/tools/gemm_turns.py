@@ -9,7 +9,8 @@ the order given, e.g. parent, change, change, parent.
     python3 nemotron_tpu_torch/tools/gemm_turns.py \\
         --tree parent=_archive/parent --tree change=. \\
         --tree change=. --tree parent=_archive/parent \\
-        [--only b1 --only b3 --only b4b5 --only mel --only tick] [--probe]
+        [--only b1 --only b3 --only b4b5 --only mel --only tick
+         --only e2e] [--probe[=f32|gemm|large]] [--plans]
 
 Per tree and case: device ms per call (CUDA events around 50 calls behind
 a device spin, median of 7). B1 and B3 at chip_smoke.py phase 3's shapes:
@@ -18,30 +19,40 @@ and int8 caches, random validity windows with garbage in the dead slots.
 B4 / B5 also give `dense_ms`, torch.matmul of x and the weight dequantized
 to x's type beforehand (cuBLAS's dense product of the same shape; in f32
 its FFMA product, TF32 off), at the main path's (N, K) and M in {32, 141,
-256} in bf16, M in {141, 256} in f32. `tick`: host ms of one all-active
+256} in bf16, M in {141, 256} in f32, and in both at the rows of many
+streams, LARGE_ROWS: a B=256 tick at right context 1 / 6 / 13 (512,
+1,792, 3,584) and the offline path's (769, 6,152, 16,384); each row with
+its bytes, bound and the tree's plan. `tick`: host ms of one all-active
 fused tick at full width and B=256 (random weights from seed 0; the tick
 synchronised before and after, median of 48 after 8 warm-up ticks) in bf16,
 in f32, bf16 and bf16 with int8 K/V through the attention block, and in
-f32 with Q8_0 encoder weights (B4 in f32) and int8 K/V. `mel`: B2 at
+f32 with Q8_0 encoder weights (B4 in f32) and int8 K/V. `e2e`: bf16 Q8_0
+graphed end to end (e2e_rows: offline B=8 x 60 s, the B=256 int8-K/V
+tick at right context 13 and 0; host time and device busy). `mel`: B2 at
 the shapes its paths run (MEL_SHAPES: B x frames 256 x 8, the tick's
 headline, to 1 x 16,376, one offline segment), 128 mels, white noise, with the dense uniform filterbank of random_params and
 a slaney one (`slaney_filterbank`), each beside
 `rfft_ms`: torch.fft.rfft of the unfolded windowed frames, the power, the
 filterbank by torch.matmul and the log (cuFFT; a yardstick, not called by
-the port). `--only` picks the groups (all five by default). `--profile`
+the port). `--only` picks the groups (all six by default). `--profile`
 adds each of B3's launches' device us. `--probe` then times the change's B1 built as
 measurement variants (T1_PROBE: without the scores and context, without
 the copies), its B4 / B5 as measurement variants of
 csrc/wq_gemm_sm90.cuh (WQ_SM90_PROBE: without the dequantization, without
-the wgmma, without both; WQ_SM90_MAX_STAGES: a deeper ring), each on
-ops/quant.py:gemm_plan's plan, with one more case of a single pipeline
+the wgmma, without both; WQ_SM90_MAX_STAGES: a deeper ring) and of
+csrc/wq_gemm_large.cuh (WQ_LARGE_PROBE: without the epilogue's stores,
+without the wgmma, without both), each on ops/quant.py:gemm_plan's plan,
+with one more case of a single pipeline
 step (K = 64) for the fixed cost of a call, and its B3 and B4 / B5 with
 the f32 body csrc/wq_matmul.cuh built as WQ_F32_PROBE variants (without
 the staging of later steps; without all but one column of math);
-`--probe=f32` builds the last two only. Their
+`--probe=f32` builds the last two only, `--probe=gemm` the B4 / B5 bodies'
+without the deeper rings, `--probe=large` the large-M form's only. Their
 outputs are not the function's. `--plans` adds the change's f32 B4 at
 every plan ops/quant.py:f32_plan weighs (batch tile x splits within one
-wave), the data its cost model is fitted to, and with `mel` B2 at every
+wave), the data its cost model is fitted to, the change's bf16 B4 / B5 at
+each of LARGE_ROWS in every form gemm_plan picks from (form_rows: the
+data of its crossover and tile choice), and with `mel` B2 at every
 tile ops/mel_kernel.py:mel_plan picks from. Prints one line per case;
 `--json PATH` also writes all of it there as JSON.
 """
@@ -59,10 +70,16 @@ from pathlib import Path
 
 import numpy as np
 
-GROUPS = ("b1", "b3", "b4b5", "mel", "tick")
+GROUPS = ("b1", "b3", "b4b5", "mel", "tick", "e2e")
 SHAPES = ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024))
-BATCHES = (32, 141, 256)
-F32_BATCHES = (141, 256)
+# B4 / B5 rows: the R=0 tick's (B = 32, 141, 256), a B=256 tick's at right
+# context 1 / 6 / 13 (chip_smoke.RC_ROWS), the offline path's (one and
+# eight 60 s files, eight full segments: chip_smoke.OFFLINE_ROWS)
+LARGE_ROWS = (512, 1792, 3584, 769, 6152, 16384)
+BATCHES = (32, 141, 256) + LARGE_ROWS
+F32_BATCHES = (141, 256) + LARGE_ROWS
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def cuda_ms(torch, fn, launches: int = 50, repeats: int = 7) -> float:
@@ -92,6 +109,9 @@ PROBES = (
     ("probe: 8 stages", ("-DWQ_SM90_MAX_STAGES=8",)),
     ("probe: 8 stages, neither",
      ("-DWQ_SM90_MAX_STAGES=8", "-DWQ_SM90_PROBE=3")),
+    ("probe: large, no stores", ("-DWQ_LARGE_PROBE=1",)),
+    ("probe: large, no wgmma", ("-DWQ_LARGE_PROBE=2",)),
+    ("probe: large, neither", ("-DWQ_LARGE_PROBE=3",)),
 )
 # measurement variants of the change's f32 body (B3, B4 / B5 in f32)
 F32_PROBES = (
@@ -337,6 +357,65 @@ def tick_rows(torch) -> list:
     return rows
 
 
+E2E_FILES, E2E_SECS = 8, 60  # the offline batch: 8 files of 60 s
+
+
+def e2e_rows(torch) -> list:
+    """End to end with Q8_0 encoder matrices in bf16 (B4 at the paths'
+    rows), graphed, at full width on chip_smoke.py's random model (seed
+    0): one transcribe_audios call on E2E_FILES x E2E_SECS s files (the
+    blank bias at chip_smoke.OFFLINE_BIAS; B4 at M = 8 x 769), host s
+    (median of 3 after a warm-up and a capture call) and device busy s
+    (one profiled call); and an all-active B=256 tick with int8 K/V at
+    right context 13 (M = 3,584) and 0 (M = 256), host ms (median) and
+    device busy ms per tick (chip_smoke.tick_row)."""
+    import time
+
+    import chip_smoke as cs
+    from nemotron_tpu_torch import Hparams
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import params_to, quantize_encoder_layers
+
+    cpu = ASRModel.random(Hparams(), seed=cs.SEED, device="cpu")
+    cpu.params.joint.out_b[cpu.hp.blank_id] += cs.BLANK_BIAS
+    hp, vocab = cpu.hp, cpu.tokenizer.vocab
+    q8 = params_to(quantize_encoder_layers(cpu.params, bits=8), "cuda",
+                   torch.bfloat16)
+    rows = []
+    model = cs.offline_model(ASRModel(hp, q8, vocab, device="cuda"),
+                             cs.OFFLINE_BIAS)
+    audios = list(cs.stream_audio(E2E_FILES, E2E_SECS * 16000, cs.SEED + 10))
+    for _ in range(2):
+        model.transcribe_audios(audios)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.transcribe_audios(audios)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prof = cs.profile_rows(torch, lambda: model.transcribe_audios(audios),
+                           n=1, warmup=0)
+    host = statistics.median(times)
+    rows.append(dict(kernel="e2e", case=f"offline bf16 Q8_0 B={E2E_FILES} x "
+                     f"{E2E_SECS} s graphed", ms=host * 1e3,
+                     busy_ms=None if prof is None else prof[0],
+                     audio_s_per_s=E2E_FILES * E2E_SECS / host))
+    model.drop_offline_graphs()
+    del model
+    torch.cuda.empty_cache()
+    for mode in (13, 0):
+        model = ASRModel(hp, q8, vocab, device="cuda", kv_int8=True)
+        ms, prof = cs.tick_row(torch, model, TICK_B, mode,
+                               *((6, 3) if mode else (16, 4)))
+        rows.append(dict(kernel="e2e", case=f"tick bf16 Q8_0 int8-KV "
+                         f"B={TICK_B} R={mode} graphed", ms=ms,
+                         busy_ms=None if prof is None else prof[0]))
+        del model
+        torch.cuda.empty_cache()
+    return rows
+
+
 def attn_rows(torch, dev, rng, b3: bool, profile: bool = False):
     """B1 (and with b3 B3) at phase 3's shapes: one row per case; with
     `profile`, B3's rows also carry each of its launches' device us."""
@@ -419,11 +498,99 @@ def plan_rows(torch, dev, rng, sms) -> list:
     return rows
 
 
-def child(tree: str, flags: list[str], probe: bool, only: list[str],
+def form_rows(torch, dev, rng, sms) -> list:
+    """bf16 B4 / B5 at each of LARGE_ROWS and the main path's (N, K) in
+    every form ops/quant.py:gemm_plan chooses between: the M <= 256 form
+    (swap_plan) and the large-M form at each weight-row tile (large_plan,
+    LARGE_BN), each held against the plain version (max |diff| / max |y|)
+    and, for the large-M form, each launch's device us (torch.profiler):
+    the data its crossover and tile choice are fitted to."""
+    from nemotron_tpu_torch import kernels
+    from nemotron_tpu_torch.ops import quant
+
+    rows = []
+    for bits in (8, 4):
+        qz = quant.quantize_q8 if bits == 8 else quant.quantize_q4
+        ref = quant.linear_q8_ref if bits == 8 else quant.linear_q4_ref
+        kern = kernels.Q8_MATMUL if bits == 8 else kernels.Q4_MATMUL
+        prefix = f"q{bits}_matmul"
+        for n, k in SHAPES:
+            qt = qz((rng.standard_normal((n, k)) / np.sqrt(k)).astype(
+                np.float32)).to(dev)
+            codes = qt.w_i8 if bits == 8 else qt.w_packed
+            for m in LARGE_ROWS:
+                x = torch.tensor(rng.standard_normal((m, k)).astype(
+                    np.float32), device=dev).to(torch.bfloat16)
+                y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+                want = ref(x, qt).float()
+                ptrs = (x.data_ptr(), codes.data_ptr(), qt.scales.data_ptr(),
+                        y.data_ptr())
+                chosen = quant.gemm_plan(m, n, k, bits, sms)
+                plans = [quant.swap_plan(m, n, k, bits, sms)] + [
+                    quant.large_plan(m, n, k, sms, bn)
+                    for bn in quant.LARGE_BN]
+                for p in plans:
+                    if isinstance(p, quant.LargePlan):
+                        wbuf = torch.empty((n, k), dtype=torch.bfloat16,
+                                           device=dev)
+
+                        def fn(p=p, wbuf=wbuf):
+                            kern.launch(f"{prefix}_bf16_large", *ptrs,
+                                        wbuf.data_ptr(), m, n, k, p.bn,
+                                        p.blocks)
+                        form = f"large bn {p.bn} blocks {p.blocks}"
+                    else:
+                        ws = (torch.empty((p.splits, m, n),
+                                          dtype=torch.float32, device=dev)
+                              if p.splits > 1 else None)
+
+                        def fn(p=p, ws=ws):
+                            kern.launch(f"{prefix}_bf16", *ptrs,
+                                        0 if ws is None else ws.data_ptr(),
+                                        m, n, k, p.m_tile, p.splits,
+                                        p.steps_per)
+                        form = (f"swap m_tile {p.m_tile} splits {p.splits}")
+                    y.zero_()
+                    fn()
+                    torch.cuda.synchronize()
+                    err = float((y.float() - want).abs().max()
+                                / want.abs().max())
+                    row = dict(kernel=f"{prefix} form", bits=bits, m=m, n=n,
+                               k=k, form=form, chosen=p == chosen,
+                               rel_err=err, ms=cuda_ms(torch, fn))
+                    if isinstance(p, quant.LargePlan):
+                        row["launch_us"] = launch_us(torch, fn)
+                    rows.append(row)
+    return rows
+
+
+def gemm_work(quant, bits: int, dtype, m: int, n: int, k: int,
+              sms: int) -> dict:
+    """The least bytes a B4 / B5 call moves (codes, scales, x and y, each
+    once), its operations, its bound on an H100 SXM, and the plan the
+    tree's ops/quant.py takes for it (as a dict: its fields are the
+    tree's own)."""
+    import dataclasses
+
+    esize = 2 if str(dtype).endswith("bfloat16") else 4
+    nbytes = (n * k * bits // 8 + n * k // 8 + esize * m * (k + n))
+    ops = 2.0 * m * n * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[str(dtype)[6:]] * 1e3
+    plan = (quant.gemm_plan(m, n, k, bits, sms) if esize == 2
+            else quant.f32_plan(m, n, k, sms))
+    return dict(bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                plan=dataclasses.asdict(plan))
+
+
+def child(tree: str, flags: list[str], probe: str | None, only: list[str],
           profile: bool = False, plans: bool = False) -> None:
     """Runs inside `tree`: times its kernels of the groups `only`, built
-    with the extra nvcc `flags`, and prints one JSON line. A B4/B5 probe's
-    rows carry the plan, and it adds the single-step case."""
+    with the extra nvcc `flags`, and prints one JSON line. Each B4/B5 row
+    carries its plan, bytes and bound; a probe build of the bf16 body
+    (`probe` "bf16") times bf16 x only and adds the single-step case, one
+    of the f32 body ("f32") f32 x only."""
     sys.path.insert(0, tree)
     import torch
 
@@ -436,7 +603,9 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
     rng = np.random.default_rng(0)
     rows = []
     if plans:
-        rows = plan_rows(torch, dev, rng, sms) if "b4b5" in only else []
+        rows = (plan_rows(torch, dev, rng, sms) + form_rows(torch, dev, rng,
+                                                            sms)
+                if "b4b5" in only else [])
         if "mel" in only:
             rows += mel_rows(torch, dev, rng, plans=True)
         print(json.dumps({"rows": rows}))
@@ -445,15 +614,18 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
         rows += [r for r in attn_rows(torch, dev, rng, "b3" in only, profile)
                  if {"t1_attention": "b1", "t1_attention_block": "b3"}[
                      r["kernel"]] in only]
+    forms = {"bf16": ((torch.bfloat16, BATCHES),),
+             "f32": ((torch.float32, F32_BATCHES),)}.get(
+                 probe, ((torch.bfloat16, BATCHES),
+                         (torch.float32, F32_BATCHES)))
     for bits in ((8, 4) if "b4b5" in only else ()):
         qz = quant.quantize_q8 if bits == 8 else quant.quantize_q4
         fn = quant.linear_q8 if bits == 8 else quant.linear_q4
         deq = quant.dequantize if bits == 8 else quant.dequantize_q4
-        for n, k in SHAPES + ((ONE_STEP,) if probe else ()):
+        for n, k in SHAPES + ((ONE_STEP,) if probe == "bf16" else ()):
             qt = qz((rng.standard_normal((n, k)) / np.sqrt(k)).astype(
                 np.float32)).to(dev)
-            for dtype, batches in ((torch.bfloat16, BATCHES),
-                                   (torch.float32, F32_BATCHES)):
+            for dtype, batches in forms:
                 wt = deq(qt, dtype)  # [N, K] in x's type, once
                 for m in batches:
                     x = torch.tensor(rng.standard_normal((m, k)).astype(
@@ -462,16 +634,15 @@ def child(tree: str, flags: list[str], probe: bool, only: list[str],
                                dtype=str(dtype)[6:], m=m, n=n, k=k,
                                ms=cuda_ms(torch, lambda: fn(x, qt)),
                                dense_ms=cuda_ms(
-                                   torch, lambda: torch.matmul(x, wt.T)))
-                    if probe and dtype == torch.bfloat16:
-                        p = quant.gemm_plan(m, n, k, bits, sms)
-                        row.update(m_tile=p.m_tile, splits=p.splits,
-                                   steps_per=p.steps_per)
+                                   torch, lambda: torch.matmul(x, wt.T)),
+                               **gemm_work(quant, bits, dtype, m, n, k, sms))
                     rows.append(row)
     if "mel" in only:
         rows += mel_rows(torch, dev, rng)
     if "tick" in only:
         rows += tick_rows(torch)
+    if "e2e" in only:
+        rows += e2e_rows(torch)
     print(json.dumps({"rows": rows}))
 
 
@@ -479,9 +650,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[],
                     help="label=path, in the order to run")
-    ap.add_argument("--probe", nargs="?", const="all", choices=("all", "f32"),
+    ap.add_argument("--probe", nargs="?", const="all",
+                    choices=("all", "f32", "gemm", "large"),
                     help="also time measurement builds of B1 and B4/B5 "
-                    "(all), or of the f32 body only (f32)")
+                    "(all), of the f32 body only (f32), of B4/B5's bodies "
+                    "without the deeper rings (gemm), or of the large-M "
+                    "form only (large)")
     ap.add_argument("--only", action="append", choices=GROUPS,
                     help="kernel groups to time (default: all)")
     ap.add_argument("--profile", action="store_true",
@@ -494,7 +668,7 @@ def main(argv=None) -> int:
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--flag", action="append", default=[],
                     help=argparse.SUPPRESS)
-    ap.add_argument("--child-probe", action="store_true",
+    ap.add_argument("--child-probe", choices=("bf16", "f32"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = args.only or list(GROUPS)
@@ -512,9 +686,14 @@ def main(argv=None) -> int:
     change = next((r[1] for r in runs if r[0] == "change"), None)
     if args.probe == "all" and change and "b1" in only:
         runs += [(label, change, flags, ("b1",)) for label, flags in B1_PROBES]
-    if args.probe == "all" and change and "b4b5" in only:
-        runs += [(label, change, flags, ("b4b5",)) for label, flags in PROBES]
-    if args.probe and change and ("b3" in only or "b4b5" in only):
+    if args.probe in ("all", "gemm", "large") and change and "b4b5" in only:
+        keep = {"all": lambda f: True,
+                "gemm": lambda f: "STAGES" not in f and "LARGE" not in f,
+                "large": lambda f: "LARGE" in f}[args.probe]
+        runs += [(label, change, flags, ("b4b5",)) for label, flags in PROBES
+                 if keep(str(flags))]
+    if args.probe in ("all", "f32", "gemm") and change and (
+            "b3" in only or "b4b5" in only):
         runs += [(label, change, flags, tuple(g for g in ("b3", "b4b5")
                                               if g in only))
                  for label, flags in F32_PROBES]
@@ -529,7 +708,10 @@ def main(argv=None) -> int:
         elif probe is not None:  # a probe build times its groups
             cmd += [f"--only={g}" for g in probe]
             cmd += [f"--flag={f}" for f in flags]
-            cmd += ["--child-probe"] if probe == ("b4b5",) else []
+            if "b4b5" in probe:
+                cmd += ["--child-probe="
+                        + ("f32" if "-DWQ_F32_PROBE" in str(flags)
+                           else "bf16")]
             cmd += ["--profile"] if "b3" in probe and args.profile else []
         else:
             cmd += [f"--only={g}" for g in only]
@@ -543,6 +725,16 @@ def main(argv=None) -> int:
         out.append(dict(label=label, path=path, flags=list(flags or ()),
                         **got))
         for r in got["rows"]:
+            if r["kernel"].endswith(" form"):
+                parts = "".join(f"; {k} {v:.2f} us" for k, v in
+                                r.get("launch_us", {}).items())
+                print(f"{label}: q{r['bits']} {r.get('dtype', 'bfloat16')} "
+                      f"M={r['m']} N={r['n']}"
+                      f" K={r['k']} {r['form']}"
+                      f"{' (chosen)' if r['chosen'] else ''}: "
+                      f"{r['ms']:.4f} ms, rel err {r['rel_err']:.2e}{parts} "
+                      f"({card})", flush=True)
+                continue
             if r["kernel"] == "q8_matmul plan":
                 print(f"{label}: q8 float32 M={r['m']} N={r['n']} K={r['k']}"
                       f" plan {r['bm']} x {r['splits']}"
@@ -554,15 +746,20 @@ def main(argv=None) -> int:
                                 r.get("launch_us", {}).items())
                 if "rfft_ms" in r:
                     parts += f", rfft {r['rfft_ms']:.4f} ms"
+                if r.get("busy_ms") is not None:
+                    parts += f", device busy {r['busy_ms']:.3f} ms"
+                if "audio_s_per_s" in r:
+                    parts += f", {r['audio_s_per_s']:.1f} audio-s/s"
                 print(f"{label}: {r['kernel']} {r['case']}: {r['ms']:.4f} ms"
                       f"{parts} ({card})", flush=True)
                 continue
-            plan = (f", m_tile {r['m_tile']} splits {r['splits']} x "
-                    f"{r['steps_per']} steps" if "splits" in r else "")
-            print(f"{label}: q{r['bits']} {r.get('dtype', 'bfloat16')} "
+            plan = " ".join(f"{k} {v}" for k, v in r["plan"].items())
+            print(f"{label}: q{r['bits']} {r['dtype']} "
                   f"M={r['m']} N={r['n']} K={r['k']}: "
-                  f"{r['ms']:.4f} ms, dense {r['dense_ms']:.4f} ms{plan} "
-                  f"({card})", flush=True)
+                  f"{r['ms']:.4f} ms, dense {r['dense_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}, share "
+                  f"{r['bound_ms'] / r['ms']:.2f}), {r['bytes']} bytes; "
+                  f"plan {plan} ({card})", flush=True)
     if args.json:
         dest = Path(args.json)
         dest.parent.mkdir(parents=True, exist_ok=True)

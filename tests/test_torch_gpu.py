@@ -303,6 +303,97 @@ def test_quantized_linears_at_offline_rows(cuda, bits, dtype, rel, n, k):
     _quantized_linears_at_rows(cuda, bits, dtype, rel, n, k, OFFLINE_ROWS)
 
 
+# ragged rows past gemm_plan's crossover (bf16: the large-M form)
+LARGE_RAGGED_ROWS = (3583, 6151)
+
+
+@pytest.mark.parametrize("n, k", F32_SHAPES[:4])
+@pytest.mark.parametrize("dtype, rel", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linears_at_ragged_large_rows(cuda, bits, dtype, rel, n,
+                                                k):
+    """B4 / B5 at ragged rows of many streams (M % 128 != 0): in bf16 on
+    the large-M form (the weight dequantized once, then the persistent
+    wgmma GEMM, masked on the ragged tile), as at the right-context
+    rows."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if dtype == torch.bfloat16:
+        for m in LARGE_RAGGED_ROWS:
+            assert isinstance(quant.gemm_plan(m, n, k, bits, sms),
+                              quant.LargePlan)
+    _quantized_linears_at_rows(cuda, bits, dtype, rel, n, k,
+                               LARGE_RAGGED_ROWS)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_large_form_at_each_tile_width(cuda, bits):
+    """The large-M form at each of its weight-row tiles (LARGE_BN), launched
+    on large_plan's plan for that width: its bf16 weight scratch equal to
+    the plain dequantization, y within 1e-2 x max|y| of the plain version
+    at ragged M and at N that leave a part tile (136: less than one)."""
+    rng = np.random.default_rng(bits + 31)
+    kern = kernels.Q8_MATMUL if bits == 8 else kernels.Q4_MATMUL
+    ref = quant.linear_q8_ref if bits == 8 else quant.linear_q4_ref
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m, n, k in ((1029, 4096, 1024), (2000, 1152, 4096),
+                    (1500, 136, 1024)):
+        w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+        qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w).to(
+            cuda)
+        codes = qt.w_i8 if bits == 8 else qt.w_packed
+        x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                         device=cuda).to(torch.bfloat16)
+        want = ref(x, qt).float()
+        for bn in quant.LARGE_BN:
+            p = quant.large_plan(m, n, k, sms, bn)
+            y = torch.full((m, n), float("nan"), dtype=torch.bfloat16,
+                           device=cuda)
+            wbuf = torch.empty((n, k), dtype=torch.bfloat16, device=cuda)
+            kern.launch(f"q{bits}_matmul_bf16_large", x.data_ptr(),
+                        codes.data_ptr(), qt.scales.data_ptr(), y.data_ptr(),
+                        wbuf.data_ptr(), m, n, k, p.bn, p.blocks)
+            torch.cuda.synchronize()
+            assert torch.equal(wbuf, (quant.dequantize if bits == 8 else
+                                      quant.dequantize_q4)(qt, torch.bfloat16))
+            err = float((y.float() - want).abs().max())
+            assert err <= 1e-2 * float(want.abs().max()), (m, n, k, p, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_linears_replay_in_a_cuda_graph(cuda, bits, dtype):
+    """B4 / B5 at a ragged large row (bf16: the large-M form, its bf16
+    weight scratch allocated in the capture) captured into a CUDA graph:
+    each replay equals an eager call on the same inputs bit for bit, after
+    the input changes too; the capture counts one launch."""
+    rng = np.random.default_rng(bits + 41)
+    m, n, k = 3583, 4096, 1024
+    w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)
+    qt = (quant.quantize_q8 if bits == 8 else quant.quantize_q4)(w).to(cuda)
+    kern = kernels.Q8_MATMUL if bits == 8 else kernels.Q4_MATMUL
+    fn = quant.linear_q8 if bits == 8 else quant.linear_q4
+    x = torch.tensor(rng.standard_normal((m, k)).astype(np.float32),
+                     device=cuda).to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, qt)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kern.launches
+    with torch.cuda.graph(graph):
+        out = fn(x, qt)
+    assert kern.launches == before + 1
+    for seed in (1, 2):
+        x.copy_(torch.tensor(np.random.default_rng(seed).standard_normal(
+            (m, k)).astype(np.float32), device=cuda).to(dtype))
+        graph.replay()
+        eager = fn(x, qt)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), seed
+
+
 def _quantized_linears_at_rows(cuda, bits, dtype, rel, n, k, rows):
     rng = np.random.default_rng(n + k + bits + 7)
     w = (rng.standard_normal((n, k)) / np.sqrt(k)).astype(np.float32)

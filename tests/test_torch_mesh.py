@@ -304,14 +304,17 @@ def test_attn_block_over_tp_matches_one_device(kv_int8):
 
 @pytest.mark.parametrize("n_tp", [2, 4, 8])
 def test_plans_cover_every_tp_shape(n_tp):
-    """The bf16 and f32 plans of B4 / B5 (ops/quant.py) and of B3's
+    """The bf16 and f32 plans of B4 / B5 (ops/quant.py; in bf16 the M <=
+    256 form or, from gemm_plan's crossover, the large-M form) and of B3's
     projections (ops/attn_block.py) at the encoder's (N, K) cut by tp, at
     a tick's rows at right contexts 0 to 13 and an offline segment's, on
     the H100's 132 SMs: each plan covers K once with no empty split."""
     from nemotron_tpu_torch.ops.attn_block import (block_f32_plans,
                                                    block_gemm_plans)
     from nemotron_tpu_torch.ops.quant import (GEMM_M_TILES, GEMM_STEP,
-                                              F32_STEP, f32_plan, gemm_plan)
+                                              LARGE_ROWS, F32_STEP,
+                                              LargePlan, f32_plan,
+                                              gemm_plan)
 
     def covers(splits, steps_per, steps):
         assert splits >= 1 and steps_per >= 1
@@ -324,6 +327,11 @@ def test_plans_cover_every_tp_shape(n_tp):
         for n, k in shapes:
             for bits in (8, 4):
                 p = gemm_plan(m, n, k, bits, 132)
+                if isinstance(p, LargePlan):  # one split over all of K
+                    assert p.tiles_m * LARGE_ROWS >= m
+                    assert p.tiles_n * p.bn >= n
+                    covers(1, p.steps, -(-k // GEMM_STEP))
+                    continue
                 assert p.m_tile in GEMM_M_TILES and p.m_tile * p.tiles_m >= m
                 covers(p.splits, p.steps_per,
                        -(-(k if bits == 8 else k // 2) // GEMM_STEP))

@@ -220,13 +220,20 @@ def test_gemm_plan_covers_every_column_once(bits):
     shapes = MAIN_SHAPES + [(200, 128), (96, 64)] + (
         [(64, 96)] if bits == 8 else [])
     for n, k in shapes:
-        for m in (1, 7, 8, 32, 141, 256, 300, 513):
+        for m in (1, 7, 8, 32, 141, 256, 300, 513, 769, 1792, 3583, 6152,
+                  16384):
             for sms in (132, 114, 78):
                 check_gemm_plan(m, n, k, bits, sms)
 
 
 def check_gemm_plan(m, n, k, bits, sms):
     p = tq.gemm_plan(m, n, k, bits, sms)
+    if isinstance(p, tq.LargePlan):
+        assert m >= tq.LARGE_MIN_M and n % 8 == 0
+        assert p.blocks == min(sms, p.tiles)
+        check_large_plan(p, m, n, k)
+        return
+    assert m < tq.LARGE_MIN_M or n % 8
     cols = p.split_columns(k, bits)
     assert len(cols) == p.splits and all(len(c) for c in cols)
     flat = np.concatenate(cols)
@@ -239,6 +246,48 @@ def check_gemm_plan(m, n, k, bits, sms):
     blocks = -(-n // tq.GEMM_ROWS) * p.tiles_m
     if blocks * 2 <= sms and p.steps >= 2 * tq.GEMM_MIN_STEPS:
         assert p.splits > 1  # idle SMs take a share of K
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gemm_plan_routes_every_row(bits):
+    """gemm_plan's route at every M from 1 to 16,384 (the R=0 tick's 1-256
+    streams, the right-context ticks' B x chunk_len, the offline path's B x
+    T'), for the main path's shapes on an H100's 132 SMs: the M <= 256 form
+    below tq.LARGE_MIN_M rows, the large-M form from there on; each plan
+    covers the batch and K (check_gemm_plan, check_large_plan's counts)."""
+    for n, k in MAIN_SHAPES:
+        steps = -(-(k if bits == 8 else k // 2) // tq.GEMM_STEP)
+        for m in range(1, 16385):
+            p = tq.gemm_plan(m, n, k, bits, 132)
+            if m < tq.LARGE_MIN_M:
+                assert isinstance(p, tq.GemmPlan), m
+                assert p.m_tile * p.tiles_m >= m > p.m_tile * (p.tiles_m - 1)
+                assert (p.splits - 1) * p.steps_per < p.steps == steps
+                assert p.steps <= p.splits * p.steps_per
+                continue
+            assert isinstance(p, tq.LargePlan), m
+            assert p.bn in tq.LARGE_BN and p.steps == -(-k // tq.GEMM_STEP)
+            assert p.tiles_m * tq.LARGE_ROWS >= m
+            assert m > (p.tiles_m - 1) * tq.LARGE_ROWS
+            assert p.tiles_n * p.bn >= n > (p.tiles_n - 1) * p.bn
+            assert p.blocks == min(132, p.tiles)
+        for m in (1, 255, 256, 769, tq.LARGE_MIN_M - 1, tq.LARGE_MIN_M,
+                  1792, 3583, 6151, 16384):
+            check_gemm_plan(m, n, k, bits, 132)
+
+
+def check_large_plan(p, m, n, k):
+    """The large-M plan's blocks walk every output tile once, its tile grid
+    covers [m, n] and no tile lies wholly past it; its steps cover K."""
+    hits = np.zeros((p.tiles_m, p.tiles_n), int)
+    for b in range(p.blocks):
+        for r0, c0 in p.block_tiles(b):
+            assert r0 % tq.LARGE_ROWS == 0 and c0 % p.bn == 0
+            hits[r0 // tq.LARGE_ROWS, c0 // p.bn] += 1
+    assert (hits == 1).all()
+    assert p.tiles_m * tq.LARGE_ROWS >= m > (p.tiles_m - 1) * tq.LARGE_ROWS
+    assert p.tiles_n * p.bn >= n > (p.tiles_n - 1) * p.bn
+    assert (p.steps - 1) * tq.GEMM_STEP < k <= p.steps * tq.GEMM_STEP
 
 
 def _bf16_ulp(v: float) -> float:
@@ -275,10 +324,49 @@ def test_split_k_emulation_matches_plain_and_xla(bits, n, k):
             assert float(np.abs(got.numpy() - xla).max()) <= tol, (dtype, m)
 
 
+@pytest.mark.parametrize("bn", [None] + list(tq.LARGE_BN))
+@pytest.mark.parametrize("bits", [8, 4])
+def test_large_form_emulation_matches_plain_xla_and_pallas(bits, bn):
+    """A plain emulation of the large-M form: the weight dequantized to bf16
+    once (each weight rounded once from its f32 product), then each
+    persistent block's 128 x bn output tiles in its order, each output one
+    f32 sum over all of K rounded once to bf16. At a ragged batch past the
+    crossover (on gemm_plan's plan, or at each tile width) and ragged N,
+    held against the port's plain linear and the JAX package's XLA linear
+    within one bf16 ulp of max|y|, and against its Pallas kernel
+    (interpret mode) within the JAX package's own 2e-2 x max|y|."""
+    jquant, tquant, _, tdeq, jxla, jpallas, tref = KINDS[bits][:7]
+    m, n, k = tq.LARGE_MIN_M + 5, 384, 256
+    w = rand(n, k, seed=bits + 11, scale=k ** -0.5)
+    jqt, tqt = jquant(w), tquant(w)
+    x = torch.from_numpy(rand(m, k, seed=bits + 12)).to(torch.bfloat16)
+    p = (tq.gemm_plan(m, n, k, bits, 132) if bn is None
+         else tq.large_plan(m, n, k, 132, bn))
+    assert isinstance(p, tq.LargePlan)
+    check_large_plan(p, m, n, k)
+    wb = tdeq(tqt, torch.bfloat16).float()  # pass 1, once per call
+    got = torch.full((m, n), float("nan"))
+    for b in range(p.blocks):
+        for r0, c0 in p.block_tiles(b):
+            tile = x.float()[r0:r0 + tq.LARGE_ROWS] @ wb[c0:c0 + p.bn].T
+            got[r0:r0 + tq.LARGE_ROWS, c0:c0 + p.bn] = tile.to(
+                torch.bfloat16).float()
+    want = tref(x, tqt).float()
+    tol = _bf16_ulp(float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    xla = np.asarray(jxla(jx, jqt).astype(jnp.float32))
+    assert float(np.abs(got.numpy() - xla).max()) <= tol
+    pallas = np.asarray(jpallas(jx, jqt, interpret=True).astype(jnp.float32))
+    assert np.abs(got.numpy() - pallas).max() / np.abs(pallas).max() < 2e-2
+
+
 # the f32 body's plans: the main path's shapes and ragged ones (Q4_0 takes
 # K % 64 == 0), at ragged and full batches, on cards of other SM counts
 F32_SHAPES = MAIN_SHAPES + [(200, 128), (96, 64), (3072, 1024), (128, 4096)]
 F32_BATCHES = (1, 17, 141, 256)
+# the right-context ticks' and the offline path's rows
+F32_LARGE_BATCHES = (512, 769, 1792, 3584, 6152, 16384)
 
 
 @pytest.mark.parametrize("n, k", F32_SHAPES)
@@ -290,6 +378,45 @@ def test_f32_plan_covers_every_output_and_column_once(n, k):
     for m in F32_BATCHES + (7, 64, 300):
         for sms in (132, 114, 78):
             check_f32_plan(m, n, k, sms)
+
+
+@pytest.mark.parametrize("n, k", MAIN_SHAPES)
+def test_f32_plan_covers_the_large_rows(n, k):
+    """f32_plan at the right-context ticks' and the offline path's rows:
+    its tiles cover the output (counted per tile), its splits each K
+    column once, within one wave of blocks or unsplit."""
+    for m in F32_LARGE_BATCHES:
+        for sms in (132, 114, 78):
+            p = tq.f32_plan(m, n, k, sms)
+            assert p.bm in tq.F32_M_TILES
+            assert p.tiles_m * p.bm >= m > (p.tiles_m - 1) * p.bm
+            assert p.tiles_n * tq.F32_ROWS >= n > (p.tiles_n - 1) * tq.F32_ROWS
+            np.testing.assert_array_equal(
+                np.concatenate(p.split_columns(k)), np.arange(k))
+            assert p.blocks <= max(sms, p.tiles)
+
+
+def test_f32_plan_refit_keeps_the_single_wave_plans(monkeypatch):
+    """f32_plan's 64-row penalty where the tiles take more than one wave
+    (F32_COST_64_WAVES, fitted at the large rows) moves no plan whose
+    tiles fit one wave: at every M <= 256 on 132 and 114 SMs (the R=0
+    tick's B4/B5, B3's projections with their split caps) the plan equals
+    the one of the cost model without it; at the large rows of the main
+    path's shapes it takes 128-row tiles."""
+    shapes = MAIN_SHAPES + [(3072, 1024), (512, 1024), (2048, 4096)]
+    got = {(m, n, k, sms, cap): tq.f32_plan(m, n, k, sms, cap)
+           for n, k in shapes for m in range(1, 257) for sms in (132, 114)
+           for cap in (None, 1, 2, 4, 8)}
+    large = {(m, n, k): tq.f32_plan(m, n, k, 132)
+             for n, k in MAIN_SHAPES for m in F32_LARGE_BATCHES}
+    tq.f32_plan.cache_clear()
+    monkeypatch.setattr(tq, "F32_COST_64_WAVES", tq.F32_COST_64)
+    try:
+        for key, plan in got.items():
+            assert tq.f32_plan(*key) == plan, key
+    finally:
+        tq.f32_plan.cache_clear()
+    assert all(p.bm == 128 for p in large.values()), large
 
 
 def check_f32_plan(m, n, k, sms):
