@@ -38,7 +38,13 @@ Phases, one line each, any failure exits non-zero:
              ops/quant.py takes (in bf16 the route: the M <= 256 form
              below gemm_plan's crossover, the large-M form from it; the
              rows past 256 timed over 3 repeats, not 5); B2 also at 1 x
-             16376 (one offline segment)
+             16376 (one offline segment); kv_rows (the slot operations'
+             masked row rewrites, no TPU kernel) on one K buffer of the
+             B=256 R=0 bf16 state in its three modes (the wrap's shift, a
+             realign's roll, the reset's zero) over 1, 16 and 256 masked
+             slots, bit for bit, index_ms beside it (the row selection by
+             torch.nonzero and indexed copies that it replaced) and, for
+             the zero, library_ms: masked_fill_
   4 tick     full-width random model (Hparams() defaults), 4 streams x 10
              fused ticks (through the slack-buffer wrap) on the card vs the
              same ticks on the CPU: f32 and bf16 dense; the same with the
@@ -72,8 +78,9 @@ Phases, one line each, any failure exits non-zero:
              subprocess on an F16 GGUF, its stdout equal to the in-process
              texts; graphed against eager in turns at B=1 and B=8 on 60 s
              files in f32, bf16, bf16 Q8_0 and bf16 Q4_0 (bit for bit as
-             above; bf16 Q4_0, whose random weights emit, timed by its
-             parity calls alone; host s, audio-s/s, device busy and idle
+             above; one timed call each way; bf16 Q4_0, whose random
+             weights emit, timed by its parity calls alone; host s,
+             audio-s/s, device busy and idle
              share, kernels
              per segment, decode iterations, peak memory, each offline
              key's captures, capture s, pool MB and replays; each form's
@@ -144,11 +151,18 @@ Phases, one line each, any failure exits non-zero:
              a graphed twin of f32, bf16 with the block, bf16 int8 K/V,
              bf16 Q8_0 + int8 K/V and bf16 Q4_0 at R=0 and bf16 int8 K/V
              at R=13: tokens equal, leaves bit-equal (f32 within 1e-6),
-             one capture per key, the replays under
+             one capture per key (the ticks' and the slot operations'),
+             the last pass (uploads, replays, slot operations) under
              set_sync_debug_mode("error"), launches through the replays
-             equal to eager's; the serving form's server with clients at
-             13, 13, 6, 0 in lockstep, twice each way (texts equal in
-             all four runs; each engine group's host
+             equal to eager's; an engine under churn (tools/graph_turns
+             .Churn: B=256 R=0 bf16 int8 K/V, joins, a quarter of the
+             streams pausing and resuming at deltas 1-7, wraps with paused
+             slots, backlog ticks) eager and graphed in lockstep: texts
+             and final leaves equal, each slot operation's key captured
+             once, its last 64 ticks' slot operations under
+             set_sync_debug_mode("error"); the serving form's server with
+             clients at 13, 13, 6, 0 in lockstep, twice each way (texts
+             equal in all four runs; each engine group's host
              ms per dispatch, captures, capture seconds, pool bytes); the
              phase timers eager beside phase 7's graphed ones; the CLI's
              RTF both ways (phase 5); then the tick table in turns eager
@@ -392,13 +406,28 @@ def _int4pack_mm(torch, qt, n, k):
         return None
 
 
+def _kv_index_path(torch, buf, mode, mask, lo=0, lc=0, shift=0):
+    """kv_rows' function by the row selection the port used before it:
+    torch.nonzero of the mask (a host sync), then indexed copies of the
+    selected slots (index_ms, a yardstick)."""
+    rows = torch.nonzero(mask).flatten()
+    if mode == 0:
+        sel = buf[:, rows]
+        sel[:, :, :, :lc] = sel[:, :, :, lo:lo + lc].clone()
+        buf[:, rows] = sel
+    elif mode == 1:
+        buf[:, rows] = torch.roll(buf[:, rows], shift, dims=3)
+    else:
+        buf[:, rows] = 0
+
+
 def phase_kernels(torch, report):
     """Each kernel against its plain version at the main path's shapes, with
     its bound and, where one PyTorch call computes the same function, that
     call's time (library_ms); B4/B5 also beside cuBLAS's dense product of
     the weight dequantized beforehand (dense_ms, not the same function)."""
     from nemotron_tpu_torch import kernels
-    from nemotron_tpu_torch.ops import quant
+    from nemotron_tpu_torch.ops import kv_rows, quant
     from nemotron_tpu_torch.ops.attn_block import (attn_group,
                                                    block_f32_plans,
                                                    block_gemm_plans,
@@ -629,6 +658,41 @@ def phase_kernels(torch, report):
                 f"{'ok' if good else 'FAIL'}, plain "
                 f"{float((want - exact).abs().max()):.3e}; kernel to plain "
                 f"{to_plain:.3e}")
+    # kv_rows on one K buffer of the full-width state at B=256, R=0, bf16
+    # ([24, 256, 8, 78, 128]): the wrap's shift (lo 8, lc 70), a realign's
+    # roll (delta +1) and the reset's zero over 1, 16 and 256 masked
+    # slots, exact; bound: the masked rows' bytes (shift 2 lc W, roll 2 S W,
+    # zero S W a row, W = Dh x 2 bytes a frame)
+    buf = torch.randn((24, 256, 8, 78, 128), device=dev).to(torch.bfloat16)
+    row = 78 * 128 * 2
+    for n_set in (1, 16, 256):
+        m = torch.zeros(256, dtype=torch.bool, device=dev)
+        m[torch.randperm(256, device=dev)[:n_set]] = True
+        for mode, kw, moved in ((kv_rows.SHIFT, dict(lo=8, lc=70),
+                                 2 * 70 * 128 * 2),
+                                (kv_rows.ROLL, dict(shift=1), 2 * row),
+                                (kv_rows.ZERO, {}, row)):
+            got = kv_rows.kv_rows_(buf.clone(), mode, m, **kw)
+            want = kv_rows.kv_rows_ref_(buf.clone(), mode, m, **kw)
+            work, plain, idx = buf.clone(), buf.clone(), buf.clone()
+            m5 = m.reshape(1, -1, 1, 1, 1)
+            lib = (None if mode != kv_rows.ZERO else
+                   lambda w=work, m5=m5: w.masked_fill_(m5, 0))
+            res = check(
+                "kv_rows", f"{kv_rows.MODES[mode]} bf16 [24, 256, 8, 78, "
+                f"128], {n_set} of 256 slots", got, want, 0.0,
+                lambda w=work, mode=mode, kw=kw, m=m: kv_rows.kv_rows_(
+                    w, mode, m, **kw),
+                lambda w=plain, mode=mode, kw=kw, m=m: kv_rows.kv_rows_ref_(
+                    w, mode, m, **kw),
+                24 * n_set * 8 * moved + 256, 0.0, "bf16", lib,
+                index_ms=lambda w=idx, mode=mode, kw=kw, m=m: _kv_index_path(
+                    torch, w, mode, m, **kw))
+            if (n_set, mode) == (256, kv_rows.SHIFT):  # the wrap
+                report["kv_rows"].update(res)
+            del got, want, work, plain, idx
+    del buf
+    torch.cuda.empty_cache()
     if not ok:
         raise SystemExit("phase 3: a kernel disagrees with its plain version")
     kernels.reset_counts()
@@ -666,7 +730,7 @@ def run_ticks(model, audio: np.ndarray, n_ticks: int, mode: int = 0):
     state = model.init_stream_state(b, cfg)
     tails, lasts = zip(*(prime_carry(a[:PRIME_SAMPLES]) for a in audio))
     state = model.prime_frontend(state, np.ones(b, bool), np.stack(tails),
-                                 np.asarray(lasts, np.float32))
+                                 np.asarray(lasts, np.float32), cfg=cfg)
     toks, phase, off = [], 0, PRIME_SAMPLES
     for k in tick_chunks(mode, n_ticks):
         packed = model.pack_tick_inputs(
@@ -912,8 +976,9 @@ def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
     issues tens of thousands of kernels, too many for key_averages):
     returns (total device ms per call, [(name, ms per call, calls per
     call)] sorted by time), or None if the trace holds no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from nemotron_tpu_torch.tools.turns import device_ns
 
     for _ in range(warmup):
         fn()
@@ -922,13 +987,8 @@ def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-            ns, calls = by_name.get(e.name(), (0, 0))
-            by_name[e.name()] = (ns + e.duration_ns(), calls + 1)
     rows = sorted(((k, ns / 1e6 / n, calls / n)
-                   for k, (ns, calls) in by_name.items()),
+                   for k, (ns, calls) in device_ns(prof).items()),
                   key=lambda r: -r[1])
     return (sum(r[1] for r in rows), rows) if rows else None
 
@@ -1184,7 +1244,7 @@ def phase_tick_times(torch, models, card: str) -> list:
         period = cfg.shift_mel_frames * 10.0
         # past R=0 a tick issues 3-6x the kernels: fewer ticks, timed and
         # traced, keep the phase inside its time
-        n_time, n_prof = (10, 4) if mode == 0 else (4, 2)
+        n_time, n_prof = (6, 3) if mode == 0 else (3, 1)
         row = {"config": name, "B": b, "R": mode}
         for form, model in (("eager", twin(graphed)),
                             ("graphed", graphed)):
@@ -1403,7 +1463,7 @@ def phase_offline_launches(torch, models, audios) -> dict:
     replayed = all(how["replays"] == how["calls"] for how in hows)
     n_q = 11 * models["bf16 Q8_0"].hp.n_layers
     want = {"mel_frames": 2, "q8_matmul": n_q, "q4_matmul": n_q,
-            "t1_attention": 0, "t1_attention_block": 0}
+            "t1_attention": 0, "t1_attention_block": 0, "kv_rows": 0}
     log(f"[6 offline] launches of transcribe_audios, one segment each, "
         f"bf16 Q8_0 then bf16 Q4_0, every offline key replayed ({replayed}:"
         f" {hows}): {counts} (want {want})")
@@ -1578,7 +1638,7 @@ def phase_offline_cli(torch, hp, dense, vocab, audios):
 
 
 def time_offline(torch, graphed, audios, card: str, name: str,
-                 n: int = 2, eager_busy: bool = True) -> dict:
+                 n: int = 1, eager_busy: bool = True) -> dict:
     """`graphed` against its eager twin on `audios`, in turns within one
     call, after two calls of the graphed model (its offline keys warmed
     up, then captured): host seconds of one synchronised transcribe_audios
@@ -1683,14 +1743,16 @@ def phase_offline(torch, hp, dense, q8, vocab, gpu, card: str):
     phase_offline_cli(torch, hp, dense, vocab, audios)
     # bf16 Q4_0's random weights emit on these files (~11x the decode
     # iterations of the others, ~10 s per eager call): timed by its parity
-    # calls alone, its eager busy not measured
+    # calls alone, its eager busy not measured, at B=8 only (B=1 took
+    # ~35 s; B5's form below 1,024 rows is held graphed = eager by phase
+    # 10's bf16 Q4_0 parity ticks, M = 256)
     rows = [time_offline(torch, card_m[name],
                          list(stream_audio(b, OFFLINE_SECS * 16000,
                                            SEED + 10)), card, name,
                          **({"n": 0, "eager_busy": False}
                             if name == "bf16 Q4_0" else {}))
             for name in ("f32", "bf16", "bf16 Q8_0", "bf16 Q4_0")
-            for b in (1, 8)]
+            for b in ((8,) if name == "bf16 Q4_0" else (1, 8))]
     log(f"[6 offline table] {json.dumps(rows)}")
     return counts
 
@@ -1757,7 +1819,8 @@ def kernel_counts() -> dict:
 def check_launches(name, counts, engines, model, b1_per_step: int):
     """B2 once per chunk step (a k-chunk dispatch is k steps), B1
     b1_per_step per step of the fast flow, B4 (Q8_0) and B5 (Q4_0) once
-    per step for each quantized layer matrix (11 x 24 at full width)."""
+    per step for each quantized layer matrix (11 x 24 at full width),
+    kv_rows at least once (the slot resets)."""
     from nemotron_tpu_torch.ops.quant import QuantizedTensor, QuantizedTensor4
 
     steps = sum(g.total_chunk_steps for e in engines
@@ -1771,9 +1834,10 @@ def check_launches(name, counts, engines, model, b1_per_step: int):
             "q4_matmul": per * sum(isinstance(w, QuantizedTensor4)
                                    for w in ws),
             "t1_attention_block": 0}
-    if counts != want:
+    # kv_rows: every join resets its slot, every wrap compacts
+    if {k: counts[k] for k in want} != want or not counts["kv_rows"]:
         raise SystemExit(f"phase 7 ({name}): launches {counts} over {steps} "
-                         f"chunk steps, want {want}")
+                         f"chunk steps, want {want} and kv_rows > 0")
     return steps
 
 
@@ -3334,6 +3398,67 @@ def graph_parity(torch, name, model, mode, totals: dict) -> dict:
     return {"ticks": len(tok_g), **gs}
 
 
+CHURN_TICKS = (64, 64)  # the churn's ticks: warm-up, then under the check
+
+
+def graph_churn(torch, model, name) -> dict:
+    """tools/graph_turns.Churn at B=GRAPH_B, R=0 (joins into freed slots,
+    a quarter of the streams pausing 1-7 ticks and resuming at deltas of
+    1-7, wraps with paused slots, backlog ticks of 8 chunks) on an eager
+    and a graphed twin in lockstep (the schedule follows the engine's own
+    flow, so both run the same ticks): texts equal, final state leaves
+    bit-equal, each slot operation's key (prime, reset, compact, realign)
+    captured once (in the engine's prewarm) and replayed after, and the
+    graphed engine's slot operations of the last CHURN_TICKS[1] ticks
+    under set_sync_debug_mode("error")."""
+    import contextlib
+
+    from nemotron_tpu_torch.tools.graph_turns import (SLOT_KEYS, Churn,
+                                                      compare,
+                                                      slot_ops_sync_errors)
+
+    runs = {}
+    for form, m in (("eager", twin(model)), ("graphed", twin(model, True))):
+        t0 = time.perf_counter()
+        ch = Churn(m, GRAPH_B, 0)
+        ch.run(CHURN_TICKS[0])
+        with (slot_ops_sync_errors(m) if form == "graphed"
+              else contextlib.nullcontext()):
+            ch.run(CHURN_TICKS[1])
+        torch.cuda.synchronize()
+        runs[form] = (ch, time.perf_counter() - t0)
+    (ch_e, s_e), (ch_g, s_g) = runs["eager"], runs["graphed"]
+    cmp = compare(ch_g.group.state, ch_e.group.state)
+    slot = {" ".join(map(str, key[:1] + key[2:])): (e.calls, e.captures,
+                                                    e.replays)
+            for (key, _), e in ch_g.model.graphs.entries.items()
+            if key[0] in SLOT_KEYS}
+    # the warm-up call eager, the capturing call and every later one
+    # replays
+    once = all(c == 1 and r == n - 1 for n, c, r in slot.values())
+    kinds = {key.split()[0] for key, (n, _, _) in slot.items() if n > 2}
+    texts_equal = ch_e.texts == ch_g.texts
+    log(f"[10 churn] {name} B={GRAPH_B} R=0: {ch_g.t} ticks, "
+        f"{ch_g.group.total_steps} dispatches, "
+        f"{ch_g.group.total_chunk_steps - ch_g.group.total_steps} backlog "
+        f"chunks, {ch_g.joined} joins, {ch_g.bursts} bursts; texts equal "
+        f"{texts_equal} ({sum(map(len, ch_g.texts.values()))} chars over "
+        f"{len(ch_g.texts)} streams); leaves {cmp}; slot keys (calls, "
+        f"captures, replays) {json.dumps(slot)}"
+        f"; host s eager {s_e:.1f}, graphed {s_g:.1f}; graphed slot "
+        f"operations of the last {CHURN_TICKS[1]} ticks under "
+        f"set_sync_debug_mode(\"error\"): raised nothing")
+    if not (texts_equal and cmp["equal"] and once
+            and kinds == set(SLOT_KEYS) and ch_g.group.total_chunk_steps
+            > ch_g.group.total_steps and any(ch_g.texts.values())):
+        raise SystemExit(f"phase 10 (churn, {name}): graphed and eager "
+                         f"differ or a key was captured again: texts "
+                         f"{texts_equal}, leaves {cmp}, slot keys {slot}")
+    del runs, ch_e, ch_g
+    torch.cuda.empty_cache()
+    return slot
+
+
 def graph_server(torch, model, name):
     """The serving form's server with clients at right contexts 13, 13, 6
     and 0 (three engine groups, batch 8), in lockstep (_serve_clients)
@@ -3342,7 +3467,12 @@ def graph_server(torch, model, name):
     keys it calls twice; the second run's engine has new state storage,
     so each key is captured again and every tick replays. Logged: each
     group's host seconds per dispatch and its graphs (keys, captures,
-    recaptures, replays, capture seconds, pool bytes)."""
+    recaptures, replays, capture seconds, pool bytes). Each group's slot
+    keys are its own (their cfg), so within a run none is captured again
+    as the groups take turns: after graphed run r no slot key has more
+    than r captures."""
+    from nemotron_tpu_torch.graphs import SLOT_KEYS
+
     audios = list(stream_audio(4, 48000, SEED + 2))
     modes = (13, 13, 6, 0)
     out = {}
@@ -3351,6 +3481,13 @@ def graph_server(torch, model, name):
         for run in (1, 2):
             texts, stats = asyncio.run(_serve_clients(m, audios, 8, modes,
                                                       lockstep=True))
+            over = {str(key): e.captures
+                    for (key, _), e in m.graphs.entries.items()
+                    if key[0] in SLOT_KEYS and e.captures > run}
+            if over:
+                raise SystemExit(f"phase 10 (server): {form} run {run}: "
+                                 f"slot keys captured again as the groups "
+                                 f"took turns: {over}")
             per = {rc: {"dispatch_ms": round(
                 g["dispatch_seconds"] / max(g["steps"], 1) * 1e3, 2),
                 "steps": g["steps"], "graphs": g["graphs"]}
@@ -3385,6 +3522,7 @@ def phase_graphs(torch, gpu, card, timers, cli_rtfs) -> dict:
     if missing or len(totals) < 5:
         raise SystemExit(f"phase 10: kernels {missing or totals} never "
                          f"launched through a replay")
+    graph_churn(torch, gpu["bf16 int8-KV"], "bf16 int8-KV")
     graph_server(torch, gpu["bf16 Q8_0 int8-KV"], "bf16 Q8_0 int8-KV")
     eager = phase_timers(torch, twin(gpu["f32"]), "f32 eager", card,
                          tag="10 timers")

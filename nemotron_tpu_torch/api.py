@@ -23,7 +23,13 @@ On the card every serving entry point (`fused_tick_packed` in all its
 forms, `stream_step`, the two halves of `fused_tick_profiled`) runs as one
 CUDA graph per JAX key (nemotron_tpu/api.py `_memo`'s keys), captured on
 the key's second call and replayed after that (graphs.py; `model.graphs`
-holds them). So does the offline path: each segment's encoder is one
+holds them). So do the slot operations between ticks (`prime_frontend`,
+`reset_state`, `compact_state`, `realign_state`: JAX's
+`("compact", cfg, phase, masked)` and `("realign", cfg, delta)`, and
+`("prime", cfg)` and `("reset", cfg)`, which carry the engine group's
+cache config so that each group of a model keeps its own graph), whose
+K/V moves run on kernel kv_rows with the slot mask read on the device,
+and whose host inputs go up without a sync (`put_batch`). So does the offline path: each segment's encoder is one
 graph per JAX key ("batch", T, B) (`_batch_fn`'s), and its greedy decode
 replays one graph per batch size, a block of models/asr.DECODE_EXIT_EVERY
 iterations, between the host's exit tests (`_transcribe_mels`). The
@@ -42,8 +48,6 @@ device's), and the offline path runs on dp shard 0.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -54,7 +58,7 @@ from .models.decoder import init_carry, init_decode_state
 from .models.encoder import (check_attn_block_weights, compact_cache,
                              realign_cache)
 from .params import (ModelParams, device_of, load_model, on_device,
-                     param_leaves, random_params)
+                     param_leaves, random_params, upload)
 from .config import CacheConfig, Hparams, LatencyMode
 from .text.tokenizer import Tokenizer
 from .streaming import state as state_mod
@@ -206,12 +210,15 @@ class ASRModel:
     def _per_shard(self, state, fn, *batched, with_tokens=True, key=None):
         """fn(params, tp, state, *rows) on each dp shard (_shard_calls);
         the shards' states make a MeshState and their tokens (with_tokens)
-        one tensor in slot order on the lead device."""
+        one tensor in slot order on the lead device. Without tokens fn
+        returns (state,) and the state comes back alone."""
         outs = self._shard_calls(state, fn, *batched, key=key)
+        if not with_tokens:
+            states = [o[0] for o in outs]
+            return (states[0] if self.mesh is None
+                    else state_mod.MeshState(states))
         if self.mesh is None:
             return outs[0]
-        if not with_tokens:
-            return state_mod.MeshState(outs)
         states, toks = zip(*outs)
         return state_mod.MeshState(list(states)), torch.cat(
             [t.to(self.device) for t in toks])
@@ -249,13 +256,15 @@ class ASRModel:
         return self.prompt_dict.get(lang)
 
     def put_batch(self, arr):
-        """Host array -> a tensor on the model's device (always a copy); on
-        a mesh a DPBatch, axis 0 (the stream batch) split over dp."""
+        """Host array -> a tensor on the model's device (always a copy; to a
+        card a non-blocking copy through pinned memory, params.upload, so
+        it does not wait for the queued ticks); on a mesh a DPBatch, axis 0
+        (the stream batch) split over dp."""
         if self.mesh is not None:
             from .parallel.mesh import split_rows
 
             return split_rows(self.mesh, arr)
-        return torch.tensor(np.asarray(arr), device=self.device)
+        return upload(arr, self.device)
 
     def init_stream_state(self, batch: int, cfg: CacheConfig):
         # the activation type, read from a leaf that is never quantized
@@ -394,12 +403,34 @@ class ASRModel:
             key=("stream_step", cfg, mel_chunk.shape[0], active is None,
                  phase))
 
-    def prime_frontend(self, state, mask, tails, lasts):
-        """Install frontend carries for newly joined slots."""
+    # The slot operations between ticks. Each is one CUDA graph per key
+    # and dp shard on the card (JAX's ("compact", cfg, phase, masked) and
+    # ("realign", cfg, delta); JAX's ("prime",) and the reset, eager jnp
+    # ops in the JAX package, as ("prime", cfg) and ("reset", cfg)), the
+    # mask a graph input; the K/V moves go through kernel kv_rows, which
+    # reads the mask on the device. A key's graph is bound to the state's
+    # storage (graphs.py), so each key names the engine group's cfg: one
+    # key for two groups would be captured anew whenever they take turns.
+
+    def prime_frontend(self, state, mask, tails, lasts, cfg=None):
+        """Install frontend carries for newly joined slots. `cfg`: the
+        state's cache config (it keys the graph)."""
+        def prime(_p, _tp, s, *rows):
+            return (state_mod.prime_frontend(s, *rows),)
+
         return self._per_shard(
-            state, lambda _p, _tp, s, *rows: state_mod.prime_frontend(
-                s, *rows), self.put_batch(mask), self.put_batch(tails),
-            self.put_batch(lasts), with_tokens=False)
+            state, prime, self.put_batch(mask), self.put_batch(tails),
+            self.put_batch(lasts), with_tokens=False, key=("prime", cfg))
+
+    def reset_state(self, state, mask, cfg=None):
+        """Zero the slots where mask[b] is True (a stream joins), in
+        place (streaming/state.reset_slots). `cfg`: the state's cache
+        config (it keys the graph)."""
+        def reset(_p, _tp, s, m):
+            return (state_mod.reset_slots(s, m, self.hp),)
+
+        return self._per_shard(state, reset, self.put_batch(mask),
+                               with_tokens=False, key=("reset", cfg))
 
     def compact_state(self, cfg, state, phase: int | None = None, mask=None):
         """Move the live K/V window back to phase 0 (in place). `phase` is
@@ -411,23 +442,24 @@ class ASRModel:
             return state
 
         def compact(_p, _tp, state, m=None):
-            k, v = compact_cache(cfg, self.hp, state.k_cache, state.v_cache,
-                                 phase=phase, mask=m)
-            return dataclasses.replace(state, k_cache=k, v_cache=v)
+            compact_cache(cfg, self.hp, state.k_cache, state.v_cache,
+                          phase=phase, mask=m)
+            return (state,)
 
         return self._per_shard(
             state, compact, *([] if mask is None else [self.put_batch(mask)]),
-            with_tokens=False)
+            with_tokens=False, key=("compact", cfg, phase, mask is not None))
 
     def realign_state(self, cfg, state, delta: int, mask):
         """Move masked slots' K/V windows forward by `delta` phases."""
         def realign(_p, _tp, state, m):
-            k, v = realign_cache(cfg, self.hp, state.k_cache, state.v_cache,
-                                 delta, m)
-            return dataclasses.replace(state, k_cache=k, v_cache=v)
+            realign_cache(cfg, self.hp, state.k_cache, state.v_cache, delta,
+                          m)
+            return (state,)
 
         return self._per_shard(state, realign, self.put_batch(mask),
-                               with_tokens=False)
+                               with_tokens=False,
+                               key=("realign", cfg, delta))
 
     def drop_offline_graphs(self) -> None:
         """Free the offline path's graphs, their pool and the decode's

@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "hopper_async.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -284,14 +285,10 @@ extern "C" int mel_frames_f32(const void* buf, const void* window,
        reinterpret_cast<uintptr_t>(twiddles) |
        reinterpret_cast<uintptr_t>(weights)) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  static int allowed = 48 * 1024;  // the largest smem this kernel was given
-  if (lay.total > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mel_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        lay.total);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    allowed = lay.total;
-  }
+  static dyn_smem::Limit limit;  // per device (smem_limit.cuh)
+  if (const cudaError_t e = dyn_smem::allow(mel_frames_kernel, lay.total,
+                                            limit, 48 * 1024))
+    return static_cast<int>(e);
   const dim3 grid((n_frames + frames_per_block - 1) / frames_per_block,
                   batch);
   mel_frames_kernel<<<grid, kLanes * lay.frames, lay.total,

@@ -38,6 +38,7 @@
 // so a share that is all dead slots weighs exactly 0).
 
 #include "t1_attention.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -180,13 +181,10 @@ int launch(const void* q, const void* k_new, const void* v_new,
   const Layout lay(n_max, d_head, (int)sizeof(TC), (int)sizeof(T));
   return t1::with_d_head(d_head, [&](auto dh) {
     auto kernel = t1_attention_kernel<T, TC, decltype(dh)::value>;
-    static int allowed = 48 * 1024;  // the largest smem this kernel was given
-    if (lay.total > allowed) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      allowed = lay.total;
-    }
+    static dyn_smem::Limit limit;  // per device (smem_limit.cuh)
+    if (const cudaError_t e =
+            dyn_smem::allow(kernel, lay.total, limit, 48 * 1024))
+      return static_cast<int>(e);
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)(pairs * cluster));
     cfg.blockDim = dim3(kThreads);

@@ -68,6 +68,7 @@
 
 #include "t1_attention.cuh"
 #include "wq_gemm_sm90.cuh"
+#include "smem_limit.cuh"
 #include "wq_matmul.cuh"
 
 namespace {
@@ -297,13 +298,10 @@ int attention(const float* qkv, int splits, const void* bias_u,
   const Layout lay(s_buf, d_head, (int)sizeof(TC), stages, splits, groups);
   return t1::with_d_head(d_head, [&](auto dh) {
     auto kernel = block_attention_kernel<T, TC, decltype(dh)::value>;
-    static int allowed = 48 * 1024;  // the largest smem this kernel was given
-    if (lay.total > allowed) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      allowed = lay.total;
-    }
+    static dyn_smem::Limit limit;  // per device (smem_limit.cuh)
+    if (const cudaError_t e =
+            dyn_smem::allow(kernel, lay.total, limit, 48 * 1024))
+      return static_cast<int>(e);
     const dim3 grid((B + per_block - 1) / per_block, H);
     kernel<<<grid, groups * kThreads, lay.total, stream>>>(
         qkv, splits, static_cast<const T*>(bias_u),

@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "hopper_async.cuh"
+#include "smem_limit.cuh"
 #include "wq_gemm_sm90.cuh"  // desc_sw128, fence_acc, map_2d, encoder
 
 namespace wq {
@@ -438,13 +439,9 @@ int run(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& ty,
   const int stages = ring_stages(BN);
   if (stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int smem = smem_bytes(BN, stages);
-  static int allowed = 0;  // the largest smem this instantiation was given
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    allowed = smem;
-  }
+  static dyn_smem::Limit limit;  // per device (smem_limit.cuh)
+  if (const cudaError_t e = dyn_smem::allow(kernel, smem, limit, 0))
+    return static_cast<int>(e);
   kernel<<<blocks, kThreads, smem, stream>>>(tx, tw, ty, M, N, K, stages);
   return static_cast<int>(cudaGetLastError());
 }

@@ -77,6 +77,7 @@
 #include <stdint.h>
 
 #include "hopper_async.cuh"
+#include "smem_limit.cuh"
 
 namespace wq {
 namespace sm90 {
@@ -651,13 +652,9 @@ int run(const CUtensorMap& tx, const CUtensorMap& tw, const float* scales,
   const int stages = ring_stages(kQ4, NT);
   if (stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int smem = smem_bytes(kQ4, NT, stages);
-  static int allowed = 0;  // the largest smem this instantiation was given
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    allowed = smem;
-  }
+  static dyn_smem::Limit limit;  // per device (smem_limit.cuh)
+  if (const cudaError_t e = dyn_smem::allow(kernel, smem, limit, 0))
+    return static_cast<int>(e);
   const dim3 grid((N + kRows - 1) / kRows, (M + NT - 1) / NT, splits);
   kernel<<<grid, kThreads, smem, stream>>>(tx, tw, scales, y, ws, M, N, K,
                                            steps, steps_per, stages);
@@ -980,13 +977,9 @@ int run_dense(const CUtensorMap* tw, const CUtensorMap& tx,
   const int stages = dense_stages(kLn, NT, a.steps);
   if (stages == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int smem = dense_smem(kLn, NT, a.steps, stages);
-  static int allowed = 0;  // the largest smem this instantiation was given
-  if (smem > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    allowed = smem;
-  }
+  static dyn_smem::Limit limit;  // per device (smem_limit.cuh)
+  if (const cudaError_t e = dyn_smem::allow(kernel, smem, limit, 0))
+    return static_cast<int>(e);
   kernel<<<grid, kThreads, smem, stream>>>(tw[0], tw[1], tw[2], tx, a,
                                            stages);
   return static_cast<int>(cudaGetLastError());

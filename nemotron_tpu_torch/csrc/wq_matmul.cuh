@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 
 // measurement only (tools/gemm_turns.py --probe builds these variants):
 // bit 1 leaves out the staging of every step after the first, bit 2 the
@@ -488,13 +490,10 @@ template <int BM, class A, class W, class E>
 int run_tile(const A& a, const W& w, const E& e, const F32Plan& plan, int M,
              int N, int K, cudaStream_t stream) {
   auto kernel = gemm_f32<BM, A, W, E>;
-  static bool attr = false;  // the shared memory above 48 KB, set once
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BM>::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attr = true;
-  }
+  static dyn_smem::Limit limit;  // the smem above 48 KB, per device
+  if (const cudaError_t err =
+          dyn_smem::allow(kernel, Tile<BM>::kSmem, limit, 0))
+    return static_cast<int>(err);
   // a programmatic dependent launch: the grid is set up while the previous
   // kernel of the stream drains, and waits for it (griddepcontrol.wait)
   // before it reads anything

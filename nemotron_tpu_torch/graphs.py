@@ -64,6 +64,10 @@ import torch
 from . import kernels
 from .streaming.state import state_tensors
 
+# The key kinds of the slot operations between ticks (api.py: prime,
+# reset, compact, realign); key[1] of each is the engine group's cfg.
+SLOT_KEYS = ("prime", "reset", "compact", "realign")
+
 
 @dataclasses.dataclass
 class _Entry:

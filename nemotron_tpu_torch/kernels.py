@@ -91,6 +91,10 @@ _SIGNATURES = {
     # the same with the int8 caches as k codes, k scales, v codes, v scales
     "t1_attention_block_i8_f32": [_P] * 23 + _BLOCK_TAIL,
     "t1_attention_block_i8_bf16": [_P] * 23 + _BLOCK_TAIL,
+    # buffer, [B] bool mask (or null: every row), L x B, B, heads, heads per
+    # block, frames a row, bytes a frame, vector bytes, mode (0 shift, 1
+    # roll, 2 zero), lo, lc, shift (ops/kv_rows.py); stream
+    "kv_rows": [_P, _P] + [_I] * 11 + [_P],
 }
 
 _lock = threading.Lock()
@@ -220,7 +224,13 @@ Q4_MATMUL = Kernel(
 T1_ATTENTION_BLOCK = Kernel(
     "t1_attention_block", "nemotron_tpu_torch/csrc/t1_attention_block.cu",
     "nemotron_tpu/ops/attn_block_pallas.py:139")
-KERNELS = (T1_ATTENTION, MEL_FRAMES, Q8_MATMUL, Q4_MATMUL, T1_ATTENTION_BLOCK)
+# no TPU kernel: the slot operations' moves, XLA ops in the JAX package
+KV_ROWS = Kernel(
+    "kv_rows", "nemotron_tpu_torch/csrc/kv_rows.cu",
+    "none (XLA ops: nemotron_tpu/models/encoder.py:466 compact_cache, :499 "
+    "realign_cache; nemotron_tpu/streaming/state.py:66 reset_slots)")
+KERNELS = (T1_ATTENTION, MEL_FRAMES, Q8_MATMUL, Q4_MATMUL, T1_ATTENTION_BLOCK,
+           KV_ROWS)
 
 
 def reset_counts() -> None:

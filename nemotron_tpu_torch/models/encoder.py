@@ -16,8 +16,11 @@ last lc of the chunk's frames).
 In-place updates: where the JAX package donates the cache buffers to XLA,
 the port writes them in place — `stream_encode_step` appends the new K/V
 frames into `k_cache`/`v_cache` and overwrites `conv_cache`;
-`compact_cache` and `realign_cache` rewrite the buffers they are given.
-A caller that needs the old state keeps its own copy.
+`compact_cache` and `realign_cache` rewrite the buffers they are given,
+row by masked row through ops/kv_rows.py (kernel `csrc/kv_rows.cu` on the
+card: the slot mask is read on the device, so neither reads anything back
+to the host and both run inside CUDA graphs). A caller that needs the old
+state keeps its own copy.
 
 `attn_block` (chunk_len 1) runs each layer's attention sub-block (LN,
 projections, attention, out projection, residual) as one call of kernel B3
@@ -49,6 +52,7 @@ from ..ops.basic import ffn, glu, layer_norm, linear, tp_sum
 from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
 from ..ops.kvquant import (HeadShards, is_quant, kv_cat, kv_parts, kv_slice,
                            kv_update_slice_, kv_where, quantize_kv)
+from ..ops.kv_rows import ROLL, SHIFT, kv_rows_
 from ..ops.quant import is_quantized
 from ..ops.rel_attention import (rel_pos_mha, rel_pos_mha_fullbuf,
                                  rel_pos_mha_window)
@@ -446,8 +450,9 @@ def _phased_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
     return x
 
 
-def _rows(mask):
-    return None if mask is None else torch.nonzero(mask.to(torch.bool)).flatten()
+def _device_mask(mask):
+    """A [B] slot mask as a bool tensor (None stays None)."""
+    return None if mask is None else torch.as_tensor(mask).to(torch.bool)
 
 
 def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
@@ -457,25 +462,18 @@ def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
     `phase` is the phase the caller is at (default n_phases, the wrap): the
     window sits at [phase*chunk_len, phase*chunk_len + lc). A mid-cycle
     compaction MUST pass its phase. `mask` ([B] bool) compacts only those
-    slots; the others keep their windows untouched."""
+    slots; the others keep their windows untouched. One masked row rewrite
+    per buffer (ops/kv_rows.py: on the card one kernel launch, the mask
+    read on the device; no temporary)."""
     lc = cfg.att_left_context
     if phase is None:
         phase = cfg.n_phases
     lo = phase * cfg.chunk_len(hp)
     if lo == 0:
         return k_cache, v_cache
-    rows = _rows(mask)
+    m = _device_mask(mask)
     for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):  # q and s alike
-        if rows is None:
-            # a layer at a time: the copy's temporary is one layer's window
-            # (a captured k-chunk tick's pool holds its largest temporary)
-            for layer in buf:
-                layer[:, :, :lc] = layer[:, :, lo:lo + lc].clone()
-        else:
-            r = rows.to(buf.device)  # a head shard's device
-            sel = buf[:, r]  # [L, n, H, S(, Dh)] copy
-            sel[:, :, :, :lc] = sel[:, :, :, lo:lo + lc].clone()
-            buf[:, r] = sel
+        kv_rows_(buf, SHIFT, m, lo=lo, lc=lc)
     return k_cache, v_cache
 
 
@@ -483,12 +481,12 @@ def realign_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
                   delta: int, mask):
     """Realign-on-resume, in place: roll the masked slots' S axis forward by
     `delta` phases so their window sits at the group's current phase. The
-    wrapped-around region lies outside the live window and is never read."""
+    wrapped-around region lies outside the live window and is never read.
+    One masked row rewrite per buffer (ops/kv_rows.py)."""
     if delta == 0:
         raise ValueError("realign_cache: delta must be non-zero")
     shift = delta * cfg.chunk_len(hp)
-    rows = _rows(mask)
+    m = _device_mask(mask)
     for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):
-        r = rows.to(buf.device)  # a head shard's device
-        buf[:, r] = torch.roll(buf[:, r], shift, dims=3)
+        kv_rows_(buf, ROLL, m, shift=shift)
     return k_cache, v_cache

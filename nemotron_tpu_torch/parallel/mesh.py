@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..ops.kvquant import HeadShards, QuantKV, is_quant
-from ..params import TP_SPLIT, ModelParams, TPGroup, device_of, tp_params
+from ..params import (TP_SPLIT, ModelParams, TPGroup, device_of, tp_params,
+                      upload)
 from ..streaming.state import (MeshState, StreamState, extract_slots,
                                install_slot)
 
@@ -131,7 +132,7 @@ def split_rows(mesh: Mesh, arr) -> DPBatch:
         raise ValueError(f"batch {arr.shape[0]} must be divisible by the "
                          f"mesh's dp={n_dp}")
     b = arr.shape[0] // n_dp
-    return DPBatch([torch.tensor(arr[d * b:(d + 1) * b], device=row[0])
+    return DPBatch([upload(arr[d * b:(d + 1) * b], row[0])
                     for d, row in enumerate(mesh.devices)])
 
 

@@ -154,6 +154,21 @@ def device_of(device) -> torch.device:
     return d
 
 
+def upload(arr, device) -> torch.Tensor:
+    """A host array as a new tensor on `device`. To a card it goes through
+    pinned memory as a non-blocking copy on the current stream: a blocking
+    copy from pageable memory waits for the stream's queued work (a host
+    sync), which would drain the ticks the engine keeps in flight. The
+    pinned block stays reserved until the copy is done, so `arr` may be
+    reused at once."""
+    t = torch.from_numpy(np.require(np.asarray(arr),
+                                    requirements=["C", "W"]))
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone() if device.type == "cpu" else t.to(device)
+
+
 def on_device(device):
     """The context in which launches go to `device`'s current stream (a
     kernel wrapper launches on the current device's stream); nothing for

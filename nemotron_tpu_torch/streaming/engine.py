@@ -50,10 +50,19 @@ import time
 import numpy as np
 import torch
 
+from ..graphs import SLOT_KEYS
 from ..models.decoder import unpack_tokens
 from ..ops.kvquant import QuantKV, is_quant
 from ..streaming.state import (PP_TAIL_LEN, extract_slots, install_slot,
-                               reset_slots, state_from_leaves, state_leaves)
+                               state_from_leaves, state_leaves)
+
+def _group_key(g, key) -> bool:
+    """Whether graph `key` is one of group g's: a tick key names its cfg
+    and batch (the decode half's after a flag), a slot operation's key its
+    cfg (graphs.SLOT_KEYS)."""
+    return ((g.cfg, g.batch) in (key[1:3], key[2:4])
+            or (key[0] in SLOT_KEYS and key[1] == g.cfg))
+
 
 # Token readbacks lag dispatch by up to this many ticks (the default of
 # EngineGroup's readback_depth).
@@ -234,15 +243,19 @@ class EngineGroup:
 
     def prewarm(self) -> None:
         """Run each tick variant of the group's flow once on garbage state
-        (builds the kernels, warms cuBLAS/cuDNN and the allocator), then
-        reset every slot."""
+        (builds the kernels, warms cuBLAS/cuDNN and the allocator), and each
+        slot operation it can call between ticks twice (every realign delta,
+        the compactions, the prime and the reset: on a graphed model each
+        key warmed up, then captured), then reset every slot."""
         b, cfg, model = self.batch, self.cfg, self.model
         k_cap = max_safe_tick_chunks(cfg.n_phases, self.max_tick_chunks)
         half = np.zeros(b, dtype=bool)
         half[:max(1, b // 2)] = True
-        self.state = model.prime_frontend(
-            self.state, half, np.zeros((b, PP_TAIL_LEN), np.float32),
-            np.zeros(b, np.float32))
+        every = np.ones(b, dtype=bool)
+        for _ in range(2):
+            self.state = model.prime_frontend(
+                self.state, half, np.zeros((b, PP_TAIL_LEN), np.float32),
+                np.zeros(b, np.float32), cfg=cfg)
         nv = np.full(b, cfg.valid_out_len, np.int16)
         zeros = np.zeros(b, np.int16)
         if self.phase_timers:
@@ -262,12 +275,19 @@ class EngineGroup:
                 self.state, _ = model.fused_tick_packed(
                     cfg, self.state, model.put_batch(packed), active is None,
                     phase=0, k=k, fast_gated=self.use_realign)
-        if self.use_realign:
-            self.state = model.realign_state(cfg, self.state, 1, half)
-            self.state = model.compact_state(cfg, self.state, mask=half)
-        else:
-            self.state = model.compact_state(cfg, self.state, phase=1)
-        self.state = reset_slots(self.state, np.ones(b, dtype=bool), self.hp)
+        for _ in range(2):
+            if self.use_realign:
+                for delta in range(1 - cfg.n_phases, cfg.n_phases):
+                    if delta:
+                        self.state = model.realign_state(cfg, self.state,
+                                                         delta, half)
+                self.state = model.compact_state(cfg, self.state, mask=half)
+            else:
+                for phase in range(1, cfg.n_phases):
+                    self.state = model.compact_state(cfg, self.state,
+                                                     phase=phase)
+            self.state = model.compact_state(cfg, self.state)
+            self.state = model.reset_state(self.state, every, cfg=cfg)
         model.synchronize()
         self.phase = 0
         self.slot_phase[:] = 0
@@ -492,7 +512,8 @@ class EngineGroup:
             return
         mask = np.zeros(self.batch, dtype=bool)
         mask[resets] = True
-        self.state = reset_slots(self.state, mask, self.hp)
+        self.state = self.model.reset_state(self.state, mask,
+                                            cfg=self.cfg)
         self.frame_offsets[resets] = 0
         self.slot_phase[resets] = self.phase  # no history: trivially aligned
 
@@ -558,7 +579,8 @@ class EngineGroup:
             tails[i], lasts[i] = prime_carry(raw[j])
             mask[i] = True
             self.slots[i].primed = True
-        self.state = self.model.prime_frontend(self.state, mask, tails, lasts)
+        self.state = self.model.prime_frontend(self.state, mask, tails, lasts,
+                                               cfg=self.cfg)
 
     def drain_consumed(self) -> dict[int, int]:
         with self._lock:
@@ -1009,8 +1031,9 @@ class BatchedEngine:
 
     def stats(self) -> dict:
         """Engine counters per latency group (host clock, seconds), each
-        group's compiled ticks (graphs: keys, captures, replays, pool
-        bytes, capture seconds; graphs.py); with phase_timers also each
+        group's compiled ticks and slot operations (graphs: keys, captures,
+        recaptures, replays, pool bytes, capture seconds; graphs.py); with
+        phase_timers also each
         group's encoder_seconds / decoder_seconds."""
         out = {"streams": len(self._route),
                "device": self.model.backend_name, "groups": {}}
@@ -1039,11 +1062,10 @@ class BatchedEngine:
                 out["groups"][rc]["emit_latency_ms"] = {
                     "p50": round(float(p50), 1), "p90": round(float(p90), 1),
                     "p99": round(float(p99), 1), "n": int(lat.size)}
-            gs = self.model.graphs.stats(
-                lambda key, g=g: (g.cfg, g.batch) in (key[1:3], key[2:4]))
+            gs = self.model.graphs.stats(lambda key, g=g: _group_key(g, key))
             out["groups"][rc]["graphs"] = {
-                k: gs[k] for k in ("keys", "captures", "replays",
-                                   "pool_bytes")}
+                k: gs[k] for k in ("keys", "captures", "recaptures",
+                                   "replays", "pool_bytes")}
             out["groups"][rc]["graphs"]["capture_seconds"] = round(
                 gs["capture_seconds"], 3)
             if g.phase_timers:

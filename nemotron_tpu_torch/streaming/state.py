@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..models.decoder import DecodeState, init_decode_state
+from ..ops.kv_rows import ZERO, kv_rows_
 from ..ops.kvquant import HeadShards, QuantKV, is_quant, kv_parts, kv_zeros
 from ..config import CacheConfig, Hparams
 
@@ -111,23 +112,27 @@ class MeshState:
 
 
 def reset_slots(state, mask, hp: Hparams):
-    """Zero the slots where mask[b] is True (stream join), in place."""
+    """Zero the slots where mask[b] is True (stream join), in place: the
+    K/V caches by masked row rewrites (ops/kv_rows.py, ZERO: on the card
+    one kernel launch per buffer), every other leaf by a masked fill (JAX
+    state.py's jnp.where, in place). The mask stays on the device: nothing
+    is read back to the host, so the reset runs inside a CUDA graph."""
     if isinstance(state, MeshState):
         mask = np.asarray(mask)
         b = state.per_shard
         for d, shard in enumerate(state.shards):
             reset_slots(shard, mask[d * b:(d + 1) * b], hp)
         return state
-    rows = torch.nonzero(torch.as_tensor(mask, device=state.cache_valid.device)
-                         ).flatten()
+    m = torch.as_tensor(mask).to(device=state.cache_valid.device,
+                                 dtype=torch.bool)
     for buf in (*kv_parts(state.k_cache), *kv_parts(state.v_cache)):
-        buf[:, rows.to(buf.device)] = 0  # a head shard's device
-    state.conv_cache[:, rows] = 0
+        kv_rows_(buf, ZERO, m)  # a head shard's on its own device
+    state.conv_cache.masked_fill_(m[None, :, None, None], 0)
     for buf in (state.cache_valid, state.decode.h, state.decode.c,
                 state.decode.frame_offset, state.pp_tail, state.pp_last,
                 state.mel_ov):
-        buf[rows] = 0
-    state.decode.prev_token[rows] = hp.blank_id
+        buf.masked_fill_(m.reshape((-1,) + (1,) * (buf.dim() - 1)), 0)
+    state.decode.prev_token.masked_fill_(m, hp.blank_id)
     return state
 
 
@@ -135,7 +140,7 @@ def prime_frontend(state: StreamState, mask, tails, lasts) -> StreamState:
     """Install per-slot frontend carries (slot join: tail = 256 centre-pad
     zeros + the stream's first 96 pre-emphasized samples, so every later
     shift_samples block yields exactly shift_mel_frames frames), in
-    place."""
+    place; the mask stays on the device."""
     m = mask.to(torch.bool)
     state.pp_tail.copy_(torch.where(m[:, None], tails, state.pp_tail))
     state.pp_last.copy_(torch.where(m, lasts, state.pp_last))

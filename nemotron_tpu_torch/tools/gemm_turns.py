@@ -62,13 +62,15 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
-import os
 import statistics
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
+
+try:
+    from . import turns
+except ImportError:  # run as a script: this directory leads the path
+    import turns
 
 GROUPS = ("b1", "b3", "b4b5", "mel", "tick", "e2e")
 SHAPES = ((4096, 1024), (1024, 4096), (2048, 1024), (1024, 1024))
@@ -591,7 +593,7 @@ def child(tree: str, flags: list[str], probe: str | None, only: list[str],
     carries its plan, bytes and bound; a probe build of the bf16 body
     (`probe` "bf16") times bf16 x only and adds the single-step case, one
     of the f32 body ("f32") f32 x only."""
-    sys.path.insert(0, tree)
+    turns.enter(tree)
     import torch
 
     from nemotron_tpu_torch import kernels
@@ -676,10 +678,7 @@ def main(argv=None) -> int:
         child(args.child, args.flag, args.child_probe, only, args.profile,
               args.plans)
         return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = turns.card()
     print(card, flush=True)
     runs = [(t.split("=", 1)[0], t.split("=", 1)[1], None, None)
             for t in args.tree]
@@ -701,8 +700,7 @@ def main(argv=None) -> int:
         runs.append(("plans", change, (), ()))
     out = []
     for label, path, flags, probe in runs:
-        cmd = [sys.executable, os.path.abspath(__file__),
-               "--child", os.path.abspath(path)]
+        cmd = []
         if probe == ():  # the plan sweeps only
             cmd += ["--plans"] + [f"--only={g}" for g in only]
         elif probe is not None:  # a probe build times its groups
@@ -716,12 +714,9 @@ def main(argv=None) -> int:
         else:
             cmd += [f"--only={g}" for g in only]
             cmd += ["--profile"] if args.profile else []
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             cwd=os.path.abspath(path), timeout=900)
-        if res.returncode != 0:
-            print(f"{label}: failed\n{res.stderr[-3000:]}", flush=True)
+        got = turns.run_child(__file__, label, path, cmd)
+        if got is None:
             return 1
-        got = json.loads(res.stdout.strip().splitlines()[-1])
         out.append(dict(label=label, path=path, flags=list(flags or ()),
                         **got))
         for r in got["rows"]:
@@ -760,10 +755,7 @@ def main(argv=None) -> int:
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}, share "
                   f"{r['bound_ms'] / r['ms']:.2f}), {r['bytes']} bytes; "
                   f"plan {plan} ({card})", flush=True)
-    if args.json:
-        dest = Path(args.json)
-        dest.parent.mkdir(parents=True, exist_ok=True)
-        dest.write_text(json.dumps({"card": card, "runs": out}, indent=1))
+    turns.write_json(args.json, card, out)
     return 0
 
 

@@ -8,6 +8,8 @@ main path's shapes, and a tiny tick on the card against the same tick on
 the CPU. This file imports no jax.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1125,9 +1127,10 @@ def test_graphed_ticks_equal_eager_at_full_width(cuda, form):
     """tools/graph_turns.run_schedule (wraps, the backlog, a masked tick,
     a join; three passes: warm-up, capture, replay) at B=32, R=0 on both
     models: tokens equal, every leaf bit-equal (f32: the largest
-    difference printed, within 1e-6), one capture per key, the last pass's
-    replays under set_sync_debug_mode("error"), and the kernels' launch
-    counts through the replays equal to eager's."""
+    difference printed, within 1e-6), one capture per key (the ticks' and
+    the slot operations'), the last pass (uploads, replays, slot
+    operations) under set_sync_debug_mode("error"), and the kernels'
+    launch counts through the replays equal to eager's."""
     from nemotron_tpu_torch.tools.graph_turns import compare, run_schedule
 
     graphed, eager = _graph_pair(form)
@@ -1147,10 +1150,13 @@ def test_graphed_ticks_equal_eager_at_full_width(cuda, form):
         assert cmp["max_abs"] <= 1e-6, cmp
     else:
         assert cmp["equal"], cmp
-    assert stats["captures"] == stats["keys"] == 11, stats
+    ticks = graphed.graphs.stats(lambda key: key[0] == "tick_packed")
+    assert ticks["captures"] == ticks["keys"] == 11, ticks
+    # with the four slot operations' keys (prime, reset, wrap, realign)
+    assert stats["captures"] == stats["keys"] == 15, stats
     assert stats["recaptures"] == 0 and stats["replays"] > stats["captures"]
     assert n_graphed == n_eager
-    assert n_graphed["mel_frames"] > 0
+    assert n_graphed["mel_frames"] > 0 and n_graphed["kv_rows"] > 0
 
 
 def test_graphed_stream_step_and_profiled_halves_equal_eager(cuda):
@@ -1340,3 +1346,161 @@ def test_graphed_diarize_nets_equal_eager(cuda, tmp_path):
     (pg, rg), (pe, re_) = (_pipeline_run(m, sig) for m in models)
     assert pg.segments == pe.segments and rg.rttm == re_.rttm
     assert pg.n_segments and models[0].graphs.stats()["recaptures"] == 0
+
+
+# --- kv_rows: the slot operations' masked row rewrites ---------------------
+
+from nemotron_tpu_torch.ops import kv_rows as kvr  # noqa: E402
+
+# (L, B, H, S, Dh): full width at right context 0 (S_buf 78) and 6 / 13
+# (98), a tp head shard (H = 4 of 8, and 2), and the tiny geometry
+KV_ROWS_GEOMS = {"full-78": (2, 256, 8, 78, 128), "full-98": (2, 256, 8, 98,
+                                                              128),
+                 "tp4-78": (2, 256, 4, 78, 128), "tp2-98": (2, 64, 2, 98, 128),
+                 "tiny": (2, 5, 4, 16, 16)}
+KV_ROWS_KINDS = ("f32", "bf16", "int8 codes", "scales")
+KV_ROWS_MASKS = ("none", "clear", "one", "some", "all")
+
+
+def _kv_rows_buffer(dev, kind, geom, seed):
+    n_l, b, h, s, dh = geom
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "int8 codes":
+        return torch.randint(-127, 128, (n_l, b, h, s, dh), generator=g,
+                             device=dev, dtype=torch.int8)
+    shape = (n_l, b, h, s) if kind == "scales" else (n_l, b, h, s, dh)
+    x = torch.randn(shape, generator=g, device=dev)
+    return x.to(torch.bfloat16) if kind == "bf16" else x
+
+
+def _kv_rows_mask(dev, which, b):
+    m = {"none": None, "clear": np.zeros(b, bool),
+         "one": np.arange(b) == b // 2, "some": np.arange(b) % 4 == 1,
+         "all": np.ones(b, bool)}[which]
+    return None if m is None else torch.tensor(m, device=dev)
+
+
+@pytest.mark.parametrize("mask", KV_ROWS_MASKS)
+@pytest.mark.parametrize("kind", KV_ROWS_KINDS)
+@pytest.mark.parametrize("geom", list(KV_ROWS_GEOMS))
+def test_kv_rows_kernel_matches_plain(cuda, geom, kind, mask):
+    """kv_rows against its plain version, bit for bit, in each mode: the
+    compaction's shift (the wrap and a mid-cycle phase), the realign's
+    roll (forward and back) and the reset's zero; one launch each."""
+    g = KV_ROWS_GEOMS[geom]
+    s = g[3]
+    lc = s - {78: 8, 98: 28, 16: 8}[s]  # the window; the slack behind it
+    m = _kv_rows_mask(cuda, mask, g[1])
+    calls = ((kvr.SHIFT, dict(lo=s - lc, lc=lc)),
+             (kvr.SHIFT, dict(lo=3, lc=lc)),
+             (kvr.ROLL, dict(shift=s - lc - 1)), (kvr.ROLL, dict(shift=-7)),
+             (kvr.ZERO, {}))
+    for i, (mode, kw) in enumerate(calls):
+        buf = _kv_rows_buffer(cuda, kind, g, seed=i)
+        want = kvr.kv_rows_ref_(buf.clone(), mode, m, **{
+            k: (v % s if k == "shift" else v) for k, v in kw.items()})
+        before = kernels.KV_ROWS.launches
+        got = kvr.kv_rows_(buf, mode, m, **kw)
+        torch.cuda.synchronize()
+        assert got is buf and kernels.KV_ROWS.launches == before + 1
+        assert torch.equal(buf, want), (mode, kw)
+
+
+def test_kv_rows_wrapper_refuses(cuda):
+    buf = torch.zeros((2, 4, 2, 16, 8), device=cuda)
+    with pytest.raises(ValueError):
+        kvr.kv_rows_(buf, kvr.SHIFT, lo=10, lc=8)  # past S
+    with pytest.raises(ValueError):
+        kvr.kv_rows_(buf.transpose(3, 4), kvr.ZERO)  # not contiguous
+    with pytest.raises(ValueError):
+        kvr.kv_rows_(buf, kvr.ZERO, torch.ones(3, dtype=torch.bool,
+                                               device=cuda))
+
+
+SLOT_FORMS = ("f32", "bf16-int8kv")
+
+
+@pytest.mark.parametrize("form", SLOT_FORMS)
+def test_graphed_slot_ops_equal_eager(cuda, form):
+    """The slot operations between ticks (JAX's ("compact", cfg, phase,
+    masked) and ("realign", cfg, delta), ("prime", cfg) and
+    ("reset", cfg)) on a graphed and an eager model at full width, B=32, R=0,
+    from the same random state, three rounds (warm-up, capture, replay)
+    with other masks each round: every leaf bit-equal after each call,
+    each key captured once and replayed, and the third round under
+    set_sync_debug_mode("error")."""
+    from nemotron_tpu_torch.streaming.state import state_leaves
+    from nemotron_tpu_torch.tools.graph_turns import (compare,
+                                                      slot_ops_sync_errors)
+
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float32
+    graphed = ASRModel.random(Hparams(), seed=0, dtype=dtype, device=cuda,
+                              kv_int8="int8kv" in form)
+    eager = ASRModel(graphed.hp, graphed.params, graphed.tokenizer.vocab,
+                     device=cuda, kv_int8=graphed.kv_int8, graphs=False)
+    cfg = graphed.cache_config(0)
+    states = [m.init_stream_state(GRAPH_B, cfg) for m in (graphed, eager)]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for a, b in zip(*(state_leaves(st) for st in states)):
+        if a.dtype == torch.int8:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                  device=cuda, dtype=torch.int8))
+        elif a.is_floating_point():
+            a.copy_(torch.randn(a.shape, generator=g, device=cuda))
+        b.copy_(a)
+    rng = np.random.default_rng(6)
+    for rnd in range(3):
+        masks = [rng.random(GRAPH_B) < 0.3 for _ in range(5)]
+        tails = rng.standard_normal((GRAPH_B, 352)).astype(np.float32)
+        lasts = rng.standard_normal(GRAPH_B).astype(np.float32)
+        calls = (("compact_state", (cfg,), {}),
+                 ("compact_state", (cfg,), dict(mask=masks[0])),
+                 ("compact_state", (cfg,), dict(phase=3, mask=masks[1])),
+                 ("realign_state", (cfg,), dict(delta=1, mask=masks[2])),
+                 ("realign_state", (cfg,), dict(delta=-6, mask=masks[3])),
+                 ("reset_state", (), dict(mask=masks[4], cfg=cfg)),
+                 ("prime_frontend", (), dict(mask=masks[4], tails=tails,
+                                             lasts=lasts, cfg=cfg)))
+        check = slot_ops_sync_errors(graphed) if rnd == 2 else \
+            contextlib.nullcontext()
+        with check:
+            for name, args, kw in calls:
+                for i, m in enumerate((graphed, eager)):
+                    if name in ("compact_state", "realign_state"):
+                        states[i] = getattr(m, name)(args[0], states[i], **kw)
+                    else:
+                        states[i] = getattr(m, name)(states[i], **kw)
+                torch.cuda.synchronize()
+                assert compare(*states)["equal"], (rnd, name, kw)
+    for (key, _), e in graphed.graphs.entries.items():
+        # the capturing call replays what it captured
+        assert (e.calls, e.captures, e.replays) == (3, 1, 2), (key, e)
+    assert len(graphed.graphs.entries) == 7
+    stats = graphed.graphs.stats()
+    print(f"{form}: slot graphs {stats}")
+
+
+def test_engine_groups_capture_each_slot_key_once(cuda):
+    """Two engine groups of one graphed model at full width (bf16, right
+    contexts 0 and 6, batch 8), prewarmed, then streams joining each group
+    in turn: each group's slot keys are its own, so each is captured once
+    (at the prewarm) and every join replays it, with no recapture."""
+    from nemotron_tpu_torch.graphs import SLOT_KEYS
+    from nemotron_tpu_torch.streaming.engine import BatchedEngine
+    from nemotron_tpu_torch.tools.graph_turns import join_in_turns
+
+    model = ASRModel.random(Hparams(), seed=0, dtype=torch.bfloat16,
+                            device=cuda)
+    engine = BatchedEngine(model, batch_per_group=8)
+    engine.prewarm(right_contexts=(0, 6))
+    join_in_turns(engine, (0, 6), joins=4)
+    slot = {key: e for (key, _), e in model.graphs.entries.items()
+            if key[0] in SLOT_KEYS}
+    for kind in ("prime", "reset"):
+        assert len([k for k in slot if k[0] == kind]) == 2, kind
+    for key, e in slot.items():
+        assert e.captures == 1, (key, e.captures, e.calls)
+    for rc in (0, 6):
+        reset = slot[("reset", engine.groups[rc].cfg)]
+        assert reset.replays == reset.calls - 1 == 5, rc
+    assert model.graphs.stats(lambda k: k[0] in SLOT_KEYS)["recaptures"] == 0

@@ -496,7 +496,9 @@ def test_graph_turns_schedule_runs_every_tick_key():
     the GPU tests run graphed against eager: on the CPU both models run
     the bodies eagerly and agree; the schedule reaches the 11 tick keys
     of R=0 (every phase, the k=4 backlog at phases 0 and 4, the masked
-    tick) three times each, over 78 ticks."""
+    tick) three times each, over 78 ticks, and the four keys of the slot
+    operations between them (the prime, the reset, the wrap's compaction,
+    the realign by +1) at least three times each."""
     from nemotron_tpu_torch.tools.graph_turns import compare, run_schedule
 
     a = TorchModel.random(tiny_hparams(), seed=1, device="cpu")
@@ -507,6 +509,12 @@ def test_graph_turns_schedule_runs_every_tick_key():
     assert len(tok_a) == 78
     assert all(np.array_equal(x, y) for x, y in zip(tok_a, tok_b))
     assert compare(st_a, st_b)["equal"]
-    stats = a.graphs.stats()
+    stats = a.graphs.stats(lambda key: key[0] == "tick_packed")
     assert stats["keys"] == 11 and stats["calls"] == 78
+    cfg = a.cache_config(0)
+    calls = {key: e.calls for (key, _), e in a.graphs.entries.items()
+             if key[0] != "tick_packed"}
+    assert calls == {("prime", cfg): 4, ("reset", cfg): 3,
+                     ("compact", cfg, cfg.n_phases, False): 9,
+                     ("realign", cfg, 1): 3}
     assert all(e.calls >= 3 for e in a.graphs.entries.values())

@@ -93,8 +93,8 @@ CHILD = textwrap.dedent("""
     assert nmesc_cluster(emb).labels.shape == (8,)
     from nemotron_tpu_torch.parallel.mesh import make_mesh
     assert make_mesh(2, 2, devices=["cpu"] * 4).shape == {"dp": 2, "tp": 2}
-    assert len(kernels.KERNELS) == 5
-    assert [k.launches for k in kernels.KERNELS] == [0] * 5
+    assert len(kernels.KERNELS) == 6
+    assert [k.launches for k in kernels.KERNELS] == [0] * 6
     assert kernels._lib is None  # nothing was built or loaded
     print("ok", len(names))
 """)
