@@ -140,9 +140,24 @@ Phases, one line each, any failure exits non-zero:
              texts equal to one device's; a stream exported from a dp=2
              engine finishing on one device with the text of never moving;
              4 replicas of the port's server behind a RoutedClient, 4
-             streams one per replica, texts equal to a session's; host ms per
-             B=256 tick at dp x tp = 1x1, 2x1, 2x2, busy share and the tp
-             reduction's device ms (one card: overhead, not scaling)
+             streams one per replica, texts equal to a session's; a tp
+             group's calls as CUDA graphs (each rank on a stream of its
+             own): tools/graph_turns.run_schedule at B=32 on the 2x2 mesh
+             (every phase through the wrap, the k=4 backlog, a masked tick
+             and its realign, a join; warm-up, capture, replay) on an eager
+             and a graphed twin in f32 dense (B1) and bf16 Q8_0 int8 K/V
+             with dense attention matrices and the block (B3, B4): tokens
+             equal, leaves bit-equal (f32 within 1e-6), one capture per key
+             and dp shard, the last pass under set_sync_debug_mode
+             ("error"), launches through the replays equal to eager's; the
+             2x2 offline path on a 6 s file graphed against eager (ids and
+             decoder state bit for bit); host ms per graphed B=256 tick
+             at dp x tp = 1x1, 2x1, 2x2, busy and idle share, kernels per
+             tick, and the tp reduction's device ms (one card: overhead,
+             not scaling); where there are two cards, across them: 2x1
+             and 1x2 tick parity against one device, the f32 schedule and
+             the offline path on 1x2 graphed against eager, and B=256
+             ticks at 2x1 and 1x2 eager and graphed
  10 graphs   the compiled tick (graphs.py; every entry point above ran
              graphed, the default): tools/graph_turns.run_schedule at
              B=256 (every phase through the wrap, the k=4 backlog, a
@@ -975,10 +990,13 @@ def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
     CUPTI, CUDA activity only, summed from the raw trace: an offline call
     issues tens of thousands of kernels, too many for key_averages):
     returns (total device ms per call, [(name, ms per call, calls per
-    call)] sorted by time), or None if the trace holds no device time."""
+    call)] sorted by time, {device index: ms per call in which some
+    kernel ran there}), or None if the trace holds no device time. The
+    total counts kernels that overlap on streams of one card (a tp
+    group's ranks) once each; the third item counts that time once."""
     from torch.profiler import ProfilerActivity, profile
 
-    from nemotron_tpu_torch.tools.turns import device_ns
+    from nemotron_tpu_torch.tools.turns import device_ns, union_ms
 
     for _ in range(warmup):
         fn()
@@ -990,7 +1008,8 @@ def profile_rows(torch, fn, n: int = 8, warmup: int = 4):
     rows = sorted(((k, ns / 1e6 / n, calls / n)
                    for k, (ns, calls) in device_ns(prof).items()),
                   key=lambda r: -r[1])
-    return (sum(r[1] for r in rows), rows) if rows else None
+    union = {d: ms / n for d, ms in union_ms(prof).items()}
+    return (sum(r[1] for r in rows), rows, union) if rows else None
 
 
 def profile_decode(torch, model, b: int, n: int = 8, mode: int = 0):
@@ -1195,17 +1214,6 @@ TICK_TIMES = (("f32", 32, 0), ("f32", 256, 0), ("bf16", 256, 0),
 DECODE_AT_R0 = (("f32", 256), ("bf16 int8-KV", 256))
 
 
-def twin(model, graphs: bool = False):
-    """A model on `model`'s weights and options with its own graph cache:
-    eager (graphs False), or graphed from a clean cache."""
-    from nemotron_tpu_torch.api import ASRModel
-
-    return ASRModel(model.hp, model.params, model.tokenizer.vocab,
-                    device=model.device, kv_int8=model.kv_int8,
-                    attn_block=model.attn_block,
-                    confidence=model.confidence, graphs=graphs)
-
-
 def tick_row(torch, model, b: int, mode: int, n_time: int, n_prof: int):
     """One TickLoop of all-active ticks at batch b, right context `mode`:
     the median host ms of n_time ticks (synchronised before and after
@@ -1237,6 +1245,8 @@ def phase_tick_times(torch, models, card: str) -> list:
     0 / 1 / 6 / 13) / tick ms), and the graphed keys' captures, capture
     seconds and pool bytes; eager, the kernels of the tick's decode half
     alone and the kernels' rows. Returns the table's rows."""
+    from nemotron_tpu_torch.tools.graph_turns import twin
+
     table = []
     for name, b, mode in TICK_TIMES:
         graphed = models[name]
@@ -1519,6 +1529,7 @@ def phase_offline_long(torch, model):
     are dropped at the end."""
     from nemotron_tpu_torch import kernels
     from nemotron_tpu_torch.audio.frontend import process_many
+    from nemotron_tpu_torch.tools.graph_turns import twin
 
     long = stream_audio(1, LONG_SAMPLES, SEED + 6)[0]
     short = stream_audio(1, 80000, SEED + 7)[0]
@@ -1652,6 +1663,7 @@ def time_offline(torch, graphed, audios, card: str, name: str,
     pool MB, replays. The graphed model's offline graphs are dropped at
     the end."""
     from nemotron_tpu_torch.audio.frontend import process_many
+    from nemotron_tpu_torch.tools.graph_turns import twin
 
     t_start = time.perf_counter()
     eager = twin(graphed)
@@ -3256,45 +3268,203 @@ def mesh_replicas(torch, single, audios):
 
 
 def mesh_times(torch, gpu, hp, vocab, card):
-    """Host ms per all-active tick at B=256, R=0, f32 for dp x tp = 1x1,
-    2x1 and 2x2 with every device cuda:0, the device's busy share of each
-    (profiler), and the tp reduction's device ms per tick (the adds of the
-    shards' partials: 3 per layer per dp shard, timed alone). One card:
-    these show the mesh's overhead, not its scaling."""
+    """Host ms per all-active graphed tick at B=256, R=0, f32 for dp x
+    tp = 1x1, 2x1 and 2x2 with every device cuda:0 (the eager rows were
+    cut for the smoke's time: PERF.md section 5 keeps them), the device's
+    busy time (the union of its kernels' spans: a tp group's rank streams
+    overlap) and idle share of each and its kernels per tick (profiler), and
+    the tp reduction's device ms per tick (the adds of the shards'
+    partials: 3 per layer per dp shard, timed alone). One card: these
+    show the mesh's overhead, not its scaling. Returns the rows."""
     from nemotron_tpu_torch.api import ASRModel
     from nemotron_tpu_torch.ops.basic import tp_sum
 
+    rows = []
     for n_dp, n_tp in MESH_SHAPES:
         model = ASRModel(hp, gpu["f32"].params, vocab, device="cuda")
         if n_dp * n_tp > 1:
             model.shard(one_card_mesh(n_dp, n_tp))
         ms, prof = tick_row(torch, model, MESH_TIMED_B, 0, 12, 4)
-        busy = prof[0] if prof else float("nan")
-        red = ""
+        # every device is cuda:0: one card's busy time
+        busy = sum(prof[2].values()) if prof else float("nan")
+        kernel_ms = prof[0] if prof else float("nan")
+        kern = round(sum(r[2] for r in prof[1])) if prof else None
+        rows.append({"dp": n_dp, "tp": n_tp, "ms": round(ms, 2),
+                     "busy_ms": round(busy, 2),
+                     "kernel_ms": round(kernel_ms, 2),
+                     "idle": round(1 - busy / ms, 3), "kernels": kern})
+        log(f"[9 times] dp={n_dp} x tp={n_tp} on one card, "
+            f"B={MESH_TIMED_B} R=0 f32 graphed: {ms:.2f} ms per tick (host, "
+            f"median of 12), device busy {busy:.2f} ms (the union of the "
+            f"kernels' spans; their times summed {kernel_ms:.2f} ms), busy "
+            f"share {busy / ms:.3f}, idle share {1 - busy / ms:.3f}, "
+            f"{kern} kernels per tick ({card}; one card: the mesh's "
+            f"overhead, not its scaling)")
+        del model
+        torch.cuda.empty_cache()
         if n_tp > 1:
             b = MESH_TIMED_B // n_dp
             parts = [torch.randn((b, 1, hp.d_model), device="cuda")
                      for _ in range(n_tp)]
             one = cuda_ms(lambda: tp_sum(parts, parts[0].device))
-            red = (f"; tp reduction {one * 3 * hp.n_layers * n_dp:.4f} ms "
-                   f"of device per tick ({one:.5f} ms per sum of {n_tp} "
-                   f"[{b}, 1, {hp.d_model}] f32 parts x 3 x "
-                   f"{hp.n_layers} layers x {n_dp} dp shards)")
-        log(f"[9 times] dp={n_dp} x tp={n_tp} on one card, B={MESH_TIMED_B} "
-            f"R=0 f32: {ms:.2f} ms per tick (host, median of 12), device "
-            f"busy {busy:.2f} ms, busy share {busy / ms:.3f}{red} ({card}; "
-            f"one card: the mesh's overhead, not its scaling)")
-        del model
-        torch.cuda.empty_cache()
+            log(f"[9 times] dp={n_dp} x tp={n_tp}: tp reduction "
+                f"{one * 3 * hp.n_layers * n_dp:.4f} ms of device per tick "
+                f"({one:.5f} ms per sum of {n_tp} [{b}, 1, {hp.d_model}] "
+                f"f32 parts x 3 x {hp.n_layers} layers x {n_dp} dp shards)")
+    return rows
+
+
+MESH_GRAPH_B = 32  # the graphed-against-eager schedule's streams on a mesh
+MESH_OFFLINE_SAMPLES = 96000  # the mesh's offline file: 6 s
+
+
+def mixed_q8_block(gpu, hp, vocab):
+    """bf16 Q8_0 encoder matrices with the four attention matrices that
+    kernel B3 reads (encoder.ATTN_BLOCK_WEIGHTS) dense, int8 K/V and
+    attn_block: a model whose tp ticks launch B3 and B4 both."""
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.models.encoder import ATTN_BLOCK_WEIGHTS
+
+    q8 = gpu["bf16 Q8_0 int8-KV"].params
+    dense = gpu["bf16"].params.layers
+    params = dataclasses.replace(q8, layers=dataclasses.replace(
+        q8.layers, **{n: getattr(dense, n) for n in ATTN_BLOCK_WEIGHTS}))
+    return ASRModel(hp, params, vocab, device="cuda", kv_int8=True,
+                    attn_block=True)
+
+
+def mesh_offline(torch, model):
+    """The offline path on `model`'s mesh, one 6 s file at OFFLINE_BIAS
+    (dp shard 0's tp group in the encoder's graph, a branch per rank
+    stream; the decode blocks and their carry on its lead): the file's
+    keys warmed up and captured, then offline_parity against an eager
+    twin on the same mesh: ids, frames and the final decoder state bit
+    for bit, every key of the parity call replayed, the encoder key
+    captured once with the group's devices."""
+    from nemotron_tpu_torch.audio.frontend import process_many
+    from nemotron_tpu_torch.tools.graph_turns import twin
+
+    graphed = offline_model(model, OFFLINE_BIAS).shard(model.mesh)
+    eager = twin(graphed)
+    audio = stream_audio(1, MESH_OFFLINE_SAMPLES, SEED + 92)[0]
+    mels = process_many([graphed._preprocessor()], [audio])
+    for _ in range(2):  # the warm-up, then the capture
+        graphed._transcribe_mels(mels, None)
+    same, _, secs = offline_parity(torch, graphed, eager, mels)
+    segs = graphed.offline_stats
+    enc = [e for (k, _), e in graphed.graphs.entries.items()
+           if k[0] == "batch"]
+    replayed = all(how["replays"] == how["calls"] for seg in segs
+                   for how in seg["graphs"].values())
+    group = tuple(graphed.groups[0].devices)
+    ok = (same["ids_equal"] and same["state_equal"] and same["tokens"]
+          and replayed and len(enc) == 1 and enc[0].captures == 1
+          and enc[0].devices == group)
+    log(f"[9 offline] {graphed.backend_name} 6 s file, blank bias "
+        f"{OFFLINE_BIAS:g}, graphed against eager: {same}; host s replay "
+        f"{secs[0]:.3f}, eager {secs[1]:.3f}; the replaying call's keys "
+        f"{[seg['graphs'] for seg in segs]}; graphs "
+        f"{json.dumps(offline_graphs(graphed))}")
+    if not ok:
+        raise SystemExit(f"phase 9 (offline): graphed and eager differ on "
+                         f"{graphed.backend_name}: {same}, keys {segs}")
+    graphed.drop_offline_graphs()
+    del graphed, eager
+    torch.cuda.empty_cache()
+
+
+def mesh_graphs(torch, counts, gpu, hp, vocab, mesh22, step):
+    """A tp group's calls as CUDA graphs at full width (the 2x2 mesh on
+    cuda:0): graph_parity's schedule at MESH_GRAPH_B streams in f32 dense
+    (B1, B2, kv_rows) and bf16 Q8_0 int8-K/V with the block (B3, B4;
+    mixed_q8_block), then the offline path (mesh_offline). The replays'
+    launches go to `counts`; B1, B3 and B4 must be among them. step(name)
+    logs each part's seconds."""
+    totals: dict = {}
+    graph_parity(torch, "f32", mesh22, 0, totals, batch=MESH_GRAPH_B,
+                 tag="9")
+    step("tp graphs f32")
+    block = mixed_q8_block(gpu, hp, vocab).shard(mesh22.mesh)
+    graph_parity(torch, "bf16 Q8_0 int8-KV block", block, 0, totals,
+                 batch=MESH_GRAPH_B, tag="9")
+    del block
+    step("tp graphs bf16 Q8_0 int8-KV block")
+    missing = [k for k in ("t1_attention", "t1_attention_block",
+                           "q8_matmul", "mel_frames", "kv_rows")
+               if not totals.get(k)]
+    if missing:
+        raise SystemExit(f"phase 9: kernels {missing} never launched "
+                         f"through a tp graph's replay")
+    mesh_offline(torch, mesh22)
+    step("tp offline")
+    for k, v in totals.items():
+        counts.total[k] += v
+    torch.cuda.empty_cache()
+
+
+def mesh_two_cards(torch, counts, single, card) -> list:
+    """The mesh across two cards (a machine with two or more): dp (2x1)
+    and tp (1x2) tick parity against `single` (one device, f32 dense);
+    the 1x2 tp graphs against eager (graph_parity's schedule at
+    MESH_GRAPH_B: peer copies as graph nodes, the second card's graph
+    pool) and its offline path (mesh_offline); host ms per B=256 R=0 f32
+    tick at 2x1 and 1x2, eager and graphed in turns, kernel ms summed,
+    each card's busy ms (the union of its kernels' spans), kernels, pool
+    MB. Returns the timed rows."""
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    def on(shape, graphs=True):
+        return ASRModel(single.hp, single.params, single.tokenizer.vocab,
+                        device="cuda", graphs=graphs).shard(make_mesh(*shape))
+
+    for shape in ((2, 1), (1, 2)):
+        mesh_tick_parity(torch, counts, "f32 dense, two cards", single,
+                         on(shape))
+    totals: dict = {}
+    graph_parity(torch, "f32 two cards", on((1, 2)), 0, totals,
+                 batch=MESH_GRAPH_B, tag="9")
+    for k, v in totals.items():
+        counts.total[k] += v
+    mesh_offline(torch, on((1, 2)))
+    rows = []
+    for shape in ((2, 1), (1, 2)):
+        for graphs in (False, True):
+            m = on(shape, graphs)
+            ms, prof = tick_row(torch, m, MESH_TIMED_B, 0, 12, 4)
+            rows.append({"mesh": m.backend_name, "graphed": graphs,
+                         "ms": round(ms, 2),
+                         "kernel_ms": round(prof[0], 2) if prof else None,
+                         "busy_ms_by_card": {d: round(v, 2) for d, v in
+                                             prof[2].items()}
+                         if prof else None,
+                         "kernels": round(sum(r[2] for r in prof[1]))
+                         if prof else None,
+                         "pool_MB": round(m.graphs.stats()["pool_bytes"]
+                                          / 2 ** 20, 1)})
+            log(f"[9 two cards] B={MESH_TIMED_B} R=0 f32: "
+                f"{json.dumps(rows[-1])} ({card})")
+            del m
+            torch.cuda.empty_cache()
+    return rows
 
 
 def phase_mesh(torch, hp, vocab, gpu, card, report) -> dict:
     """Phase 9: the mesh at full width on the card (every device cuda:0;
-    across two cards too where there are two). Returns the launches of
-    the mesh's own runs."""
+    across two cards too where there are two), its tp group's calls as
+    CUDA graphs (mesh_graphs). Returns the launches of the mesh's own
+    runs."""
     from nemotron_tpu_torch.api import ASRModel
 
+    t_step = [time.perf_counter()]
+
+    def step(done: str) -> None:  # each part's seconds, for the budget
+        now = time.perf_counter()
+        log(f"[9 time] {done} in {now - t_step[0]:.0f} s")
+        t_step[0] = now
+
     mesh_kernels(torch, report)
+    step("kernels")
     counts = MeshCounts()
 
     def pair(params, mesh_shape, **kw):
@@ -3318,25 +3488,71 @@ def phase_mesh(torch, hp, vocab, gpu, card, report) -> dict:
     mesh_tick_parity(torch, counts, "f32 dense", single,
                      ASRModel(hp, f32, vocab, device="cuda").shard(
                          one_card_mesh(2, 1)), mode=13)
+    step("tick parity")
     if torch.cuda.device_count() >= 2:  # dp and tp across two cards
-        from nemotron_tpu_torch.parallel.mesh import make_mesh
-
-        for shape in ((2, 1), (1, 2)):
-            mesh_tick_parity(torch, counts, "f32 dense, two cards", single,
-                             ASRModel(hp, f32, vocab, device="cuda").shard(
-                                 make_mesh(*shape)))
+        mesh_two_cards(torch, counts, single, card)
+        step("two cards")
     mesh_dp2 = ASRModel(hp, f32, vocab, device="cuda").shard(
         one_card_mesh(2, 1))
     _, audios = mesh_servers(torch, counts, single, mesh22, mesh_dp2)
+    step("servers")
     mesh_migrate(torch, counts, single, mesh_dp2)
+    step("migration")
     mesh_replicas(torch, single, audios)
-    mesh_times(torch, gpu, hp, vocab, card)
+    step("replicas")
+    mesh_graphs(torch, counts, gpu, hp, vocab, mesh22, step)
+    log(f"[9 times] {json.dumps(mesh_times(torch, gpu, hp, vocab, card))}")
+    step("times")
     log(f"[9 launches] the mesh's runs: {json.dumps(counts.total)}")
     missing = [k for k, v in counts.total.items() if not v]
     if missing:
         raise SystemExit(f"phase 9: kernels {missing} never launched on the "
                          f"mesh's path")
     return counts.total
+
+
+def phase_mesh_alone(two_cards: bool = False) -> int:
+    """Phase 9 by itself on the card: the kernels' build, phase 9's models
+    (as main() makes them) and phase_mesh, ~4-5 minutes:
+    python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.phase_mesh_alone())"
+    With two_cards, its cross-card part alone (mesh_two_cards; a machine
+    with two cards or more, e.g. a host of four H100s), ~3 minutes."""
+    import torch
+
+    from nemotron_tpu_torch import Hparams, kernels
+    from nemotron_tpu_torch.api import ASRModel
+    from nemotron_tpu_torch.params import params_to, quantize_encoder_layers
+
+    t0 = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    kernels.library()
+    cpu = ASRModel.random(Hparams(), seed=SEED, device="cpu")
+    cpu.params.joint.out_b[cpu.hp.blank_id] += BLANK_BIAS
+    hp, vocab, dense = cpu.hp, cpu.tokenizer.vocab, cpu.params
+    bf16 = torch.bfloat16
+
+    def model(params, dtype=None, **kw):
+        return ASRModel(hp, params_to(params, "cuda", dtype), vocab,
+                        device="cuda", **kw)
+
+    if two_cards:
+        counts = MeshCounts()
+        mesh_two_cards(torch, counts, model(dense), card)
+        counts = counts.total
+    else:
+        gpu = {"f32": model(dense), "bf16": model(dense, bf16),
+               "bf16 Q8_0 int8-KV": model(quantize_encoder_layers(dense, 8),
+                                          bf16, kv_int8=True),
+               "bf16 Q4_0": model(quantize_encoder_layers(dense, 4), bf16)}
+        report = {k.name: {} for k in kernels.KERNELS}
+        counts = phase_mesh(torch, hp, vocab, gpu, card, report)
+    log(f"[time] phase 9 alone after {time.perf_counter() - t0:.0f} s; "
+        f"launches {json.dumps(counts)}")
+    return 0
 
 
 # --- phase 10: the compiled tick (CUDA graphs) -------------------------------
@@ -3349,21 +3565,26 @@ GRAPH_PARITY = (("f32", 0), ("bf16 block", 0), ("bf16 int8-KV", 0),
 GRAPH_F32_ATOL = 1e-6  # f32 graphed vs eager where not bit-equal
 
 
-def graph_parity(torch, name, model, mode, totals: dict) -> dict:
-    """tools/graph_turns.run_schedule at B=GRAPH_B on an eager twin, then
-    on a graphed twin (its last pass's replays under set_sync_debug_mode
-    ("error")): tokens equal, every leaf bit-equal (f32: within
-    GRAPH_F32_ATOL), one capture per key and none again, and the kernels'
-    launches through the replays equal to eager's (added to `totals`)."""
+def graph_parity(torch, name, model, mode, totals: dict, batch=GRAPH_B,
+                 tag: str = "10") -> dict:
+    """tools/graph_turns.run_schedule at `batch` streams on an eager twin,
+    then on a graphed twin (its last pass's replays under
+    set_sync_debug_mode("error")); on a mesh, twins on the same mesh (each
+    key then one graph per dp shard, a tp group's with a branch per rank
+    stream): tokens equal, every leaf bit-equal (f32: within
+    GRAPH_F32_ATOL), one capture per key and dp shard and none again, and
+    the kernels' launches through the replays equal to eager's (added to
+    `totals`). `tag` names the phase in the log."""
     from nemotron_tpu_torch import kernels
-    from nemotron_tpu_torch.tools.graph_turns import compare, run_schedule
+    from nemotron_tpu_torch.tools.graph_turns import (compare, run_schedule,
+                                                      twin)
 
     runs = {}
     for form, m in (("eager", twin(model)),
                     ("graphed", twin(model, graphs=True))):
         kernels.reset_counts()
         t0 = time.perf_counter()
-        toks, state = run_schedule(m, GRAPH_B, mode,
+        toks, state = run_schedule(m, batch, mode,
                                    sync_debug=form == "graphed")
         runs[form] = (toks, state, kernel_counts(),
                       time.perf_counter() - t0, m.graphs.stats())
@@ -3373,7 +3594,9 @@ def graph_parity(torch, name, model, mode, totals: dict) -> dict:
     cmp = compare(st_g, st_e)
     n_bad = sum(not np.array_equal(g, e) for g, e in zip(tok_g, tok_e))
     f32 = not name.startswith("bf16")
-    log(f"[10 parity] {name} B={GRAPH_B} R={mode}: {len(tok_g)} ticks (3 "
+    where = "" if model.mesh is None else f"{model.backend_name} "
+    log(f"[{tag} parity] {name} {where}B={batch} R={mode}: "
+        f"{len(tok_g)} ticks (3 "
         f"passes: warm-up, capture, replay); tokens differ on {n_bad} "
         f"ticks ({sum(int((t >= 0).sum()) for t in tok_g)} emitted); "
         f"leaves {cmp}; graphs {json.dumps(gs)}; launches graphed "
@@ -3389,8 +3612,8 @@ def graph_parity(torch, name, model, mode, totals: dict) -> dict:
     if n_g != n_e:
         bad.append(f"launches {n_g} vs {n_e}")
     if bad:
-        raise SystemExit(f"phase 10 ({name} R={mode}): graphed and eager "
-                         f"differ: {bad}")
+        raise SystemExit(f"phase {tag} ({name} R={mode}): graphed and "
+                         f"eager differ: {bad}")
     for k, v in n_g.items():
         totals[k] = totals.get(k, 0) + v
     del runs, st_e, st_g
@@ -3415,7 +3638,8 @@ def graph_churn(torch, model, name) -> dict:
 
     from nemotron_tpu_torch.tools.graph_turns import (SLOT_KEYS, Churn,
                                                       compare,
-                                                      slot_ops_sync_errors)
+                                                      slot_ops_sync_errors,
+                                                      twin)
 
     runs = {}
     for form, m in (("eager", twin(model)), ("graphed", twin(model, True))):
@@ -3472,6 +3696,7 @@ def graph_server(torch, model, name):
     as the groups take turns: after graphed run r no slot key has more
     than r captures."""
     from nemotron_tpu_torch.graphs import SLOT_KEYS
+    from nemotron_tpu_torch.tools.graph_turns import twin
 
     audios = list(stream_audio(4, 48000, SEED + 2))
     modes = (13, 13, 6, 0)
@@ -3514,6 +3739,8 @@ def phase_graphs(torch, gpu, card, timers, cli_rtfs) -> dict:
     schedule (GRAPH_PARITY), the server, the phase timers (graphed in
     phase 7, eager here), the CLI (phase 5's runs) and the tick table in
     turns. Returns the kernels' launches over the graphed schedules."""
+    from nemotron_tpu_torch.tools.graph_turns import twin
+
     totals: dict = {}
     parity = {f"{name} R={mode}": graph_parity(torch, name, gpu[name], mode,
                                                totals)

@@ -35,7 +35,10 @@ replays one graph per batch size, a block of models/asr.DECODE_EXIT_EVERY
 iterations, between the host's exit tests (`_transcribe_mels`). The
 offline graphs have a pool of their own, which `drop_offline_graphs`
 frees while the ticks' graphs stay. `graphs=False` runs the same bodies
-eagerly on the card, as the CPU does. A tp group's calls stay eager.
+eagerly on the card, as the CPU does. On a mesh each of these is one
+graph per JAX key and dp shard, a tp group's too: its ranks run on
+streams of their own (params.TPGroup.each), forked from the capture
+stream and joined back, so the graph holds a branch per rank.
 
 `shard(mesh)` serves over a device mesh (parallel/mesh.py): the parameters
 replicated over 'dp' and split over 'tp', each stream state a MeshState
@@ -43,7 +46,8 @@ split over dp, each host input of put_batch a DPBatch split the same way;
 every tick then runs once per dp shard (its tp devices inside the
 encoder), and the tokens come back in slot order on the lead device.
 `params` keeps the logical weights (the fingerprint is the single
-device's), and the offline path runs on dp shard 0.
+device's), and the offline path runs on dp shard 0 (its tp devices in
+the encoder).
 """
 
 from __future__ import annotations
@@ -183,9 +187,8 @@ class ASRModel:
         device: the model's params and state as they are). With a JAX
         `key`, fn returns (state, *outputs) and each shard's call goes
         through the graph cache (graphs.py): one graph per key and dp
-        shard on that shard's device; a tp group's call runs eagerly
-        through the same bookkeeping (its reduction copies across
-        devices)."""
+        shard on that shard's lead device, a tp group's with a branch per
+        rank stream (its reduction's copies across devices inside)."""
         if self.mesh is None:
             return [self._call(key, 0, self.params, None, self.device, state,
                                fn, batched)]
@@ -204,24 +207,28 @@ class ASRModel:
         def body(s, *r):
             return fn(params, tp, s, *r)[1:]
 
-        return (state, *self.graphs.run(key, shard, dev, body, state,
-                                        tuple(rows), eager=tp is not None))
+        return (state, *self.graphs.run(
+            key, shard, dev, body, state, tuple(rows),
+            devices=() if tp is None else tp.devices))
 
     def _per_shard(self, state, fn, *batched, with_tokens=True, key=None):
         """fn(params, tp, state, *rows) on each dp shard (_shard_calls);
-        the shards' states make a MeshState and their tokens (with_tokens)
-        one tensor in slot order on the lead device. Without tokens fn
+        the shards' states make a MeshState (the caller's own where each
+        shard's state is the caller's shard, as a keyed body's is: its
+        storage written in place) and their tokens (with_tokens) one
+        tensor in slot order on the lead device. Without tokens fn
         returns (state,) and the state comes back alone."""
         outs = self._shard_calls(state, fn, *batched, key=key)
-        if not with_tokens:
-            states = [o[0] for o in outs]
-            return (states[0] if self.mesh is None
-                    else state_mod.MeshState(states))
         if self.mesh is None:
-            return outs[0]
-        states, toks = zip(*outs)
-        return state_mod.MeshState(list(states)), torch.cat(
-            [t.to(self.device) for t in toks])
+            return outs[0] if with_tokens else outs[0][0]
+        states = [o[0] for o in outs]
+        if all(s is t for s, t in zip(states, state.shards)):
+            new = state
+        else:
+            new = state_mod.MeshState(states)
+        if not with_tokens:
+            return new
+        return new, torch.cat([o[1].to(self.device) for o in outs])
 
     @property
     def weights_fingerprint(self) -> str:
@@ -415,7 +422,7 @@ class ASRModel:
     def prime_frontend(self, state, mask, tails, lasts, cfg=None):
         """Install frontend carries for newly joined slots. `cfg`: the
         state's cache config (it keys the graph)."""
-        def prime(_p, _tp, s, *rows):
+        def prime(_p, _tp, s, *rows):  # the lead's leaves alone
             return (state_mod.prime_frontend(s, *rows),)
 
         return self._per_shard(
@@ -426,8 +433,8 @@ class ASRModel:
         """Zero the slots where mask[b] is True (a stream joins), in
         place (streaming/state.reset_slots). `cfg`: the state's cache
         config (it keys the graph)."""
-        def reset(_p, _tp, s, m):
-            return (state_mod.reset_slots(s, m, self.hp),)
+        def reset(_p, tp, s, m):
+            return (state_mod.reset_slots(s, m, self.hp, tp),)
 
         return self._per_shard(state, reset, self.put_batch(mask),
                                with_tokens=False, key=("reset", cfg))
@@ -441,9 +448,9 @@ class ASRModel:
         if phase == 0:
             return state
 
-        def compact(_p, _tp, state, m=None):
+        def compact(_p, tp, state, m=None):
             compact_cache(cfg, self.hp, state.k_cache, state.v_cache,
-                          phase=phase, mask=m)
+                          phase=phase, mask=m, tp=tp)
             return (state,)
 
         return self._per_shard(
@@ -452,9 +459,9 @@ class ASRModel:
 
     def realign_state(self, cfg, state, delta: int, mask):
         """Move masked slots' K/V windows forward by `delta` phases."""
-        def realign(_p, _tp, state, m):
+        def realign(_p, tp, state, m):
             realign_cache(cfg, self.hp, state.k_cache, state.v_cache, delta,
-                          m)
+                          m, tp=tp)
             return (state,)
 
         return self._per_shard(state, realign, self.put_batch(mask),
@@ -488,11 +495,12 @@ class ASRModel:
         zero-padded batch per segment of max_seg_mel_frames (each padded
         to a multiple of MEL_BUCKET), the decoder state carried from one
         segment to the next. Returns ([(token_ids, frame_indices)] per
-        mel, the last segment's decoder state). On a mesh, on dp shard 0
-        (its tp devices in the encoder, eagerly). A segment is the
-        encoder's graph, key ("batch", T, B), then the decode's blocks,
-        key ("batch_decode", B, frames, confidence), then the tokens' host
-        copy."""
+        mel, the last segment's decoder state). On a mesh, on dp shard 0,
+        graphed as on one device: its tp devices in the encoder's graph
+        (a branch per rank stream), the decode and its carry on its lead.
+        A segment is the encoder's graph, key ("batch", T, B), then the
+        decode's blocks, key ("batch_decode", B, frames, confidence), then
+        the tokens' host copy."""
         hp = self.hp
         params, tp, dev = self._shards()[0]
         b = len(mels)
@@ -505,12 +513,13 @@ class ASRModel:
         out = [([], []) for _ in range(b)]
         offsets = [0] * b
         seg = self.max_seg_mel_frames
-        graphed = self.graphs.enabled and dev.type == "cuda" and tp is None
+        graphed = self.graphs.enabled and dev.type == "cuda"
         carry = self._carry(b, dev) if graphed else None
 
         def run(key, body, state, inputs):
             return self.graphs.run(key, 0, dev, body, state, inputs,
-                                   eager=tp is not None, pool="offline")
+                                   pool="offline",
+                                   devices=() if tp is None else tp.devices)
 
         self.offline_stats = []
         for start in range(0, max(max(m.shape[0] for m in mels), 1), seg):

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops import mel as melops
+from ..params import upload
 from .. import native
 
 
@@ -88,25 +89,47 @@ class StreamPreprocessor:
         return mel[0, :n_frames].cpu().numpy()
 
 
-def process_many(pps: list[StreamPreprocessor],
-                 audios: list) -> list[np.ndarray]:
-    """Advance many stream preprocessors with ONE mel call: the host
-    bookkeeping runs per stream, the frames of every stream go to one
-    batched launch (frame counts padded to the bucketed maximum), and the
-    result is unpacked per stream."""
+def process_many_start(pps: list[StreamPreprocessor], audios: list):
+    """The first half of process_many (JAX frontend.py's): the host
+    bookkeeping per stream and the frames of every stream enqueued as one
+    batched mel call, without waiting for it (on the card the samples go
+    up through pinned memory, params.upload, and the mel is enqueued;
+    nothing is read back). Returns the handle for process_many_finish, or
+    None when no stream has a frame ready."""
     counts = [pp._push(a) for pp, a in zip(pps, audios)]
     n_max = max(counts, default=0)
     if n_max <= 0:
-        return [np.zeros((0, pp.n_mels), np.float32) for pp in pps]
+        return None
     n_pad = _bucket(n_max)
     bufs = np.zeros((len(pps), _buf_len(n_pad)), dtype=np.float32)
     for i, (pp, cnt) in enumerate(zip(pps, counts)):
         if cnt > 0:
             bufs[i] = pp._take(cnt, n_pad)
     pp0 = pps[0]
-    mel = melops.mel_frames(torch.tensor(bufs, device=pp0.device),
-                            pp0.window512, pp0.fb, n_pad).cpu().numpy()
+    mel = melops.mel_frames(upload(bufs, pp0.device), pp0.window512,
+                            pp0.fb, n_pad)
+    return mel, counts
+
+
+def process_many_finish(handle) -> list[np.ndarray]:
+    """The second half: wait for the mel call of `handle` and unpack it
+    per stream."""
+    mel, counts = handle
+    mel = mel.cpu().numpy()
     return [mel[i, :cnt] for i, cnt in enumerate(counts)]
+
+
+def process_many(pps: list[StreamPreprocessor],
+                 audios: list) -> list[np.ndarray]:
+    """Advance many stream preprocessors with ONE mel call: the host
+    bookkeeping runs per stream, the frames of every stream go to one
+    batched launch (frame counts padded to the bucketed maximum), and the
+    result is unpacked per stream (process_many_start, then
+    process_many_finish)."""
+    handle = process_many_start(pps, audios)
+    if handle is None:
+        return [np.zeros((0, pp.n_mels), np.float32) for pp in pps]
+    return process_many_finish(handle)
 
 
 def mel_full(audio_i16, filterbank, window) -> np.ndarray:

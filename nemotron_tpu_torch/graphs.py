@@ -35,6 +35,25 @@ What a graph holds fixed, every replay keeps fixed:
 - the weights and the kernels' cached constants and counters do not move
   while the model lives.
 
+A tp group's body (one dp shard of a mesh over several devices: its
+`devices`) runs its ranks on streams of their own (params.TPGroup.each):
+each rank stream forks from the stream the body runs on, here the
+capture stream, and joins back before every reduction and at its end, in
+the warm-up and in the capture alike, so the graph holds a branch per
+rank and its replay needs nothing more. The capture's pool takes every
+allocation on the lead device, the rank streams' on that card included
+(they belong to the capture). A rank on another card allocates from that
+card's allocator, whose general cache would hand a block the graph keeps
+writing at every replay to later eager work: so during a capture each
+other card's allocations go into a graph pool of that card's
+(torch.cuda.use_mem_pool on a torch.cuda.MemPool that the cache keeps
+beside the lead's pool, one per card and pool name), which nothing
+outside the captures draws from. What a capture cannot do the warm-up
+does on the same rank streams: the first cross-card copies (peer access),
+each kernel's shared-memory attribute per device (csrc/smem_limit.cuh),
+cuBLAS's handles and workspaces per rank stream, and the split-K counters
+per rank stream (ops/quant.f32_scratch).
+
 Kernel launch counts (kernels.Kernel.launches): what the graph launches is
 counted at capture, taken back, and added on every replay, so a replayed
 tick counts as an eager one does.
@@ -79,6 +98,7 @@ class _Entry:
     outputs: list | None = None       # static output tensors
     launches: dict | None = None      # Kernel -> launches per replay
     pool: tuple = ()                  # (device, pool name)
+    devices: tuple = ()               # a tp group's devices (lead first)
     captures: int = 0
     capture_seconds: float = 0.0
     pool_bytes: int = 0               # reserved memory's growth at capture
@@ -94,6 +114,8 @@ class GraphCache:
         self.enabled = enabled
         self.entries: dict = {}
         self._pools: dict = {}    # (device, pool name) -> graph memory pool
+        # ((device, pool name), other card) -> that card's MemPool
+        self._card_pools: dict = {}
         self._streams: dict = {}  # device -> capture stream
 
     def keys(self) -> set:
@@ -106,6 +128,7 @@ class GraphCache:
         moved)."""
         self.entries.clear()
         self._pools.clear()
+        self._card_pools.clear()
 
     def drop(self, select) -> None:
         """Drop the graphs whose key passes `select`, and every pool that
@@ -115,6 +138,8 @@ class GraphCache:
                         if not select(k[0])}
         used = {e.pool for e in self.entries.values()}
         self._pools = {k: p for k, p in self._pools.items() if k in used}
+        self._card_pools = {k: p for k, p in self._card_pools.items()
+                            if k[0] in used}
 
     def stats(self, select=None) -> dict:
         """Totals over the entries whose key passes `select` (all by
@@ -131,14 +156,17 @@ class GraphCache:
                 "replays": sum(e.replays for e in es)}
 
     def run(self, key, shard: int, device: torch.device, body, state,
-            inputs: tuple, eager: bool = False, pool: str = "") -> tuple:
+            inputs: tuple, pool: str = "", devices=()) -> tuple:
         """body(state, *inputs) -> a tuple of output tensors, the state
-        written in place: eagerly (the CPU, graphs off, `eager`, a key's
-        first call), captured into the pool named `pool` (its second call,
-        or a state with other storage), or replayed."""
+        written in place: eagerly (the CPU, graphs off, a key's first
+        call), captured into the pool named `pool` (its second call, or a
+        state with other storage), or replayed. `devices`: the shard's tp
+        devices, `device` first, where the body runs over a tp group
+        (the module docstring)."""
         entry = self.entries.setdefault((key, shard), _Entry())
         entry.calls += 1
-        if eager or not self.enabled or device.type != "cuda":
+        entry.devices = tuple(devices)
+        if not self.enabled or device.type != "cuda":
             return tuple(body(state, *inputs))
         if entry.outputs_meta is None:
             return self._warm_up(entry, device, body, state, inputs)
@@ -177,12 +205,17 @@ class GraphCache:
         pool = self._pools.get(entry.pool)
         if pool is None:
             pool = self._pools[entry.pool] = torch.cuda.graph_pool_handle()
+        cards = [d for d in dict.fromkeys(entry.devices) if d != device]
         side.wait_stream(cur)
         graph = torch.cuda.CUDAGraph()
         before = kernels.counts()
-        reserved = torch.cuda.memory_reserved(device)
+        reserved = {d: torch.cuda.memory_reserved(d) for d in (device, *cards)}
         t0 = time.perf_counter()
-        with torch.cuda.stream(side), _gc_paused():
+        with torch.cuda.stream(side), _gc_paused(), \
+                contextlib.ExitStack() as card_pools:
+            for d in cards:  # another card's allocations: its graph pool
+                card_pools.enter_context(torch.cuda.use_mem_pool(
+                    self._card_pool(entry.pool, d), d))
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 outs = tuple(body(state, *static_in))
@@ -205,18 +238,31 @@ class GraphCache:
         launches = _delta(before)
         kernels.add_counts(launches, -1)
         entry.capture_seconds += time.perf_counter() - t0
-        entry.pool_bytes += max(
-            0, torch.cuda.memory_reserved(device) - reserved)
+        entry.pool_bytes += sum(
+            max(0, torch.cuda.memory_reserved(d) - n)
+            for d, n in reserved.items())
         entry.captures += 1
         entry.graph, entry.ptrs, entry.launches = graph, ptrs, launches
         entry.inputs, entry.outputs = static_in, static_out
 
+    def _card_pool(self, pool, card) -> object:
+        """The graph pool on `card` (another card of a tp group) beside the
+        lead's pool `pool`: a torch.cuda.MemPool made on that card, kept
+        while a graph of that pool lives (drop, clear)."""
+        key = (pool, card)
+        if key not in self._card_pools:
+            with torch.cuda.device(card):
+                self._card_pools[key] = torch.cuda.MemPool()
+        return self._card_pools[key]
+
     def _failed(self, pool, before: dict) -> None:
         """After a failed capture: its recorded launches taken back, and
-        its pool left behind (a pool whose last graph is gone cannot take
+        its pools left behind (a pool whose last graph is gone cannot take
         another capture)."""
         kernels.add_counts(_delta(before), -1)
         self._pools.pop(pool, None)
+        self._card_pools = {k: p for k, p in self._card_pools.items()
+                            if k[0] != pool}
 
     def _replay(self, entry, inputs) -> tuple:
         for dst, x in zip(entry.inputs, inputs):

@@ -178,7 +178,8 @@ def fused_serve_tick_scan(params, state: StreamState, audio_blocks, n_valid,
             attn_block=attn_block, confidence=confidence, tp=tp)
         toks.append(t)
     if phase + k == cfg.n_phases:  # wrap: move the window back to phase 0
-        compact_cache(cfg, hp, state.k_cache, state.v_cache)  # in place
+        compact_cache(cfg, hp, state.k_cache, state.v_cache,
+                      tp=tp)  # in place
     return state, torch.cat(toks, dim=1)
 
 

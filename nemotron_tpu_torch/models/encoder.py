@@ -36,7 +36,14 @@ GSPMD does from its shardings: each device computes its heads' attention
 slice of each FFN; the partial products of the out projection and of each
 FFN's w2 are summed on the lead device (ops/basic.tp_sum), where the
 residual is added once. LayerNorms, the conv module, the subsampling and
-the prompt fusion run once, on the lead device.
+the prompt fusion run once, on the lead device. Everything a rank does
+(its inputs' copies to its device, its heads, its FFN slice, its
+partial's copy to the lead, every write to its HeadShards parts, the
+slot operations' kv_rows launches on them) runs on that rank's stream
+between a fork from and a join to the lead's current stream
+(TPGroup.each, kvquant.on_parts), so a tp shard's call is captured as one
+CUDA graph with a branch per rank (graphs.py), and its caches are written
+in place, part by part.
 """
 
 from __future__ import annotations
@@ -51,12 +58,12 @@ from ..ops.attn_block import t1_attention_block
 from ..ops.basic import ffn, glu, layer_norm, linear, tp_sum
 from ..ops.conv import conv_subsampling, depthwise_causal_conv1d
 from ..ops.kvquant import (HeadShards, is_quant, kv_cat, kv_parts, kv_slice,
-                           kv_update_slice_, kv_where, quantize_kv)
-from ..ops.kv_rows import ROLL, SHIFT, kv_rows_
+                           kv_update_slice_, kv_where, on_parts, quantize_kv)
+from ..ops.kv_rows import ROLL, SHIFT, caches_rows_
 from ..ops.quant import is_quantized
 from ..ops.rel_attention import (rel_pos_mha, rel_pos_mha_fullbuf,
                                  rel_pos_mha_window)
-from ..params import layer_slice, on_device
+from ..params import layer_slice
 from ..config import CacheConfig, Hparams
 
 
@@ -183,32 +190,32 @@ def _tp_layer(tp, layer: int, hp: Hparams, attend, fused_ln: bool = False):
     docstring): (lead layer params, attention, ffns) for conformer_layer.
     attend(t, lp_t, cur_t) runs device t's heads on cur_t (LN(res) on
     device t; res itself with fused_ln, where the call does its own LN,
-    as B3) and returns (partial, k_new, v_new); the partials are summed on
-    the lead device and added to res once, and the new K/V frames come
-    back as HeadShards."""
+    as B3) and returns (partial, k_new, v_new); each rank runs on its own
+    stream (TPGroup.each) and moves its partial to the lead there; the
+    partials are summed on the lead device after the join and added to
+    res once, and the new K/V frames come back as HeadShards (on the
+    ranks' devices)."""
     lps = [layer_slice(p.layers, layer) for p in tp.params]
     lead = lps[0]
 
     def attention(res):
         cur = res if fused_ln else layer_norm(res, lead.norm_attn_w,
                                                lead.norm_attn_b)
-        outs, ks, vs = [], [], []
-        for t, (dev, lp) in enumerate(zip(tp.devices, lps)):
-            with on_device(dev):
-                out, k_new, v_new = attend(t, lp, cur.to(dev))
-            outs.append(out)
-            ks.append(k_new)
-            vs.append(v_new)
-        return res + tp_sum(outs, res.device), HeadShards(ks), HeadShards(vs)
+
+        def rank(t):
+            out, k_new, v_new = attend(t, lps[t], cur.to(tp.devices[t]))
+            return out.to(res.device), k_new, v_new
+
+        outs, ks, vs = zip(*tp.each(rank))
+        return (res + tp_sum(outs, res.device), HeadShards(list(ks)),
+                HeadShards(list(vs)))
 
     def mlp(which):
         def call(cur):
-            parts = []
-            for dev, lp in zip(tp.devices, lps):
-                with on_device(dev):
-                    parts.append(ffn(cur.to(dev), getattr(lp, f"ffn{which}_w1"),
-                                     getattr(lp, f"ffn{which}_w2")))
-            return tp_sum(parts, cur.device)
+            return tp_sum(tp.each(lambda t: ffn(
+                cur.to(tp.devices[t]), getattr(lps[t], f"ffn{which}_w1"),
+                getattr(lps[t], f"ffn{which}_w2")).to(cur.device)),
+                cur.device)
         return call
 
     return lead, attention, (mlp(1), mlp(2))
@@ -216,8 +223,9 @@ def _tp_layer(tp, layer: int, hp: Hparams, attend, fused_ln: bool = False):
 
 def _on_each(tp, *tensors):
     """`tensors` on each of the tp devices, [t] -> tuple (the same tensors
-    on the lead device and wherever the devices coincide)."""
-    return [tuple(x.to(dev) for x in tensors) for dev in tp.devices]
+    on the lead device and wherever the devices coincide), each rank's
+    copies made on its stream (TPGroup.each)."""
+    return tp.each(lambda t: tuple(x.to(tp.devices[t]) for x in tensors))
 
 
 def pos_emb_slice(pos_table, pos_len: int):
@@ -372,21 +380,26 @@ def _gated_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
                     vw, mask))
         x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl,
                                                ffns)
-        if is_quant(kl):
-            k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
-        # the window's last lc frames after the new ones (a copy: the
-        # writes below overwrite the window it was read from)
-        k_win = kv_cat([kw, k_new], 2)
-        v_win = kv_cat([vw, v_new], 2)
-        n = kv_parts(k_win)[0].shape[2]
-        k_win, v_win = kv_slice(k_win, n - lc, n, 2), kv_slice(v_win, n - lc,
-                                                               n, 2)
+
+        def write(kl, vl, kw, vw, k_new, v_new):  # one device's buffers
+            if is_quant(kl):
+                k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
+            # the window's last lc frames after the new ones (a copy: the
+            # writes below overwrite the window it was read from)
+            k_win = kv_cat([kw, k_new], 2)
+            v_win = kv_cat([vw, v_new], 2)
+            n = kv_parts(k_win)[0].shape[2]
+            k_win = kv_slice(k_win, n - lc, n, 2)
+            v_win = kv_slice(v_win, n - lc, n, 2)
+            if am is not None:
+                k_win = kv_where(am, k_win, kw, 0)
+                v_win = kv_where(am, v_win, vw, 0)
+            kv_update_slice_(kl, k_win, win_lo, 2)
+            kv_update_slice_(vl, v_win, win_lo, 2)
+
+        on_parts(tp, write, kl, vl, kw, vw, k_new, v_new)
         if am is not None:
-            k_win = kv_where(am, k_win, kw, 0)
-            v_win = kv_where(am, v_win, vw, 0)
             cc2 = torch.where(am[:, None, None], cc2, cl)
-        kv_update_slice_(kl, k_win, win_lo, 2)
-        kv_update_slice_(vl, v_win, win_lo, 2)
         cl.copy_(cc2)
     return x
 
@@ -437,15 +450,20 @@ def _phased_layers(params, hp: Hparams, x, pe, k_cache, v_cache, conv_cache,
                     vl, pos_index, mask_full))
         x, k_new, v_new, cc2 = conformer_layer(x, lp, hp, attention, cl,
                                                ffns)
-        if is_quant(kl):
-            k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
+
+        def write(kl, vl, k_new, v_new):  # one device's buffers
+            if is_quant(kl):
+                k_new, v_new = quantize_kv(k_new), quantize_kv(v_new)
+            if am is not None:
+                hi = win_hi + chunk_len
+                k_new = kv_where(am, k_new, kv_slice(kl, win_hi, hi, 2), 0)
+                v_new = kv_where(am, v_new, kv_slice(vl, win_hi, hi, 2), 0)
+            kv_update_slice_(kl, k_new, win_hi, 2)
+            kv_update_slice_(vl, v_new, win_hi, 2)
+
+        on_parts(tp, write, kl, vl, k_new, v_new)
         if am is not None:
-            hi = win_hi + chunk_len
-            k_new = kv_where(am, k_new, kv_slice(kl, win_hi, hi, 2), 0)
-            v_new = kv_where(am, v_new, kv_slice(vl, win_hi, hi, 2), 0)
             cc2 = torch.where(am[:, None, None], cc2, cl)
-        kv_update_slice_(kl, k_new, win_hi, 2)
-        kv_update_slice_(vl, v_new, win_hi, 2)
         cl.copy_(cc2)
     return x
 
@@ -456,7 +474,7 @@ def _device_mask(mask):
 
 
 def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
-                  phase: int | None = None, mask=None):
+                  phase: int | None = None, mask=None, tp=None):
     """Move the live history window back to phase 0, in place.
 
     `phase` is the phase the caller is at (default n_phases, the wrap): the
@@ -464,29 +482,29 @@ def compact_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
     compaction MUST pass its phase. `mask` ([B] bool) compacts only those
     slots; the others keep their windows untouched. One masked row rewrite
     per buffer (ops/kv_rows.py: on the card one kernel launch, the mask
-    read on the device; no temporary)."""
+    read on the device; no temporary). tp: HeadShards caches' parts each
+    rewritten on its rank's stream (kvquant.on_parts)."""
     lc = cfg.att_left_context
     if phase is None:
         phase = cfg.n_phases
     lo = phase * cfg.chunk_len(hp)
     if lo == 0:
         return k_cache, v_cache
-    m = _device_mask(mask)
-    for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):  # q and s alike
-        kv_rows_(buf, SHIFT, m, lo=lo, lc=lc)
+    caches_rows_(k_cache, v_cache, SHIFT, _device_mask(mask), tp, lo=lo,
+                 lc=lc)
     return k_cache, v_cache
 
 
 def realign_cache(cfg: CacheConfig, hp: Hparams, k_cache, v_cache,
-                  delta: int, mask):
+                  delta: int, mask, tp=None):
     """Realign-on-resume, in place: roll the masked slots' S axis forward by
     `delta` phases so their window sits at the group's current phase. The
     wrapped-around region lies outside the live window and is never read.
-    One masked row rewrite per buffer (ops/kv_rows.py)."""
+    One masked row rewrite per buffer (ops/kv_rows.py); tp as in
+    compact_cache."""
     if delta == 0:
         raise ValueError("realign_cache: delta must be non-zero")
     shift = delta * cfg.chunk_len(hp)
-    m = _device_mask(mask)
-    for buf in (*kv_parts(k_cache), *kv_parts(v_cache)):
-        kv_rows_(buf, ROLL, m, shift=shift)
+    caches_rows_(k_cache, v_cache, ROLL, _device_mask(mask), tp,
+                 shift=shift)
     return k_cache, v_cache

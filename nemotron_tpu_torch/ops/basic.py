@@ -39,9 +39,12 @@ def glu(x):
 
 def tp_sum(parts, device):
     """The partial products of a matmul split on its input axis over a dp
-    shard's tp devices (parallel/mesh.py), summed in shard order on
-    `device`: a copy across cards where a part lies on another, a plain
-    add where they share one."""
+    shard's tp devices (parallel/mesh.py), summed in rank order (0, 1,
+    ...) on `device`, so the sum does not depend on the streams the parts
+    were made on. The tp layers (models/encoder._tp_layer) call it after
+    the join (TPGroup.each: the lead waits for every rank stream), each
+    rank having copied its part to `device` on its own stream; another
+    caller's part on another device is copied here."""
     out = parts[0].to(device)
     for p in parts[1:]:
         out = out + p.to(device)

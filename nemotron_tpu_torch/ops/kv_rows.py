@@ -29,6 +29,7 @@ import functools
 import torch
 
 from .. import kernels
+from .kvquant import kv_parts, on_parts
 
 SHIFT, ROLL, ZERO = 0, 1, 2
 MODES = {SHIFT: "shift", ROLL: "roll", ZERO: "zero"}
@@ -61,6 +62,17 @@ def kv_rows_ref_(buf, mode: int, mask=None, lo: int = 0, lc: int = 0,
     else:
         raise ValueError(f"kv_rows: unknown mode {mode}")
     return buf
+
+
+def caches_rows_(k_cache, v_cache, mode: int, mask=None, tp=None, **kw):
+    """kv_rows_ on every buffer of a K/V cache pair (dense, a QuantKV's
+    codes and scales, each HeadShards part's; with tp, a params.TPGroup,
+    each part's on its rank's stream, kvquant.on_parts), in place."""
+    def rows(*caches):
+        for buf in (t for c in caches for t in kv_parts(c)):
+            kv_rows_(buf, mode, mask, **kw)
+
+    on_parts(tp, rows, k_cache, v_cache)
 
 
 @functools.lru_cache(maxsize=None)

@@ -59,6 +59,17 @@ def kv_parts(buf) -> tuple:
     return (buf.q, buf.s) if isinstance(buf, QuantKV) else (buf,)
 
 
+def on_parts(tp, fn, *bufs):
+    """fn(*bufs), once. With tp (a params.TPGroup whose devices hold the
+    HeadShards parts of `bufs`), fn(*rank t's parts) on each rank's
+    stream, forked from and joined to the lead's (TPGroup.each): every
+    launch on a part lies on its rank's stream. Returns fn's result, or
+    the ranks' results in rank order."""
+    if tp is None:
+        return fn(*bufs)
+    return tp.each(lambda t: fn(*(b.parts[t] for b in bufs)))
+
+
 def _shards(*bufs):
     """The HeadShards among `bufs`, as lists of parts (None if none is)."""
     if not isinstance(bufs[0], HeadShards):

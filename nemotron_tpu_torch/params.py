@@ -658,13 +658,57 @@ class TPGroup:
     """One dp shard of a mesh: its tp devices and the parameters each
     holds (params[t] on devices[t]): the replicated fields, and slice t of
     the TP_SPLIT layer fields. params[0], on the shard's lead device, is
-    the one the replicated computation reads."""
+    the one the replicated computation reads.
+
+    On CUDA devices the group owns one stream per rank (streams[t] on
+    devices[t], a stream of its own even where the ranks share a card),
+    made with the group and kept while it lives: a captured graph forks
+    and joins these streams (graphs.py), and `each` runs every rank's
+    launches there, eagerly and under a capture alike."""
     devices: list
     params: list
+    streams: list | None = dataclasses.field(default=None, init=False,
+                                             repr=False)
+
+    def __post_init__(self):
+        if len(self.devices) > 1 and self.devices[0].type == "cuda":
+            self.streams = [torch.cuda.Stream(device=d) for d in self.devices]
 
     @property
     def lead(self) -> ModelParams:
         return self.params[0]
+
+    def each(self, fn) -> list:
+        """[fn(t) for each rank t], rank t's launches on its own stream
+        (torch.cuda.stream also makes that stream's device current). The
+        fork: before fn(t), rank t's stream waits for the work queued so
+        far on the lead device's current stream (under a capture, the
+        capturing stream: that wait is what brings the rank stream into the
+        capture). The join: after the last rank, the lead's current stream
+        waits for every rank stream, so what the ranks made can be read on
+        the lead.
+
+        What the allocator hands out again stays safe with no
+        record_stream: every rank's work lies between a fork and a join,
+        and nothing runs on a rank stream outside them. A block a rank
+        allocated goes back, when freed, to that rank stream's own free
+        list, which serves the rank's next allocation only after its next
+        fork, i.e. after whatever the lead queued before it (the
+        reduction that read a partial among it). A lead tensor that a rank
+        reads outlives the join (the callers hold it), and the lead's
+        allocator serves only work queued after the join. On the CPU,
+        fn(t) in rank order."""
+        if self.streams is None:
+            return [fn(t) for t in range(len(self.devices))]
+        lead = torch.cuda.current_stream(self.devices[0])
+        out = []
+        for t, stream in enumerate(self.streams):
+            stream.wait_stream(lead)
+            with torch.cuda.stream(stream):
+                out.append(fn(t))
+        for stream in self.streams:
+            lead.wait_stream(stream)
+        return out
 
 
 def tp_params(params: ModelParams, n: int, t: int, device,

@@ -293,6 +293,9 @@ class EngineGroup:
         self.slot_phase[:] = 0
         self.frame_offsets[:] = 0
 
+    def has_free_slot(self) -> bool:
+        return self.n_active_streams < self.batch
+
     def claim(self, stream_id: int, prompt_index: int) -> int | None:
         """Assign a slot (host bookkeeping only); the device reset is queued
         for the top of the next tick."""

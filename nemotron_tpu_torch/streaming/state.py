@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.decoder import DecodeState, init_decode_state
-from ..ops.kv_rows import ZERO, kv_rows_
+from ..ops.kv_rows import ZERO, caches_rows_
 from ..ops.kvquant import HeadShards, QuantKV, is_quant, kv_parts, kv_zeros
 from ..config import CacheConfig, Hparams
 
@@ -111,12 +111,14 @@ class MeshState:
             for f in dataclasses.fields(DecodeState)))
 
 
-def reset_slots(state, mask, hp: Hparams):
+def reset_slots(state, mask, hp: Hparams, tp=None):
     """Zero the slots where mask[b] is True (stream join), in place: the
     K/V caches by masked row rewrites (ops/kv_rows.py, ZERO: on the card
-    one kernel launch per buffer), every other leaf by a masked fill (JAX
-    state.py's jnp.where, in place). The mask stays on the device: nothing
-    is read back to the host, so the reset runs inside a CUDA graph."""
+    one kernel launch per buffer; with tp, a params.TPGroup, each
+    HeadShards part's on its rank's stream, kvquant.on_parts), every other
+    leaf by a masked fill (JAX state.py's jnp.where, in place). The mask
+    stays on the device: nothing is read back to the host, so the reset
+    runs inside a CUDA graph."""
     if isinstance(state, MeshState):
         mask = np.asarray(mask)
         b = state.per_shard
@@ -125,8 +127,7 @@ def reset_slots(state, mask, hp: Hparams):
         return state
     m = torch.as_tensor(mask).to(device=state.cache_valid.device,
                                  dtype=torch.bool)
-    for buf in (*kv_parts(state.k_cache), *kv_parts(state.v_cache)):
-        kv_rows_(buf, ZERO, m)  # a head shard's on its own device
+    caches_rows_(state.k_cache, state.v_cache, ZERO, m, tp)
     state.conv_cache.masked_fill_(m[None, :, None, None], 0)
     for buf in (state.cache_valid, state.decode.h, state.decode.c,
                 state.decode.frame_offset, state.pp_tail, state.pp_last,

@@ -3,7 +3,8 @@ eager on the card (chip_smoke.py phase 10 and tests/test_torch_gpu.py
 run them), and the churn of two or more checkouts in turns.
 
 `run_schedule(model, batch, mode)` drives `ASRModel.fused_tick_packed` as
-the engine does, over `passes` passes of one schedule from a primed
+the engine does (on one device or on a mesh: a model after
+`ASRModel.shard`, and its eager `twin`), over `passes` passes of one schedule from a primed
 state: every phase of a cycle all-active (through the wrap), the backlog
 ticks (k = 4 chunks, or k = n_phases below 4 phases; the last one's wrap
 inside), a masked fast_gated tick with every other slot paused and the
@@ -110,6 +111,19 @@ def _sync_errors(on: bool):
         yield
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def twin(model, graphs: bool = False):
+    """A model on `model`'s weights and options, and on its mesh where it
+    has one (its own placement and tp rank streams), with its own graph
+    cache: eager (graphs False), or graphed from a clean cache."""
+    from nemotron_tpu_torch.api import ASRModel
+
+    other = ASRModel(model.hp, model.params, model.tokenizer.vocab,
+                     device=model.device,
+                     kv_int8=model.kv_int8, attn_block=model.attn_block,
+                     confidence=model.confidence, graphs=graphs)
+    return other if model.mesh is None else other.shard(model.mesh)
 
 
 def run_schedule(model, batch: int, mode: int = 0, passes: int = 3,

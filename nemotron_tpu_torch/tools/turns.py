@@ -73,6 +73,35 @@ def device_ns(prof) -> dict:
     return out
 
 
+def union_ns(spans) -> int:
+    """The length of the union of [start, end) spans: the time in which at
+    least one of them ran."""
+    total, hi = 0, None
+    for start, end in sorted(spans):
+        if hi is None or start > hi:
+            total += end - start
+            hi = end
+        elif end > hi:
+            total += end - hi
+            hi = end
+    return total
+
+
+def union_ms(prof) -> dict:
+    """{device index: ms in which some CUDA activity of a torch.profiler
+    trace ran on that device}: the union of the activities' spans, so work
+    that overlaps on streams of one card (a tp group's ranks) counts once,
+    where device_ns sums it."""
+    from torch.autograd import DeviceType
+
+    spans: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            spans.setdefault(e.device_index(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    return {d: union_ns(s) / 1e6 for d, s in spans.items()}
+
+
 def busy_ms(prof) -> float | None:
     """A trace's device time in ms (device_ns summed), or None if it
     holds none."""

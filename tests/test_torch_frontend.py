@@ -74,3 +74,27 @@ def test_process_many_matches_jax_and_single_streams():
             np.testing.assert_allclose(got[i], want[i], atol=ATOL, rtol=0)
             np.testing.assert_allclose(got[i], single[i].process(audios[i]),
                                        atol=1e-5, rtol=0)
+
+
+def test_process_many_halves_match_jax_over_two_rounds():
+    """process_many_start / process_many_finish, the same audio split into
+    two rounds (the second round's start before the first round's finish
+    is read, as a caller overlapping them does): JAX's mels, round by
+    round; a round with no frame ready gives None in both."""
+    fb = make_fb(seed=8)
+    pps = {pkg: [pkg.StreamPreprocessor(fb, WINDOW) for _ in range(3)]
+           for pkg in (jf, tf)}
+    assert tf.process_many_start(pps[tf], [make_audio(100)] * 3) is None
+    assert jf.process_many_start(pps[jf], [make_audio(100)] * 3) is None
+    audios = [make_audio(n, seed=20 + i) for i, n in
+              enumerate((7000, 3100, 5200))]
+    cut = [2900, 1200, 4100]
+    rounds = [[a[:c] for a, c in zip(audios, cut)],
+              [a[c:] for a, c in zip(audios, cut)]]
+    handles = {pkg: [pkg.process_many_start(pps[pkg], rnd)
+                     for rnd in rounds] for pkg in (jf, tf)}
+    for h_j, h_t in zip(handles[jf], handles[tf]):
+        want, got = jf.process_many_finish(h_j), tf.process_many_finish(h_t)
+        assert [g.shape for g in got] == [w.shape for w in want]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)

@@ -1504,3 +1504,145 @@ def test_engine_groups_capture_each_slot_key_once(cuda):
         reset = slot[("reset", engine.groups[rc].cfg)]
         assert reset.replays == reset.calls - 1 == 5, rc
     assert model.graphs.stats(lambda k: k[0] in SLOT_KEYS)["recaptures"] == 0
+
+
+# --- a tp group's calls as CUDA graphs (each rank on a stream of its own) --
+
+TP_GRAPH_FORMS = ("f32", "bf16-block-int8kv", "f32-q8")
+TP_B = 8  # four slots per dp shard
+
+
+def _tp_pair(form, mesh):
+    """(graphed, eager) models on `mesh` with the same small random
+    weights (d_ff 128: the tp = 2 slices keep whole Q8_0 blocks)."""
+    from dataclasses import replace
+
+    from nemotron_tpu_torch.tools.graph_turns import twin
+
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float32
+    graphed = ASRModel.random(replace(_tiny_hp(), d_ff=128), seed=1,
+                              dtype=dtype, device="cuda",
+                              kv_int8="int8kv" in form,
+                              attn_block="block" in form)
+    if "q8" in form:
+        graphed.params = quantize_encoder_layers(graphed.params, bits=8)
+    graphed.shard(mesh)
+    return graphed, twin(graphed)
+
+
+def _tp_graphed_equals_eager(form, mesh):
+    from nemotron_tpu_torch.tools.graph_turns import compare, run_schedule
+
+    graphed, eager = _tp_pair(form, mesh)
+    kernels.reset_counts()
+    tok_e, st_e = run_schedule(eager, TP_B)
+    n_eager = _launches()
+    kernels.reset_counts()
+    tok_g, st_g = run_schedule(graphed, TP_B, sync_debug=True)
+    n_graphed = _launches()
+    cmp = compare(st_g, st_e)
+    stats = graphed.graphs.stats()
+    print(f"{form} on {mesh}: {cmp}, graphs {stats}, launches {n_graphed}")
+    assert len(tok_g) == len(tok_e)
+    assert all(np.array_equal(g, e) for g, e in zip(tok_g, tok_e))
+    if form == "f32":
+        assert cmp["max_abs"] <= 1e-6, cmp
+    else:
+        assert cmp["equal"], cmp
+    # 11 tick keys and 4 slot keys, each captured once per dp shard
+    n_dp = mesh.shape["dp"]
+    assert stats["captures"] == stats["keys"] == 15 * n_dp, stats
+    assert stats["recaptures"] == 0 and stats["replays"] > stats["captures"]
+    for (key, shard), e in graphed.graphs.entries.items():
+        assert e.devices == tuple(graphed.groups[shard].devices), key
+    assert n_graphed == n_eager
+    assert n_graphed["kv_rows"] > 0 and n_graphed["mel_frames"] > 0
+    want = {"f32": "t1_attention", "bf16-block-int8kv": "t1_attention_block",
+            "f32-q8": "q8_matmul"}[form]
+    assert n_graphed[want] > 0
+    return graphed
+
+
+@pytest.mark.parametrize("form", TP_GRAPH_FORMS)
+def test_tp_mesh_graphed_equals_eager_on_one_card(cuda, form):
+    """tools/graph_turns.run_schedule (wraps, the backlog, a masked tick
+    and its realign, a join; warm-up, capture, replay) at B=8 on a 2x2 mesh
+    of cuda:0, graphed against its eager twin: tokens equal, leaves
+    bit-equal (f32 within 1e-6), each key captured once per dp shard with
+    its tp group's devices, the last pass under set_sync_debug_mode
+    ("error"), and the launches through the replays equal to eager's (B1,
+    B3 or B4 by form inside the tp graphs)."""
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    _tp_graphed_equals_eager(form, make_mesh(2, 2, devices=["cuda:0"] * 4))
+
+
+def test_tp_mesh_graphed_across_two_cards(cuda):
+    """The same on a 1x2 mesh across two cards (peer copies as graph
+    nodes, the second card's graph pool); skips on one card."""
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    graphed = _tp_graphed_equals_eager("f32", make_mesh(1, 2))
+    assert graphed.graphs.stats()["pool_bytes"] > 0
+
+
+def test_tp_rank_partials_outlive_the_reduction(cuda):
+    """A rank's partial is made on the rank's stream and read by the lead's
+    reduction: no block of it (nor of a lead tensor a rank reads) may be
+    handed out again before that read. The eager 2x2 schedule twice, the
+    allocator's cache emptied between, so the second run's blocks fall
+    elsewhere: leaves bit-equal between the runs and within 1e-5 of one
+    device's (no streams); then graphed, bit-equal to them."""
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+    from nemotron_tpu_torch.tools.graph_turns import (compare, run_schedule,
+                                                      twin)
+
+    graphed, eager = _tp_pair("f32", make_mesh(2, 2,
+                                               devices=["cuda:0"] * 4))
+    single = ASRModel(graphed.hp, graphed.params, graphed.tokenizer.vocab,
+                      device="cuda", graphs=False)
+    tok_1, st_1 = run_schedule(single, 32, passes=1)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        runs.append(run_schedule(twin(graphed), 32, passes=1))
+    assert compare(runs[0][1], runs[1][1])["equal"]
+    assert all(np.array_equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(np.array_equal(a, b) for a, b in zip(runs[0][0], tok_1))
+    assert compare(runs[0][1], st_1)["max_abs"] <= 1e-5
+    tok_g, st_g = run_schedule(graphed, 32, passes=3)
+    assert compare(st_g, run_schedule(eager, 32, passes=3)[1])[
+        "max_abs"] <= 1e-6
+
+
+def test_tp_offline_graphed_equals_eager(cuda):
+    """The offline path on a 2x2 mesh of cuda:0 (dp shard 0's tp group in
+    the encoder's graph, the decode and its carry on the lead), three
+    calls graphed against one eager: token ids, frames and the decoder
+    state equal; the encoder key captured once, with the group's
+    devices."""
+    from nemotron_tpu_torch.parallel.mesh import make_mesh
+
+    graphed, eager = _tp_pair("f32", make_mesh(2, 2,
+                                               devices=["cuda:0"] * 4))
+    rng = np.random.default_rng(4)
+    audios = [(rng.standard_normal(n) * 3000).astype(np.int16)
+              for n in (7000, 12800)]
+    mels = process_many([eager._preprocessor() for _ in audios], audios)
+    want, want_state = eager._transcribe_mels(mels, None)
+    for call in ("warm-up", "capture", "replay"):
+        got, state = graphed._transcribe_mels(mels, None)
+        torch.cuda.synchronize()
+        assert got == want, call
+        for f in ("h", "c", "prev_token", "frame_offset"):
+            assert torch.equal(getattr(state, f),
+                               getattr(want_state, f)), (call, f)
+    enc = {key: e for (key, _), e in graphed.graphs.entries.items()
+           if key[0] == "batch"}
+    assert len(enc) == 1
+    e, = enc.values()
+    assert (e.calls, e.captures, e.replays) == (3, 1, 2)
+    assert e.devices == tuple(graphed.groups[0].devices)

@@ -219,6 +219,33 @@ def test_churn_engine_equals_jax(monkeypatch):
     assert any(k[0] == "tick_packed" and k[5] > 1 for k in keys)
 
 
+def test_has_free_slot_equals_jax():
+    """EngineGroup.has_free_slot over claims, a release and a queued drop
+    (applied at the next tick's top), against the JAX engine group's."""
+    from nemotron_tpu.streaming.engine import EngineGroup as JaxGroup
+    from nemotron_tpu_torch.streaming.engine import EngineGroup
+
+    jm = JaxModel.random(tiny_hparams(), seed=1)
+    tm = TorchModel.random(tiny_hparams(), seed=1, device="cpu")
+    groups = [JaxGroup(jm, jm.cache_config(0), 2),
+              EngineGroup(tm, tm.cache_config(0), 2)]
+    seen = []
+    for step in ("claim", "claim", "release", "claim", "drop", "apply"):
+        for g in groups:
+            if step == "claim":
+                g.claim(len(seen), 0)
+            elif step == "release":
+                g.release(0)
+            elif step == "drop":
+                g.drop(1, 1)
+            else:
+                g._apply_pending_drops()
+        got = [g.has_free_slot() for g in groups]
+        assert got[0] == got[1], (step, got)
+        seen.append(got[1])
+    assert seen == [True, False, True, False, False, True]
+
+
 @pytest.mark.parametrize("fn", [tenc.compact_cache, tenc.realign_cache,
                                 tstate.reset_slots, tstate.prime_frontend],
                          ids=lambda f: f.__name__)
