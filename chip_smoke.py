@@ -2187,16 +2187,15 @@ def phase_timers(torch, model, name, card, tag="7 timers"):
     for sid, a in zip(sids, audios):
         engine.push_audio(sid, a)
     g = None
+    phases = ("engine.encoder", "engine.decoder", "engine.tick")
     for i in range(n_ticks):
         if i == warm:
             g = engine.groups[0]
-            base = (g.total_encoder_seconds, g.total_decoder_seconds,
-                    g.total_steps, g.total_tick_seconds)
+            base = [g.spans.seconds[p] for p in phases] + [g.total_steps]
         engine.tick()
-    steps = g.total_steps - base[2]
-    enc = (g.total_encoder_seconds - base[0]) / steps * 1e3
-    dec = (g.total_decoder_seconds - base[1]) / steps * 1e3
-    tick = (g.total_tick_seconds - base[3]) / steps * 1e3
+    steps = g.total_steps - base[3]
+    enc, dec, tick = ((g.spans.seconds[p] - b0) / steps * 1e3
+                      for p, b0 in zip(phases, base))
     st = engine.stats()["groups"][0]
     del engine
     torch.cuda.empty_cache()

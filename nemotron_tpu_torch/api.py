@@ -66,6 +66,7 @@ from .params import (ModelParams, device_of, load_model, on_device,
 from .config import CacheConfig, Hparams, LatencyMode
 from .text.tokenizer import Tokenizer
 from .streaming import state as state_mod
+from .utils.trace import Totals
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -116,10 +117,14 @@ class ASRModel:
             t -= 8
         self.max_seg_mel_frames = t
         # per segment of the last offline call: batch, padded mel frames,
-        # the decode's iterations, and each graph key's "calls",
-        # "captures" and "replays" in the segment ("graphs"; a call that
-        # did not replay ran eagerly)
+        # the decode's iterations, the seconds of its encoder's launch and
+        # of its decode (the `offline.encoder` and `offline.decode` spans),
+        # and each graph key's "calls", "captures" and "replays" in the
+        # segment ("graphs"; a call that did not replay ran eagerly)
         self.offline_stats: list[dict] = []
+        # the last offline call's spans (utils/trace.py): one
+        # `offline.call` root
+        self.offline_spans = Totals()
         # the graphed offline decode's fixed storage, one per (batch,
         # device)
         self._carries: dict = {}
@@ -337,17 +342,18 @@ class ASRModel:
         return self._per_shard(state, tick, packed_dev, key=key)
 
     def fused_tick_profiled(self, cfg, state, audio_block, n_valid, active,
-                            prompt_idx=None, phase: int = 0):
+                            prompt_idx=None, phase: int = 0, spans=None):
         """The fused tick in two halves, each timed on the host clock up to
         a device synchronisation: the encoder half (the frontend, kernel B2,
         and the encoder; fused_encode_tick) and the decoder half
         (decode_tick); the reference's encoder/decoder attribution
         (nemo-stream.h:237-244), nemotron_tpu/api.py:fused_tick_profiled.
         active None is the all-active fast path at `phase`, else the legacy
-        gated tick. Tensors on the model's device. Returns (state, tokens,
-        encoder_seconds, decoder_seconds)."""
-        import time
-
+        gated tick. Tensors on the model's device. The halves are spans
+        `engine.encoder` and `engine.decoder` of `spans` (a caller's
+        utils/trace.Totals; a table of their own by default). Returns
+        (state, tokens, encoder_seconds, decoder_seconds)."""
+        spans = spans or Totals()
         b = audio_block.shape[0]
         if prompt_idx is None:
             prompt_idx = self.put_batch(np.full(
@@ -365,24 +371,24 @@ class ASRModel:
             return asr.decode_tick(params, state, enc, nv, act, hp=self.hp,
                                    confidence=self.confidence)
 
-        t0 = time.perf_counter()
-        outs = self._shard_calls(
-            state, encode, audio_block, prompt_idx, *act,
-            key=("fused_encode", cfg, b, active is None, phase))
-        if self.mesh is None:
-            state, enc = outs[0]
-        else:
-            from .parallel.mesh import DPBatch
+        with spans.span("engine.encoder") as enc_span:
+            outs = self._shard_calls(
+                state, encode, audio_block, prompt_idx, *act,
+                key=("fused_encode", cfg, b, active is None, phase))
+            if self.mesh is None:
+                state, enc = outs[0]
+            else:
+                from .parallel.mesh import DPBatch
 
-            state = state_mod.MeshState([o[0] for o in outs])
-            enc = DPBatch([o[1] for o in outs])
-        self.synchronize()
-        t1 = time.perf_counter()
-        state, tokens = self._per_shard(
-            state, decode, enc, n_valid, *act,
-            key=("decode", active is None, cfg, b))
-        self.synchronize()
-        return state, tokens, t1 - t0, time.perf_counter() - t1
+                state = state_mod.MeshState([o[0] for o in outs])
+                enc = DPBatch([o[1] for o in outs])
+            self.synchronize()
+        with spans.span("engine.decoder") as dec_span:
+            state, tokens = self._per_shard(
+                state, decode, enc, n_valid, *act,
+                key=("decode", active is None, cfg, b))
+            self.synchronize()
+        return state, tokens, enc_span.seconds, dec_span.seconds
 
     def stream_step(self, cfg, state, mel_chunk, n_valid, active,
                     prompt_idx=None, phase: int = 0):
@@ -522,60 +528,81 @@ class ASRModel:
                                    devices=() if tp is None else tp.devices)
 
         self.offline_stats = []
+        sp = self.offline_spans
         for start in range(0, max(max(m.shape[0] for m in mels), 1), seg):
             parts = [m[start:start + seg] for m in mels]
             t_max = max(p.shape[0] for p in parts)
             if t_max == 0:
                 break
             t_pad = min(-(-t_max // MEL_BUCKET) * MEL_BUCKET, seg)
-            padded = np.zeros((b, t_pad, hp.n_mels), dtype=np.float32)
-            n_mel = np.array([p.shape[0] for p in parts], dtype=np.int32)
-            n_sub = np.array([hp.subsampled_len(n) if n else 0
-                              for n in n_mel], dtype=np.int32)
-            for i, p in enumerate(parts):
-                padded[i, :p.shape[0]] = p
-            stats = {"batch": b, "mel_frames": t_pad}
-            before = _offline_counts(self.graphs)
-
-            def put(a):
-                return torch.tensor(a, device=dev)
-
-            tokens, dec_state = asr.transcribe_batch(
-                params, put(padded), hp=hp, prompt_idx=pidx,
-                n_frames=put(n_sub), dec_state=dec_state,
-                n_mel_frames=put(n_mel), confidence=self.confidence,
-                stats=stats, tp=tp, carry=carry, run=run)
-            stats["graphs"] = {
-                key: {f: x - y for f, x, y in zip(
-                    ("calls", "captures", "replays"), n,
-                    before.get(key, (0, 0, 0)))}
-                for key, n in _offline_counts(self.graphs).items()
-                if n != before.get(key)}
-            self.offline_stats.append(stats)
-            seqs = asr.tokens_to_list(
-                tokens, n_sub,
-                vocab_size=hp.vocab_size if self.confidence else None)
-            for i, seq in enumerate(seqs):
-                for tok, t in seq:
-                    out[i][0].append(tok)
-                    out[i][1].append(offsets[i] + t)
-                offsets[i] += int(n_sub[i])
+            with sp.span("offline.segment"):
+                with sp.span("offline.pad"):
+                    padded = np.zeros((b, t_pad, hp.n_mels), dtype=np.float32)
+                    n_mel = np.array([p.shape[0] for p in parts],
+                                     dtype=np.int32)
+                    n_sub = np.array([hp.subsampled_len(n) if n else 0
+                                      for n in n_mel], dtype=np.int32)
+                    for i, p in enumerate(parts):
+                        padded[i, :p.shape[0]] = p
+                stats = {"batch": b, "mel_frames": t_pad}
+                before = _offline_counts(self.graphs)
+                with sp.span("offline.upload"):
+                    mel_dev, n_sub_dev, n_mel_dev = (
+                        torch.tensor(a, device=dev)
+                        for a in (padded, n_sub, n_mel))
+                tokens, dec_state = asr.transcribe_batch(
+                    params, mel_dev, hp=hp, prompt_idx=pidx,
+                    n_frames=n_sub_dev, dec_state=dec_state,
+                    n_mel_frames=n_mel_dev, confidence=self.confidence,
+                    stats=stats, tp=tp, carry=carry, run=run, spans=sp)
+                stats["graphs"] = {
+                    key: {f: x - y for f, x, y in zip(
+                        ("calls", "captures", "replays"), n,
+                        before.get(key, (0, 0, 0)))}
+                    for key, n in _offline_counts(self.graphs).items()
+                    if n != before.get(key)}
+                self.offline_stats.append(stats)
+                with sp.span("offline.tokens"):
+                    seqs = asr.tokens_to_list(
+                        tokens, n_sub,
+                        vocab_size=hp.vocab_size if self.confidence
+                        else None)
+                    for i, seq in enumerate(seqs):
+                        for tok, t in seq:
+                            out[i][0].append(tok)
+                            out[i][1].append(offsets[i] + t)
+                        offsets[i] += int(n_sub[i])
         return out, dec_state
+
+    def _offline_call(self):
+        """The root span of one offline call, on a fresh span table
+        (offline_spans): its mel (`offline.mel`), one `offline.segment`
+        per segment window (_transcribe_mels) and its detokenizer
+        (`offline.detok`) go under it."""
+        self.offline_spans = Totals()
+        return self.offline_spans.span("offline.call")
 
     def transcribe_mel(self, mel: np.ndarray,
                        prompt_index: int | None = None):
         """Offline transcription of one mel sequence [T, n_mels]; long
         audio runs in segments at the pos table's cap with the decoder
         state carried across them. Returns (token_ids, frame_indices)."""
-        return self._transcribe_mels([np.asarray(mel)], prompt_index)[0][0]
+        with self._offline_call():
+            return self._transcribe_mels([np.asarray(mel)],
+                                         prompt_index)[0][0]
 
     def transcribe_audio(self, audio_i16, prompt_index: int | None = None,
                          timestamp_words: bool = False) -> str:
         """PCM (s16le 16 kHz mono) -> text: the file's mel in one call of
-        kernel B2, then transcribe_mel."""
-        mel = self._preprocessor().process(audio_i16)
-        token_ids, frames = self.transcribe_mel(mel, prompt_index)
-        return self.tokenizer.decode(token_ids, timestamp_words, frames)
+        kernel B2, then the segments as transcribe_mel runs them."""
+        with self._offline_call():
+            with self.offline_spans.span("offline.mel"):
+                mel = self._preprocessor().process(audio_i16)
+            token_ids, frames = self._transcribe_mels([mel],
+                                                      prompt_index)[0][0]
+            with self.offline_spans.span("offline.detok"):
+                return self.tokenizer.decode(token_ids, timestamp_words,
+                                             frames)
 
     def transcribe_audios(self, audios, prompt_index: int | None = None,
                           timestamp_words: bool = False) -> list[str]:
@@ -587,10 +614,14 @@ class ASRModel:
         transcribe_mel. Equal to transcribe_audio file by file."""
         if not len(audios):
             return []
-        mels = process_many([self._preprocessor() for _ in audios], audios)
-        return [self.tokenizer.decode(ids, timestamp_words, frames)
-                for ids, frames in self._transcribe_mels(mels,
-                                                         prompt_index)[0]]
+        with self._offline_call():
+            with self.offline_spans.span("offline.mel"):
+                mels = process_many([self._preprocessor() for _ in audios],
+                                    audios)
+            results = self._transcribe_mels(mels, prompt_index)[0]
+            with self.offline_spans.span("offline.detok"):
+                return [self.tokenizer.decode(ids, timestamp_words, frames)
+                        for ids, frames in results]
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (block_until_ready); on a

@@ -30,6 +30,7 @@ import torch
 from ..ops import mel as melops
 from ..config import CacheConfig, Hparams
 from ..streaming.state import StreamState, write_back
+from ..utils.trace import Totals
 from .decoder import (DecodeCarry, carry_result, decode_block,
                       decode_in_blocks, enc_projection, greedy_decode,
                       init_carry, init_decode_state, start_carry,
@@ -208,7 +209,8 @@ def offline_encode(params, carry: DecodeCarry, mel, n_frames=None,
 def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
                      n_frames=None, dec_state=None, n_mel_frames=None,
                      confidence: bool = False, stats: dict | None = None,
-                     tp=None, carry: DecodeCarry | None = None, run=None):
+                     tp=None, carry: DecodeCarry | None = None, run=None,
+                     spans: Totals | None = None):
     """Offline path (nemotron_tpu/models/asr.py:transcribe_batch): mel
     [B, T, n_mels] -> (tokens [B, T', S], dec_state'), the full-context
     encoder over each utterance, then the greedy decode with its exit.
@@ -225,8 +227,11 @@ def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
     key, the encoder's JAX key ("batch", T, B) and the decode block's
     ("batch_decode", B, carry frames, confidence) (api.ASRModel's graph
     cache); by default body(state, *inputs). The exit is tested on the
-    host between blocks (decoder.decode_in_blocks). stats, where given,
-    gets the iterations run, in whole blocks, under "iterations".
+    host between blocks (decoder.decode_in_blocks). The encoder's call
+    is a span `offline.encoder` of `spans` (a caller's utils/trace.Totals),
+    the decode one `offline.decode`. stats, where given, gets the
+    iterations run, in whole blocks, under "iterations", and the two
+    spans' seconds under "encoder_seconds" and "decode_seconds".
     """
     b, t_mel = mel.shape[:2]
     t = hp.subsampled_len(t_mel)
@@ -240,6 +245,7 @@ def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
                if n_frames is None else n_frames.to(torch.int32))
     most = int(n_valid.max()) if b else 0
     run = run or _eager
+    spans = spans or Totals()
     start_carry(carry, dec_state, n_valid)
     opt = {k: v for k, v in (("n_frames", n_frames),
                              ("n_mel_frames", n_mel_frames),
@@ -252,12 +258,15 @@ def transcribe_batch(params, mel, *, hp: Hparams, prompt_idx=None,
     def block(c):
         return decode_block(params, hp, c, DECODE_EXIT_EVERY, confidence)
 
-    run(("batch", t_mel, b), encode, carry, (mel, *opt.values()))
+    with spans.span("offline.encoder") as enc:
+        run(("batch", t_mel, b), encode, carry, (mel, *opt.values()))
     key = ("batch_decode", b, carry.frames, confidence)
-    it = decode_in_blocks(carry, t, most, DECODE_EXIT_EVERY,
-                          lambda: run(key, block, carry, ()))
+    with spans.span("offline.decode") as dec:
+        it = decode_in_blocks(carry, t, most, DECODE_EXIT_EVERY,
+                              lambda: run(key, block, carry, ()), spans)
     if stats is not None:
-        stats["iterations"] = it
+        stats.update(iterations=it, encoder_seconds=enc.seconds,
+                     decode_seconds=dec.seconds)
     dec_state, tokens = carry_result(carry, dec_state, n_valid, t)
     return tokens, dec_state
 

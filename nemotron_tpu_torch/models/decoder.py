@@ -34,6 +34,7 @@ import torch
 
 from ..ops.lstm import lstm2_step
 from ..config import MAX_SYMBOLS_PER_STEP, Hparams
+from ..utils.trace import Totals
 
 
 @dataclasses.dataclass
@@ -224,7 +225,7 @@ def decode_block(params, hp: Hparams, carry: DecodeCarry, n_iter: int,
 
 
 def decode_in_blocks(carry: DecodeCarry, t: int, most: int, block: int,
-                     run_block) -> int:
+                     run_block, spans: Totals | None = None) -> int:
     """The offline decode's host loop over a segment of t frames:
     run_block() runs `block` iterations on the carry (decode_block, or its
     graph's replay). JAX's while-loop cond, any stream with a frame left
@@ -232,11 +233,18 @@ def decode_in_blocks(carry: DecodeCarry, t: int, most: int, block: int,
     iterations reach `most` (max n_valid: no stream can be done sooner),
     so the blocks may run up to block - 1 iterations past the eager
     loop's stop, or past the bound t*(s_max+1)+1: those change nothing.
-    Returns the iterations run, in whole blocks."""
+    Each host read of the exit is a span `offline.exit_test` of `spans`
+    (a caller's utils/trace.Totals). Returns the iterations run, in whole
+    blocks."""
+    spans = spans or Totals()
     bound = t * (MAX_SYMBOLS_PER_STEP + 1) + 1
     it = 0
-    while it < bound and (it < most or bool(
-            (carry.frame_idx < carry.n_valid).any())):
+    while it < bound:
+        if it >= most:
+            with spans.span("offline.exit_test"):
+                left = bool((carry.frame_idx < carry.n_valid).any())
+            if not left:
+                break
         run_block()
         it += block
     return it

@@ -21,6 +21,7 @@ import sys
 import time
 
 from ..streaming.engine import BatchedEngine
+from ..utils.trace import Totals
 from . import protocol as P
 from .ingest import (EV_DROP, EV_END, EV_SET_LANG, EV_START, NativeIngest,
                      require_native_ingest)
@@ -40,10 +41,18 @@ class NativeStreamServer:
         self.engine: BatchedEngine | None = None
         self.conn_of: dict[int, int] = {}  # stream_id -> conn id
         self._stop = False
-        # host seconds of the serving loop: waiting for work, control,
-        # ticks and delivery
-        self.loop_seconds = {"wait": 0.0, "control": 0.0, "tick": 0.0,
-                             "deliver": 0.0}
+        # the serving loop's spans (utils/trace.py): server.wait,
+        # .control, .tick (BatchedEngine.tick(), the groups' engine.tick
+        # spans under it) and .deliver
+        self.spans = Totals()
+
+    @property
+    def loop_seconds(self) -> dict:
+        """Host seconds of the serving loop: waiting for work, control,
+        ticks and delivery."""
+        secs = self.spans.seconds
+        return {k: secs.get("server." + k, 0.0)
+                for k in ("wait", "control", "tick", "deliver")}
 
     def start(self, host: str | None = None, port: int | None = None,
               unix_path: str | None = None) -> int:
@@ -142,32 +151,28 @@ class NativeStreamServer:
         Python thread)."""
         if self.ingest is None:
             raise RuntimeError("call start() first")
-        secs = self.loop_seconds
+        span = self.spans.span
         last_stats = time.monotonic()
         try:
             while not self._stop:
-                t0 = time.perf_counter()
-                self.ingest.wait(50)  # GIL-free sleep until work or timeout
-                t1 = time.perf_counter()
-                secs["wait"] += t1 - t0
-                self._handle_control()
-                secs["control"] += time.perf_counter() - t1
+                with span("server.wait"):  # GIL-free, until work or timeout
+                    self.ingest.wait(50)
+                with span("server.control"):
+                    self._handle_control()
                 more = True
                 while more and not self._stop:
-                    t2 = time.perf_counter()
-                    events, more = self.engine.tick()
-                    t3 = time.perf_counter()
-                    secs["tick"] += t3 - t2
-                    self._deliver(events)
-                    t4 = time.perf_counter()
-                    secs["deliver"] += t4 - t3
+                    with span("server.tick"):
+                        events, more = self.engine.tick()
+                    with span("server.deliver"):
+                        self._deliver(events)
                     # keep control latency low during back-to-back ticks
-                    self._handle_control()
-                    secs["control"] += time.perf_counter() - t4
+                    with span("server.control"):
+                        self._handle_control()
                 if time.monotonic() - last_stats > 10.0:
                     last_stats = time.monotonic()
                     print(f"[stats] {json.dumps(self.engine.stats())} loop "
-                          + " ".join(f"{k}={v:.1f}" for k, v in secs.items()),
+                          + " ".join(f"{k}={v:.1f}" for k, v
+                                     in self.loop_seconds.items()),
                           file=sys.stderr)
         finally:
             self.ingest.stop()

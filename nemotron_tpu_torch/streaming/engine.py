@@ -36,6 +36,15 @@ the timers, the depth and the cap from NEMOTRON_TPU_GATED_REALIGN,
 NEMOTRON_TPU_PHASE_TIMERS, NEMOTRON_TPU_READBACK_DEPTH and
 NEMOTRON_TPU_MAX_TICK_CHUNKS; here they are arguments, and the server maps
 the variables onto them.
+
+Each group times its tick's phases as spans of its own table (`spans`,
+utils/trace.py): one `engine.tick` root a tick, and under it
+`engine.admin`, `.ingest`, `.prime`, `.scan`, `.take`, `.step` (a tick
+that dispatches: `.slot_ops`, `.pack`, `.upload`, `.dispatch` with
+`.encoder` and `.decoder` under phase_timers, and the readbacks due),
+`.readback_wait` and `.scatter` (one pair a readback collected) and
+`.more`. `stats()` reads the table; under a torch.profiler session the
+spans are also `nt:` events of the trace.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from ..models.decoder import unpack_tokens
 from ..ops.kvquant import QuantKV, is_quant
 from ..streaming.state import (PP_TAIL_LEN, extract_slots, install_slot,
                                state_from_leaves, state_leaves)
+from ..utils.trace import Totals
 
 def _group_key(g, key) -> bool:
     """Whether graph `key` is one of group g's: a tick key names its cfg
@@ -227,16 +237,8 @@ class EngineGroup:
         self.total_ticks = 0
         self.total_steps = 0        # dispatches
         self.total_chunk_steps = 0  # chunk ticks (k per dispatch)
-        self.total_step_seconds = 0.0
-        self.total_transfer_seconds = 0.0  # blocked on token readbacks
-        self.total_upload_seconds = 0.0
-        self.total_tick_seconds = 0.0
-        self.total_dispatch_seconds = 0.0
-        self.total_pack_seconds = 0.0
-        self.total_scatter_seconds = 0.0
-        self.total_encoder_seconds = 0.0  # phase_timers only
-        self.total_decoder_seconds = 0.0  # phase_timers only
         self.total_audio_seconds = 0.0
+        self.spans = Totals()  # the tick's phases (utils/trace.py)
         self.total_chunks = 0
         self.emit_latencies: collections.deque[float] = collections.deque(
             maxlen=4096)
@@ -620,17 +622,14 @@ class EngineGroup:
                 if slot is not None and slot.stream_id == head.stream_id:
                     self.release(head.slot_idx)
                 continue
-            t0 = time.perf_counter()
-            if head.ready is not None:
-                head.ready.synchronize()
-            head.result = head.tokens_host.numpy()
-            head.tokens_host = head.ready = None
-            self.total_transfer_seconds += time.perf_counter() - t0
-            t_sc = time.perf_counter()
-            events.extend(self._process_pending(head))
-            now = time.perf_counter()
-            self.total_scatter_seconds += now - t_sc
-            self.emit_latencies.append(now - head.t_dispatch)
+            with self.spans.span("engine.readback_wait"):
+                if head.ready is not None:
+                    head.ready.synchronize()
+                head.result = head.tokens_host.numpy()
+                head.tokens_host = head.ready = None
+            with self.spans.span("engine.scatter"):
+                events.extend(self._process_pending(head))
+            self.emit_latencies.append(time.perf_counter() - head.t_dispatch)
         return events
 
     def _process_pending(self, pending: _Pending) -> list[Event]:
@@ -679,100 +678,150 @@ class EngineGroup:
 
     def tick(self) -> tuple[list[Event], bool]:
         """One batched round: dispatch the next fused step, then scatter
-        older readbacks. Returns (events, more_work_pending)."""
-        t_tick = time.perf_counter()
+        older readbacks. Returns (events, more_work_pending). The round is
+        one `engine.tick` span, its phases spans under it (see the module
+        docstring); the root counts the rows that carry audio
+        (`rows_active`) and the text and ended events returned."""
+        self.total_ticks += 1
+        with self.spans.span("engine.tick") as root:
+            events, more = self._tick(root)
+            n_text = sum(e.kind == "text" for e in events)
+            root.set(text_events=n_text, ended_events=len(events) - n_text)
+        return events, more
+
+    def _tick(self, root) -> tuple[list[Event], bool]:
         cfg = self.cfg
         shift = cfg.shift_samples
         b = self.batch
-        self.total_ticks += 1
+        sp = self.spans
         events: list[Event] = []
 
-        self._apply_pending_drops()
-        self._apply_pending_resets()
-        events.extend(self._apply_pending_migrations())
-        if self.source is None:
-            self._drain_queues()
-        else:
-            self._refresh_native()
-        self._prime_new_slots()
+        with sp.span("engine.admin"):
+            self._apply_pending_drops()
+            self._apply_pending_resets()
+            events.extend(self._apply_pending_migrations())
+        with sp.span("engine.ingest"):
+            if self.source is None:
+                self._drain_queues()
+            else:
+                self._refresh_native()
+        with sp.span("engine.prime"):
+            self._prime_new_slots()
 
-        n_valid = np.zeros(b, dtype=np.int32)
-        active = np.zeros(b, dtype=bool)
-        prompt_idx = np.zeros(b, dtype=np.int32)
-        ready = np.zeros(b, dtype=bool)
-        finalizing: set[int] = set()
-        fin_nv: dict[int, int] = {}
-        ended_now: list[tuple[int, int]] = []
+        with sp.span("engine.scan"):
+            n_valid = np.zeros(b, dtype=np.int32)
+            active = np.zeros(b, dtype=bool)
+            prompt_idx = np.zeros(b, dtype=np.int32)
+            ready = np.zeros(b, dtype=bool)
+            finalizing: set[int] = set()
+            fin_nv: dict[int, int] = {}
+            ended_now: list[tuple[int, int]] = []
 
-        for i, slot in enumerate(self.slots):
-            if slot is None or slot.finalize_sent:
-                continue
-            prompt_idx[i] = max(slot.prompt_index, 0)
-            if slot.primed and slot.staged >= shift:
-                ready[i] = True
-            elif slot.ending and not slot.audio_queue:
-                # leftover frames beyond the steady chunks already dispatched
-                left = (self._frames_total(slot)
-                        - cfg.shift_mel_frames * slot.steps)
-                nv = left // cfg.subsampling_factor if left > 0 else 0
-                if nv > 0:
-                    fin_nv[i] = nv
-                else:
-                    slot.finalize_sent = True
-                    ended_now.append((i, slot.stream_id))
+            for i, slot in enumerate(self.slots):
+                if slot is None or slot.finalize_sent:
+                    continue
+                prompt_idx[i] = max(slot.prompt_index, 0)
+                if slot.primed and slot.staged >= shift:
+                    ready[i] = True
+                elif slot.ending and not slot.audio_queue:
+                    # leftover frames beyond the steady chunks already
+                    # dispatched
+                    left = (self._frames_total(slot)
+                            - cfg.shift_mel_frames * slot.steps)
+                    nv = left // cfg.subsampling_factor if left > 0 else 0
+                    if nv > 0:
+                        fin_nv[i] = nv
+                    else:
+                        slot.finalize_sent = True
+                        ended_now.append((i, slot.stream_id))
 
-        # backlog micro-batching: every slot occupied, steady, and at least
-        # k_cap chunks staged; starts only at phases divisible by k_cap
-        k = 1
-        k_cap = max_safe_tick_chunks(cfg.n_phases, self.max_tick_chunks)
-        if (k_cap > 1 and not self.phase_timers and not fin_nv
-                and not ended_now and bool(ready.all())
-                and self.phase % k_cap == 0
-                and min(s.staged // shift for s in self.slots) >= k_cap):
-            k = k_cap
+            # backlog micro-batching: every slot occupied, steady, and at
+            # least k_cap chunks staged; starts only at phases divisible
+            # by k_cap
+            k = 1
+            k_cap = max_safe_tick_chunks(cfg.n_phases, self.max_tick_chunks)
+            if (k_cap > 1 and not self.phase_timers and not fin_nv
+                    and not ended_now and bool(ready.all())
+                    and self.phase % k_cap == 0
+                    and min(s.staged // shift for s in self.slots) >= k_cap):
+                k = k_cap
 
-        block = np.zeros((b, k * shift), dtype=np.int16)
-        if self.source is not None and (bool(ready.any()) or fin_nv):
-            # ONE native call fills every active row from the C++ staging
-            # rings (a finalize row's partial block zero-padded)
-            take_sids = np.zeros(b, np.uint32)
-            take_n = np.zeros(b, np.int32)
+        with sp.span("engine.take"):
+            block = np.zeros((b, k * shift), dtype=np.int16)
+            if self.source is not None and (bool(ready.any()) or fin_nv):
+                # ONE native call fills every active row from the C++
+                # staging rings (a finalize row's partial block zero-padded)
+                take_sids = np.zeros(b, np.uint32)
+                take_n = np.zeros(b, np.int32)
+                for i in np.nonzero(ready)[0]:
+                    take_sids[i] = self.slots[i].stream_id
+                    take_n[i] = k * shift
+                for i in fin_nv:
+                    take_sids[i] = self.slots[i].stream_id
+                    take_n[i] = shift
+                self.source.take_block(take_sids, take_n, block)
             for i in np.nonzero(ready)[0]:
-                take_sids[i] = self.slots[i].stream_id
-                take_n[i] = k * shift
-            for i in fin_nv:
-                take_sids[i] = self.slots[i].stream_id
-                take_n[i] = shift
-            self.source.take_block(take_sids, take_n, block)
-        for i in np.nonzero(ready)[0]:
-            slot = self.slots[i]
-            if self.source is None:
-                block[i] = slot.take(k * shift)
-            else:
-                slot.staged = max(0, slot.staged - k * shift)
-            n_valid[i] = cfg.valid_out_len
-            active[i] = True
-            slot.steps += k
-        for i, nv in fin_nv.items():
-            slot = self.slots[i]
-            if self.source is None:
-                block[i, :shift] = slot.take(shift)  # zero-padded partial
-            else:
-                slot.staged = max(0, slot.staged - shift)
-            n_valid[i] = nv
-            active[i] = True
-            finalizing.add(i)
-            slot.finalize_sent = True
+                slot = self.slots[i]
+                if self.source is None:
+                    block[i] = slot.take(k * shift)
+                else:
+                    slot.staged = max(0, slot.staged - k * shift)
+                n_valid[i] = cfg.valid_out_len
+                active[i] = True
+                slot.steps += k
+            for i, nv in fin_nv.items():
+                slot = self.slots[i]
+                if self.source is None:
+                    block[i, :shift] = slot.take(shift)  # zero-padded partial
+                else:
+                    slot.staged = max(0, slot.staged - shift)
+                n_valid[i] = nv
+                active[i] = True
+                finalizing.add(i)
+                slot.finalize_sent = True
 
-        if active.any():
-            t0 = time.perf_counter()
-            self.total_steps += 1
-            self.total_chunk_steps += k
-            n_act = int(active.sum())
-            self.total_chunks += n_act * k
-            self.total_audio_seconds += n_act * k * shift / cfg.sample_rate
-            all_active = bool(active.all())
-            frame_base = self.frame_offsets.copy()
+        n_act = int(np.count_nonzero(active))
+        root.set(rows_active=n_act)
+        if n_act:
+            with sp.span("engine.step"):
+                events.extend(self._step(block, n_valid, prompt_idx, active,
+                                         finalizing, ended_now, k, n_act))
+        else:
+            for i, sid in ended_now:
+                self._pending_q.append(_Pending(
+                    kind="ended", slot_idx=i, stream_id=sid))
+            events.extend(self._drain_pending(force_all=True))
+
+        with sp.span("engine.more"):
+            with self._lock:
+                migrations = bool(self._pending_exports
+                                  or self._pending_imports)
+            more = bool(self._pending_q) or migrations or any(
+                s is not None and not s.finalize_sent
+                and ((s.primed and s.staged >= shift) or s.audio_queue
+                     or s.ending)
+                for s in self.slots)
+        return events, more
+
+    def _step(self, block, n_valid, prompt_idx, active, finalizing,
+              ended_now, k: int, n_act: int) -> list[Event]:
+        """The dispatching part of a tick (the `engine.step` span): the
+        slot operations, the fused step's inputs, its dispatch and the
+        readbacks that are due; returns their events."""
+        cfg = self.cfg
+        shift = cfg.shift_samples
+        b = self.batch
+        sp = self.spans
+        self.total_steps += 1
+        self.total_chunk_steps += k
+        self.total_chunks += n_act * k
+        self.total_audio_seconds += n_act * k * shift / cfg.sample_rate
+        all_active = n_act == b
+        frame_base = self.frame_offsets.copy()
+        stream_ids = np.full(b, -1, dtype=np.int64)
+        for i in np.nonzero(active)[0]:
+            stream_ids[i] = self.slots[i].stream_id
+        with sp.span("engine.slot_ops") as ops:
             if self.use_realign:
                 # realign-on-resume: slots whose window fell behind the
                 # group phase get one masked roll per distinct delta
@@ -784,95 +833,84 @@ class EngineGroup:
                 for d, idxs in deltas.items():
                     m = np.zeros(b, dtype=bool)
                     m[idxs] = True
-                    self.state = self.model.realign_state(cfg, self.state, d,
-                                                          m)
+                    self.state = self.model.realign_state(
+                        cfg, self.state, d, m)
                     self.slot_phase[idxs] = self.phase
+                ops.set(calls=len(deltas))
             elif not all_active and self.phase != 0:
                 # legacy flow: gated ticks run at phase 0; move the live
                 # windows (all at the group's phase) back there first
                 self.state = self.model.compact_state(cfg, self.state,
                                                       phase=self.phase)
                 self.phase = 0
-                # every window moved (an export reads its phase here; the
-                # JAX engine leaves slot_phase stale at this point)
+                # every window moved (an export reads its phase here;
+                # the JAX engine leaves slot_phase stale at this point)
                 self.slot_phase[:] = 0
-            stream_ids = np.full(b, -1, dtype=np.int64)
-            for i in np.nonzero(active)[0]:
-                stream_ids[i] = self.slots[i].stream_id
+                ops.set(calls=1)
 
-            if self.phase_timers:
-                t_up = time.perf_counter()
+        if self.phase_timers:
+            with sp.span("engine.upload"):
                 put = self.model.put_batch
                 block_dev, nv_dev, prompt_dev = (
                     put(block), put(n_valid), put(prompt_idx))
                 active_dev = None if all_active else put(active)
-                self.total_upload_seconds += time.perf_counter() - t_up
-                t_disp = time.perf_counter()
-                self.state, tokens, t_enc, t_dec = \
+            with sp.span("engine.dispatch"):
+                self.state, tokens, _, _ = \
                     self.model.fused_tick_profiled(
                         cfg, self.state, block_dev, nv_dev, active_dev,
-                        prompt_dev, phase=self.phase)
-                self.total_encoder_seconds += t_enc
-                self.total_decoder_seconds += t_dec
-                self.total_dispatch_seconds += time.perf_counter() - t_disp
-            else:
-                t_pack = time.perf_counter()
+                        prompt_dev, phase=self.phase, spans=sp)
+                entry = self._dispatched(tokens, active, n_valid,
+                                         finalizing, frame_base,
+                                         stream_ids)
+        else:
+            with sp.span("engine.pack"):
                 packed = self.model.pack_tick_inputs(
                     block, n_valid, prompt_idx,
                     None if all_active else active)
-                self.total_pack_seconds += time.perf_counter() - t_pack
-                t_up = time.perf_counter()
+            with sp.span("engine.upload"):
                 packed_dev = self.model.put_batch(packed)
-                self.total_upload_seconds += time.perf_counter() - t_up
-                t_disp = time.perf_counter()
+            with sp.span("engine.dispatch"):
                 self.state, tokens = self.model.fused_tick_packed(
-                    cfg, self.state, packed_dev, all_active, phase=self.phase,
-                    k=k, fast_gated=self.use_realign)
-                self.total_dispatch_seconds += time.perf_counter() - t_disp
-            entry = _Pending(
-                kind="tokens", active=active, n_valid=n_valid,
-                finalizing=finalizing, frame_base=frame_base,
-                stream_ids=stream_ids, t_dispatch=time.perf_counter())
-            self._start_readback(tokens, entry)
+                    cfg, self.state, packed_dev, all_active,
+                    phase=self.phase, k=k, fast_gated=self.use_realign)
+                entry = self._dispatched(tokens, active, n_valid,
+                                         finalizing, frame_base,
+                                         stream_ids)
 
-            if k > 1:  # wrap compaction already ran inside the k-chunk tick
-                self.phase = (self.phase + k) % cfg.n_phases
-                self.slot_phase[:] = self.phase
-            elif all_active or self.use_realign:
-                self.slot_phase[active] = self.phase + 1
-                self.phase += 1
-                if self.phase >= cfg.n_phases:
-                    aligned = self.slot_phase == cfg.n_phases
-                    # paused slots' windows sit mid-buffer: the wrap must not
-                    # clobber them (masked compaction)
+        if k > 1:  # wrap compaction already ran inside the k-chunk tick
+            self.phase = (self.phase + k) % cfg.n_phases
+            self.slot_phase[:] = self.phase
+        elif all_active or self.use_realign:
+            self.slot_phase[active] = self.phase + 1
+            self.phase += 1
+            if self.phase >= cfg.n_phases:
+                aligned = self.slot_phase == cfg.n_phases
+                # paused slots' windows sit mid-buffer: the wrap must not
+                # clobber them (masked compaction)
+                with sp.span("engine.slot_ops", calls=1):
                     self.state = self.model.compact_state(
                         cfg, self.state,
                         mask=None if bool(aligned.all()) else aligned)
-                    self.slot_phase[aligned] = 0
-                    self.phase = 0
-            # (a legacy gated tick is phase-stationary: no phase moves)
-            self.frame_offsets[active] += k * n_valid[active]
-            self._pending_q.append(entry)
-            for i, sid in ended_now:
-                self._pending_q.append(_Pending(
-                    kind="ended", slot_idx=i, stream_id=sid))
-            events.extend(self._drain_pending(force_all=False))
-            self.total_step_seconds += time.perf_counter() - t0
-        else:
-            for i, sid in ended_now:
-                self._pending_q.append(_Pending(
-                    kind="ended", slot_idx=i, stream_id=sid))
-            events.extend(self._drain_pending(force_all=True))
+                self.slot_phase[aligned] = 0
+                self.phase = 0
+        # (a legacy gated tick is phase-stationary: no phase moves)
+        self.frame_offsets[active] += k * n_valid[active]
+        self._pending_q.append(entry)
+        for i, sid in ended_now:
+            self._pending_q.append(_Pending(
+                kind="ended", slot_idx=i, stream_id=sid))
+        return self._drain_pending(force_all=False)
 
-        with self._lock:
-            migrations = bool(self._pending_exports or self._pending_imports)
-        more = bool(self._pending_q) or migrations or any(
-            s is not None and not s.finalize_sent
-            and ((s.primed and s.staged >= shift) or s.audio_queue
-                 or s.ending)
-            for s in self.slots)
-        self.total_tick_seconds += time.perf_counter() - t_tick
-        return events, more
+    def _dispatched(self, tokens, active, n_valid, finalizing, frame_base,
+                    stream_ids) -> _Pending:
+        """The readback entry of the step just dispatched, its tokens'
+        host copy started."""
+        entry = _Pending(
+            kind="tokens", active=active, n_valid=n_valid,
+            finalizing=finalizing, frame_base=frame_base,
+            stream_ids=stream_ids, t_dispatch=time.perf_counter())
+        self._start_readback(tokens, entry)
+        return entry
 
 
 class BatchedEngine:
@@ -1033,49 +1071,66 @@ class BatchedEngine:
         return s.transcript if s else ""
 
     def stats(self) -> dict:
-        """Engine counters per latency group (host clock, seconds), each
-        group's compiled ticks and slot operations (graphs: keys, captures,
-        recaptures, replays, pool bytes, capture seconds; graphs.py); with
-        phase_timers also each
+        """Engine counters per latency group, from each group's span table
+        (utils/trace.py; host clock, seconds): the tick's and each phase's
+        seconds (`transfer_seconds` is the readback wait; `step_seconds`,
+        and `rtf` over the audio dispatched, the dispatching ticks' path
+        from the slot operations to the readbacks collected after the
+        dispatch: the `engine.step` span), the rows that carried audio
+        summed over ticks (`rows_active`) beside the rows dispatched
+        (slots x dispatches), the slot operations issued and the text and
+        ended events returned; each group's compiled ticks and slot
+        operations (graphs: keys, captures, recaptures, replays, pool
+        bytes, capture seconds; graphs.py); with phase_timers also each
         group's encoder_seconds / decoder_seconds."""
         out = {"streams": len(self._route),
                "device": self.model.backend_name, "groups": {}}
         for rc, g in list(self.groups.items()):
-            rtf = (g.total_step_seconds / g.total_audio_seconds
-                   if g.total_audio_seconds else 0.0)
-            out["groups"][rc] = {
+            count = g.spans.count
+            # a phase's seconds, 0 if never run (the table copied at once:
+            # the tick thread may add a phase while another thread reads)
+            sec = collections.Counter({
+                n.removeprefix("engine."): x
+                for n, x in dict(g.spans.seconds).items()})
+            rtf = sec["step"] / g.total_audio_seconds \
+                if g.total_audio_seconds else 0.0
+            grp = out["groups"][rc] = {
                 "active_slots": g.n_active_streams,
                 "ticks": g.total_ticks,
                 "steps": g.total_steps,
                 "chunk_steps": g.total_chunk_steps,
                 "chunks": g.total_chunks,
                 "audio_seconds": round(g.total_audio_seconds, 2),
-                "step_seconds": round(g.total_step_seconds, 3),
-                "transfer_seconds": round(g.total_transfer_seconds, 3),
-                "upload_seconds": round(g.total_upload_seconds, 3),
-                "tick_seconds": round(g.total_tick_seconds, 3),
-                "pack_seconds": round(g.total_pack_seconds, 3),
-                "scatter_seconds": round(g.total_scatter_seconds, 3),
-                "dispatch_seconds": round(g.total_dispatch_seconds, 3),
+                "step_seconds": round(sec["step"], 3),
+                "transfer_seconds": round(sec["readback_wait"], 3),
+                "upload_seconds": round(sec["upload"], 3),
+                "tick_seconds": round(sec["tick"], 3),
+                "pack_seconds": round(sec["pack"], 3),
+                "scatter_seconds": round(sec["scatter"], 3),
+                "dispatch_seconds": round(sec["dispatch"], 3),
                 "rtf": round(rtf, 5),
             }
+            for p in ("admin", "ingest", "prime", "scan", "take",
+                      "slot_ops", "more"):
+                grp[f"{p}_seconds"] = round(sec[p], 3)
+            for key in ("rows_active", "text_events", "ended_events"):
+                grp[key] = count("engine.tick", key)
+            grp["rows_dispatched"] = g.batch * g.total_steps
+            grp["slot_ops"] = count("engine.slot_ops", "calls")
             lat = np.asarray(list(g.emit_latencies)) * 1e3
             if lat.size:
                 p50, p90, p99 = np.percentile(lat, (50, 90, 99))
-                out["groups"][rc]["emit_latency_ms"] = {
+                grp["emit_latency_ms"] = {
                     "p50": round(float(p50), 1), "p90": round(float(p90), 1),
                     "p99": round(float(p99), 1), "n": int(lat.size)}
             gs = self.model.graphs.stats(lambda key, g=g: _group_key(g, key))
-            out["groups"][rc]["graphs"] = {
+            grp["graphs"] = {
                 k: gs[k] for k in ("keys", "captures", "recaptures",
                                    "replays", "pool_bytes")}
-            out["groups"][rc]["graphs"]["capture_seconds"] = round(
-                gs["capture_seconds"], 3)
+            grp["graphs"]["capture_seconds"] = round(gs["capture_seconds"], 3)
             if g.phase_timers:
-                out["groups"][rc]["encoder_seconds"] = round(
-                    g.total_encoder_seconds, 3)
-                out["groups"][rc]["decoder_seconds"] = round(
-                    g.total_decoder_seconds, 3)
+                grp["encoder_seconds"] = round(sec["encoder"], 3)
+                grp["decoder_seconds"] = round(sec["decoder"], 3)
         return out
 
     def tick(self) -> tuple[list[Event], bool]:

@@ -496,8 +496,12 @@ def churn_measure(model, batch: int, mode: int, windows,
     torch.cuda.synchronize()
     ch.group.emit_latencies.clear()
     first = len(ch.dispatched)
-    parts = ("transfer", "scatter", "dispatch", "pack", "upload")
-    before = {k: getattr(ch.group, f"total_{k}_seconds") for k in parts}
+    # the engine's span of each part (utils/trace.py)
+    parts = {"transfer": "engine.readback_wait", "scatter": "engine.scatter",
+             "dispatch": "engine.dispatch", "pack": "engine.pack",
+             "upload": "engine.upload"}
+    secs = ch.group.spans.seconds
+    before = {k: secs[span] for k, span in parts.items()}
     steps0 = ch.group.total_chunk_steps
     joined0 = ch.joined
     with SlotOps(model, batch) as ops:
@@ -509,8 +513,8 @@ def churn_measure(model, batch: int, mode: int, windows,
     joins_t = ch.joined - joined0
     # the engine's own split of a tick's host time (ms per tick):
     # transfer is the wait on a token readback, the rest host work
-    split = {k: round((getattr(ch.group, f"total_{k}_seconds") - before[k])
-                      / n_time * 1e3, 3) for k in parts}
+    split = {k: round((secs[span] - before[k]) / n_time * 1e3, 3)
+             for k, span in parts.items()}
     split["slot_ops"] = round(ops.host_seconds() / n_time * 1e3, 3)
     disp = [h for h, d in zip(host, ch.dispatched[first:]) if d]
     lat = ch.engine.stats()["groups"][mode].get("emit_latency_ms", {})
