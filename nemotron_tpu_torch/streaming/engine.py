@@ -20,9 +20,11 @@ a hazard of its TPU runtime and has no counterpart here.)
 Ported: start, push, end and drop; the all-active tick; the masked fast
 tick with realign-on-resume; wrap compaction (masked when slots are paused
 mid-cycle); finalize with reduced n_valid; the k-chunk backlog tick; the
-readback FIFO; transcript and stats; events with their decode position
-(`at_sec`) and minimum token confidence (`conf`, a model built with
-confidence=True); live-stream migration (`request_export` /
+readback FIFO (steps only: an end with no row left to finalize waits on
+the newest step in flight, where the JAX engine queues a sentinel that
+counts toward its depth); transcript and stats; events with their decode
+position (`at_sec`) and minimum token confidence (`conf`, a model built
+with confidence=True); live-stream migration (`request_export` /
 `request_import`, `snapshot_to_bytes` / `snapshot_from_bytes` in the JAX
 package's byte format); and the legacy flow (`gated_realign=False`: a
 tick with paused slots compacts to phase 0 and runs the phase-stationary
@@ -42,8 +44,9 @@ utils/trace.py): one `engine.tick` root a tick, and under it
 `engine.admin`, `.ingest`, `.prime`, `.scan`, `.take`, `.step` (a tick
 that dispatches: `.slot_ops`, `.pack`, `.upload`, `.dispatch` with
 `.encoder` and `.decoder` under phase_timers, and the readbacks due),
-`.readback_wait` and `.scatter` (one pair a readback collected) and
-`.more`. `stats()` reads the table; under a torch.profiler session the
+`.readback_wait` and `.scatter` (one pair a readback collected; the wait
+counts `same_tick` where it collects the step its own tick dispatched)
+and `.more`. `stats()` reads the table; under a torch.profiler session the
 spans are also `nt:` events of the trace.
 """
 
@@ -74,8 +77,10 @@ def _group_key(g, key) -> bool:
             or (key[0] in SLOT_KEYS and key[1] == g.cfg))
 
 
-# Token readbacks lag dispatch by up to this many ticks (the default of
-# EngineGroup's readback_depth).
+# The default of EngineGroup's readback_depth: a step is collected when
+# more than this many dispatched steps are in flight. At any depth >= 1 a
+# step is collected once a newer one is dispatched anyway, so the depth
+# bounds nothing further.
 READBACK_DEPTH = 2
 
 # Backlog micro-batching: when every slot is occupied, steady and has this
@@ -114,11 +119,11 @@ def prime_carry(raw: np.ndarray) -> tuple[np.ndarray, float]:
 
 @dataclasses.dataclass
 class _Pending:
-    """One entry of the FIFO readback queue: a dispatched step's tokens
-    ("tokens"), or an end-of-stream sentinel ("ended") that must not
-    overtake the stream's last in-flight tokens."""
+    """One entry of the FIFO readback queue: a dispatched step's tokens,
+    and the streams that ended with no row left to finalize while it was
+    the newest step in flight (their `ended` events follow its scatter, so
+    none overtakes its stream's last in-flight tokens)."""
 
-    kind: str
     tokens_host: object = None  # CPU tensor being filled by an async copy
     ready: object = None        # torch.cuda.Event recorded after the copy
     result: object = None
@@ -127,8 +132,8 @@ class _Pending:
     finalizing: object = None
     frame_base: object = None
     stream_ids: object = None
-    slot_idx: int = -1
-    stream_id: int = -1
+    ends: list = dataclasses.field(default_factory=list)  # (slot, stream)
+    tick: int = 0  # the group's tick that dispatched the step
     t_dispatch: float = 0.0
 
 
@@ -196,7 +201,9 @@ class EngineGroup:
     and forces the legacy flow and single-chunk ticks, as the JAX
     package's PHASE_TIMERS does. readback_depth and max_tick_chunks are
     the JAX engine's READBACK_DEPTH and MAX_TICK_CHUNKS, clamped to >= 1 as
-    there.
+    there; the depth counts dispatched steps in flight, never the `ended`
+    events waiting on them (the JAX engine counts those too), so it bounds
+    nothing beyond collecting a step once a newer one is dispatched.
 
     `source` (optional) is a native ingest backend (serving/ingest.py): PCM
     then stages in its C++ rings instead of the slots' Python lists, and
@@ -602,27 +609,23 @@ class EngineGroup:
         return (avail - 512 + 160) // 160
 
     def _drain_pending(self, force_all: bool) -> list[Event]:
-        """Process queued readbacks FIFO. A "tokens" entry is read once a
-        newer step has been dispatched, when the queue is deeper than
-        readback_depth, or when force_all (idle ticks)."""
+        """Collect dispatched steps FIFO, each followed by the `ended`
+        events waiting on it. The oldest step is collected once a newer
+        one has been dispatched, when more than readback_depth steps are
+        in flight (at a depth >= 1 implied by the first), or when
+        force_all (idle ticks, migrations). The queue holds steps only,
+        so a tick that dispatches never waits on its own step:
+        `engine.readback_wait` counts such a readback as `same_tick`,
+        which this rule keeps at 0."""
         events: list[Event] = []
         while self._pending_q:
-            head = self._pending_q[0]
-            if head.kind == "tokens" and head.result is None:
-                has_newer = any(e.kind == "tokens"
-                                for e in itertools.islice(self._pending_q, 1,
-                                                          None))
-                over_depth = len(self._pending_q) > self.readback_depth
-                if not (force_all or over_depth or has_newer):
-                    break
-            self._pending_q.popleft()
-            if head.kind == "ended":
-                slot = self.slots[head.slot_idx]
-                events.append(Event(head.stream_id, "ended", ""))
-                if slot is not None and slot.stream_id == head.stream_id:
-                    self.release(head.slot_idx)
-                continue
-            with self.spans.span("engine.readback_wait"):
+            in_flight = len(self._pending_q)
+            if not (force_all or in_flight > 1
+                    or in_flight > self.readback_depth):
+                break
+            head = self._pending_q.popleft()
+            with self.spans.span("engine.readback_wait",
+                                 same_tick=int(head.tick == self.total_ticks)):
                 if head.ready is not None:
                     head.ready.synchronize()
                 head.result = head.tokens_host.numpy()
@@ -630,6 +633,18 @@ class EngineGroup:
             with self.spans.span("engine.scatter"):
                 events.extend(self._process_pending(head))
             self.emit_latencies.append(time.perf_counter() - head.t_dispatch)
+            events.extend(self._emit_ended(head.ends))
+        return events
+
+    def _emit_ended(self, ends: list[tuple[int, int]]) -> list[Event]:
+        """The `ended` events of streams that ended with no row left to
+        finalize, each releasing its slot (unless dropped or reused)."""
+        events = []
+        for i, sid in ends:
+            events.append(Event(sid, "ended", ""))
+            slot = self.slots[i]
+            if slot is not None and slot.stream_id == sid:
+                self.release(i)
         return events
 
     def _process_pending(self, pending: _Pending) -> list[Event]:
@@ -787,10 +802,8 @@ class EngineGroup:
                 events.extend(self._step(block, n_valid, prompt_idx, active,
                                          finalizing, ended_now, k, n_act))
         else:
-            for i, sid in ended_now:
-                self._pending_q.append(_Pending(
-                    kind="ended", slot_idx=i, stream_id=sid))
             events.extend(self._drain_pending(force_all=True))
+            events.extend(self._emit_ended(ended_now))
 
         with sp.span("engine.more"):
             with self._lock:
@@ -895,10 +908,8 @@ class EngineGroup:
                 self.phase = 0
         # (a legacy gated tick is phase-stationary: no phase moves)
         self.frame_offsets[active] += k * n_valid[active]
+        entry.ends = ended_now
         self._pending_q.append(entry)
-        for i, sid in ended_now:
-            self._pending_q.append(_Pending(
-                kind="ended", slot_idx=i, stream_id=sid))
         return self._drain_pending(force_all=False)
 
     def _dispatched(self, tokens, active, n_valid, finalizing, frame_base,
@@ -906,9 +917,9 @@ class EngineGroup:
         """The readback entry of the step just dispatched, its tokens'
         host copy started."""
         entry = _Pending(
-            kind="tokens", active=active, n_valid=n_valid,
-            finalizing=finalizing, frame_base=frame_base,
-            stream_ids=stream_ids, t_dispatch=time.perf_counter())
+            active=active, n_valid=n_valid, finalizing=finalizing,
+            frame_base=frame_base, stream_ids=stream_ids,
+            tick=self.total_ticks, t_dispatch=time.perf_counter())
         self._start_readback(tokens, entry)
         return entry
 
@@ -1078,11 +1089,13 @@ class BatchedEngine:
         from the slot operations to the readbacks collected after the
         dispatch: the `engine.step` span), the rows that carried audio
         summed over ticks (`rows_active`) beside the rows dispatched
-        (slots x dispatches), the slot operations issued and the text and
-        ended events returned; each group's compiled ticks and slot
-        operations (graphs: keys, captures, recaptures, replays, pool
-        bytes, capture seconds; graphs.py); with phase_timers also each
-        group's encoder_seconds / decoder_seconds."""
+        (slots x dispatches), the slot operations issued, the text and
+        ended events returned and the readbacks that collected the step
+        their own tick dispatched (`readbacks_same_tick`); each group's
+        compiled ticks and slot operations (graphs: keys, captures,
+        recaptures, replays, pool bytes, capture seconds; graphs.py); with
+        phase_timers also each group's encoder_seconds /
+        decoder_seconds."""
         out = {"streams": len(self._route),
                "device": self.model.backend_name, "groups": {}}
         for rc, g in list(self.groups.items()):
@@ -1116,6 +1129,8 @@ class BatchedEngine:
             for key in ("rows_active", "text_events", "ended_events"):
                 grp[key] = count("engine.tick", key)
             grp["rows_dispatched"] = g.batch * g.total_steps
+            grp["readbacks_same_tick"] = count("engine.readback_wait",
+                                               "same_tick")
             grp["slot_ops"] = count("engine.slot_ops", "calls")
             lat = np.asarray(list(g.emit_latencies)) * 1e3
             if lat.size:

@@ -3,8 +3,15 @@ transcript equals the direct tick loop over its audio (exact tokens) when
 the engine takes the k=8 backlog path, and when streams join late, starve
 mid-stream (masked ticks, realign on resume, masked wrap compaction) and
 end on and off chunk boundaries. The checks take the model, so that
-tests/test_torch_serve_int8.py runs them on the int8 configuration."""
+tests/test_torch_serve_int8.py runs them on the int8 configuration.
 
+The readback FIFO holds dispatched steps only: streams that end on a chunk
+boundary (no leftover frame, so no finalizing row) in a dispatching tick
+never make that tick wait on its own step; their `ended` events come with
+the next tick's collection, after their last text, and an idle tick
+drains every step and end."""
+
+import pytest
 import torch
 
 from test_torch_server import build_model, direct_transcript, make_audio
@@ -115,3 +122,69 @@ def check_prewarm_leaves_a_clean_group(model):
     got, ended = texts_by_stream(run_until_idle(engine))
     assert ended == {sid}
     assert got[sid] == direct_transcript(model, audio)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("timers", [False, True],
+                         ids=["packed", "phase-timers"])
+def test_ends_never_make_a_tick_collect_its_own_step(depth, timers):
+    model = build_model()
+    engine = BatchedEngine(model, batch_per_group=4, readback_depth=depth,
+                           phase_timers=timers)
+    shift = 1280
+    # A, B, C: two whole chunks, ending on the boundary; D: four chunks
+    audios = [make_audio(96 + n * shift, seed=50 + i)
+              for i, n in enumerate((2, 2, 2, 4))]
+    sids = [engine.start_stream(0) for _ in audios]
+    group = engine.groups[0]
+    for sid, a in zip(sids, audios):
+        engine.push_audio(sid, a)
+    events = []
+
+    def tick():
+        ev, more = engine.tick()
+        events.extend(ev)
+        return [e for e in ev if e.kind == "ended"], more
+
+    for _ in range(2):  # every stream's first two chunks
+        assert tick() == ([], True)
+    for sid in sids[:3]:
+        engine.end_stream(sid)
+    # A, B and C end while D's third chunk dispatches: the tick collects
+    # the step before (A, B and C's last text), not its own
+    assert tick() == ([], True)
+    assert group.total_steps == 3 and len(group._pending_q) == 1
+    assert all(group.slots[i] is not None for i in range(3))
+    # the next dispatching tick collects that step, then the three ends
+    ended, _ = tick()
+    assert [e.stream_id for e in ended] == sids[:3]
+    assert group.total_steps == 4
+    assert all(group.slots[i] is None for i in range(3))
+    # E joins with one chunk as D ends: D's end waits on E's step; the
+    # idle tick after collects it, D's end and E's own end, and frees
+    # every slot
+    e_audio = make_audio(96 + shift, seed=60)
+    sids.append(engine.start_stream(0))
+    engine.push_audio(sids[4], e_audio)
+    engine.end_stream(sids[4])
+    engine.end_stream(sids[3])
+    assert tick() == ([], True)
+    assert group.total_steps == 5
+    ended, more = tick()
+    assert group.total_steps == 5  # an idle tick
+    assert [e.stream_id for e in ended] == sids[3:] and not more
+    assert not group._pending_q and group.n_active_streams == 0
+    assert all(s is None for s in group.slots)
+
+    # every stream's `ended` follows its last text; no readback waited
+    # on its own tick's step
+    last = {e.stream_id: n for n, e in enumerate(events) if e.text}
+    ends = {e.stream_id: n for n, e in enumerate(events)
+            if e.kind == "ended"}
+    assert sorted(ends) == sorted(sids)
+    assert all(ends[s] > last.get(s, -1) for s in sids)
+    assert len(last) >= 3  # the streams emit text
+    st = engine.stats()["groups"][0]
+    assert st["readbacks_same_tick"] == 0
+    assert group.spans.calls["engine.readback_wait"] == st["steps"] == 5
+    assert st["ended_events"] == 5
