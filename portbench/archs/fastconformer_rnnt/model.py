@@ -1,6 +1,7 @@
-"""The model a cell runs: weights made on the device from the seed, handed
-as the same tensors to the program (nemotron_tpu_torch's ASRModel) and to
-the reference (a plain dict, portbench/reference).
+"""The model a cell of this architecture runs: weights made on the device
+from the seed, handed as the same tensors to the program
+(nemotron_tpu_torch's ASRModel) and to the reference (a plain dict,
+reference.py).
 
 A configuration file (portbench/configs/<name>.json) fixes the widths
 ("model", the port's Hparams fields), the activation type and which encoder
@@ -164,7 +165,7 @@ def make_weights(conf: dict, seed: int, device) -> dict:
     w["joint.dec_b"] = torch.zeros(J, dtype=act, device=device)
     w["joint.out_w"] = randn(V, J, scale=J ** -0.5)
     w["joint.out_w"][V - 1].mul_(BLANK_ROW_SCALE)
-    # the blank's bias is set per run (calibrate.py)
+    # the blank's bias is set per run (calibrate.py, set_blank_bias)
     w["joint.out_b"] = torch.zeros(V, dtype=act, device=device)
     w["pre.filterbank"] = torch.tensor(slaney_filterbank(hp["n_mels"]),
                                        device=device)
@@ -172,6 +173,18 @@ def make_weights(conf: dict, seed: int, device) -> dict:
                                         dtype=torch.float32, device=device)
     w["pos_table"] = sinusoid_table(hp["max_pos_len"], D).to(device)
     return w
+
+
+def set_blank_bias(w: dict, bias: float) -> None:
+    """The joint's bias of the blank (its last token), shared by the
+    program and the reference."""
+    w["joint.out_b"][-1] = bias
+
+
+def has_q4_0_control(conf: dict) -> bool:
+    """Whether program_model(q4_0=True) has matrices to requantize: a
+    configuration with Q8_0 matrices."""
+    return bool(conf.get("q8_0_fields"))
 
 
 def vocabulary(vocab_size: int) -> list[str]:

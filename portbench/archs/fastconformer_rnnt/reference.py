@@ -1,7 +1,11 @@
-"""nemotron-speech-streaming (cache-aware FastConformer + RNN-T) written out
-plainly in float32, after the published model and the reference engine's
+"""The plain reference that decides a run's `correct`:
+nemotron-speech-streaming (cache-aware FastConformer + RNN-T) written out
+plainly in float32 PyTorch (TF32 off, no kernels, no caches, no batching
+across streams), after the published model and the reference engine's
 equations (m1el/nemotron-asr.cpp: preprocessor.cpp, nemo-ggml.cpp,
-nemo-stream.h):
+nemo-stream.h). It imports nothing of the program under test and takes
+only what the benchmark made (the weights, the audio) and what the program
+served (its tokens and their frames), which it judges.
 
 - mel: pre-emphasis 0.97, a 400-sample Hann window centred in a 512-point
   frame, hop 160, centre padding with zeros, power spectrum, the
@@ -28,7 +32,8 @@ nemo-stream.h):
 `decisions` lists every decision the program made (each token, and each
 blank that ended a frame) from what it served, and `joint_logits` gives
 the reference's logits there, the prediction net following the served
-tokens (`prediction_outputs`); judge.py reads the gaps. A weight dict that
+tokens (`prediction_outputs`); decoding.py hands them to judge.py, which
+reads the gaps. A weight dict that
 carries "_round" rounds both operands of every matmul and convolution
 with it: a lower-precision copy of the reference.
 """

@@ -3,7 +3,11 @@
 Everything that belongs to one configuration, cell, traffic mix, metric or
 kernel is a file of its own, found by the name BENCHMARK.json gives it:
 
-    configs/<config>.json      widths and types (BENCHMARK "file")
+    configs/<config>.json      widths and types (BENCHMARK "file"); "arch"
+                               names its architecture
+    archs/<arch>/              a package: the architecture's weights,
+                               program, plain reference, greedy rule and
+                               model counts (archs/__init__.py lists them)
     workloads/<cell>.json      the cell's sizes and limits
     traffic/<traffic>.json     the mix's parameters; "kind" names its module
     kinds/<kind>.py            drives the program with that kind of traffic;
@@ -13,12 +17,14 @@ kernel is a file of its own, found by the name BENCHMARK.json gives it:
     kernels/<any>.json         {"op": ..., "patterns": [...]}: the profiler
                                kernel names that do one operation
 
-A run: check the card, make the weights from the seed, set the blank's
-bias (calibrate.py), build the program's model, let the traffic kind set up and warm up (set-up ends when the window
-opens), measure for --seconds (with --trace 1 a stretch of the window under
-torch.profiler), read the peak memory, check that no JAX module was
-loaded, read the metrics, free the program, judge what it served against
-the plain reference (judge.py), and print one JSON line.
+A run: check that the cell's architecture serves its traffic kind and
+that the card is there, make the weights from the seed, set the blank's
+bias (calibrate.py), build the program's model, let the traffic kind set
+up and warm up (set-up ends when the window opens), measure for --seconds
+(with --trace 1 a stretch of the window under torch.profiler), read the
+peak memory, check that no JAX module was loaded, read the metrics, free
+the program, judge what it served against the architecture's plain
+reference (judge.py), and print one JSON line.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import argparse
 import gc
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +59,20 @@ def load_module(path: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_package(path: Path):
+    """A directory of the benchmark as a package, by path, so that its
+    modules import each other relatively; loaded once a process under a
+    name made from the path."""
+    name = "portbench_pkg_" + re.sub(r"\W", "_", str(path.resolve()))
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, path / "__init__.py", submodule_search_locations=[str(path)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
 
 
 def read_json(path: Path) -> dict:
@@ -91,6 +112,9 @@ class Suite:
     def kind(self, kind: str):
         return load_module(self.root / "kinds" / f"{kind}.py")
 
+    def arch(self, arch: str):
+        return load_package(self.root / "archs" / arch)
+
     def metrics(self, cell: str, trace: bool) -> list[dict]:
         """The metrics a run of `cell` reports: the end-to-end ones with
         --trace 0, the per-layer ones with --trace 1; a metric with a
@@ -121,9 +145,10 @@ def parse_args(argv):
                     help="fp8 (the default): the control, the reference "
                          "in fp8 in the program's place (judge.py), whose "
                          "`correct` has to come out false; q4_0: the "
-                         "program's own Q4_0 path on a Q8_0 "
-                         "configuration's matrices (model.py), read "
-                         "beside it")
+                         "program's own Q4_0 path, where the "
+                         "architecture has one for the configuration "
+                         "(archs/<arch>: has_q4_0_control), read beside "
+                         "it")
     return ap.parse_args(argv)
 
 
@@ -150,6 +175,12 @@ def main(argv, t_start: float, suite: Suite | None = None,
     args = parse_args(argv)
     suite = suite or Suite()
     cell = suite.cell(args.workload)
+    conf, mix = cell["config"], cell["traffic"]
+    arch = suite.arch(conf["arch"])
+    if mix["kind"] not in arch.KINDS:
+        say(f"no result: cell {cell['name']} sends {mix['kind']} traffic, "
+            f"which architecture {conf['arch']} does not serve")
+        return 2
     chips = int(cell["entry"]["chips"])
     if device == "cuda":
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -162,24 +193,24 @@ def main(argv, t_start: float, suite: Suite | None = None,
     # one busy thread: the traffic loop; no pool of host threads beside it
     torch.set_num_threads(1)
 
-    from . import calibrate, gen, judge, model as model_mod
+    from . import calibrate, gen, judge
 
-    rec: dict = {"cell": cell, "seed": args.seed, "seconds": args.seconds,
-                 "trace": bool(args.trace), "device": device,
-                 "kernel_ops": suite.kernel_ops()}
-    weights = model_mod.make_weights(cell["config"], args.seed, device)
-    mix = cell["traffic"]
+    rec: dict = {"cell": cell, "arch": arch, "seed": args.seed,
+                 "seconds": args.seconds, "trace": bool(args.trace),
+                 "device": device, "kernel_ops": suite.kernel_ops()}
+    weights = arch.make_weights(conf, args.seed, device)
     kind = suite.kind(mix["kind"])
     bias = calibrate.blank_bias(
-        weights, cell["config"], kind.calibration_right_context(mix),
-        gen.mix_pool(mix, args.seed, device))
-    weights["joint.out_b"][-1] = bias
+        arch, weights, conf, kind.calibration_right_context(mix),
+        gen.mix_pool(mix, args.seed, device), device)
+    arch.set_blank_bias(weights, bias)
     say(f"blank bias {bias} (calibrate.py)")
-    if args.control == "q4_0" and not cell["config"].get("q8_0_fields"):
-        say("no result: the q4_0 control needs a Q8_0 configuration")
+    if args.control == "q4_0" and not arch.has_q4_0_control(conf):
+        say(f"no result: architecture {conf['arch']} has no q4_0 control "
+            f"on this configuration")
         return 2
-    model = model_mod.program_model(cell["config"], weights, device,
-                                    q4_0=args.control == "q4_0")
+    model = arch.program_model(conf, weights, device,
+                               q4_0=args.control == "q4_0")
     run = kind.Run(model, rec)
     run.setup()
     rec["graph_capture_s"] = model.graphs.stats()["capture_seconds"]
@@ -213,7 +244,7 @@ def main(argv, t_start: float, suite: Suite | None = None,
     if device == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    numbers = judge.judge(weights, cell, samples, say,
+    numbers = judge.judge(arch, weights, cell, samples, say, device,
                           control=args.control == "fp8")
     say(f"reference: {len(samples)} samples, "
         f"{time.perf_counter() - t_ref:.2f} s")

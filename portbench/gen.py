@@ -102,8 +102,9 @@ _WORD = re.compile(r" (?:\{(\d+\.\d+)\})?w(\d+)")
 
 
 def parse_text(text: str) -> tuple[list[int], list[float]]:
-    """Served text (model.vocabulary's words, with timestamps where asked)
-    -> (token ids, seconds or [])."""
+    """Served text (one word ▁w<id> a token, as the architectures'
+    vocabularies have it, with timestamps where asked) -> (token ids,
+    seconds or [])."""
     ids, secs = [], []
     pos = 0
     for m in _WORD.finditer(text):

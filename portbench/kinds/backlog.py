@@ -111,8 +111,10 @@ class Run:
                                     for s in book.streams.values())
         tokens = sum(len(s.tokens) - n0.get(s.sid, 0)
                      for s in book.streams.values())
-        print(f"window: {tokens} tokens served over "
-              f"{rec['stream_audio_s'] / 0.08:.0f} encoder frames",
+        frames = rec["stream_audio_s"] / rec["arch"].frame_seconds(
+            rec["cell"]["config"])
+        print(f"window: {tokens} tokens served over {frames:.0f} encoder "
+              f"frames",
               file=sys.stderr, flush=True)
         # the streams finished in the window, and any start refused for
         # want of a slot (a stream that never finishes holds its slot, and

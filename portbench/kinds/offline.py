@@ -8,9 +8,9 @@ from the seed, with other audio), so every call is the same work; the API
 splits a file longer than its segment as users get it. Set-up makes two
 calls, which warm up and capture every graph key a call reaches. The
 window's calls are those that start before it closes; the rate is their
-audio over the time they took. Text comes with word timestamps, and every
-token is a word of its own (model.vocabulary), so what was served reads
-back to tokens and frames.
+audio over the time they took. Text comes with word timestamps, which the
+cell's architecture reads back to the tokens and frames served
+(archs/<arch>: served_path).
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ import numpy as np
 from portbench import gen
 from portbench.streams import clock
 from portbench.trace import Stretch, span
-
-FRAME_S = 0.08
 
 
 def calibration_right_context(mix: dict) -> None:
@@ -111,11 +109,9 @@ class Run:
         out = []
         for i in [longest] + rest[:int(self.mix["sample_files"]) - 1]:
             f, text = files[i]
-            ids, secs = gen.parse_text(text)
             out.append({"kind": "file",
                         "audio": self.pool[f["offset"]:f["offset"] + f["n"]],
-                        "served": [(t, int(round(s / FRAME_S)))
-                                   for t, s in zip(ids, secs)]})
+                        "text": text})
         return out
 
     def close(self) -> None:

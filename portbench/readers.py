@@ -47,15 +47,16 @@ def idle_share(rec: dict):
 
 def stream_mfu(rec: dict):
     """Model FLOPs of the traced stretch's chunk steps (every active
-    stream's chunk, and once per chunk step what all streams share) over
-    its wall time and the bf16 peak."""
-    prof, shape = rec.get("profile"), rec.get("shape")
+    stream's chunk, and once per chunk step what all streams share; the
+    cell's architecture counts them) over its wall time and the bf16
+    peak."""
+    prof, shape, arch = rec.get("profile"), rec.get("shape"), rec["arch"]
     if not prof or "counters" not in prof or prof["window_s"] <= 0:
         return None
     hp, rc = shape["hp"], shape["right_context"]
     c = prof["counters"]
-    flops = c["chunks"] * roofline.stream_chunk_flops(hp, rc) \
-        + c["chunk_steps"] * roofline.stream_step_flops(hp, rc)
+    flops = c["chunks"] * arch.stream_chunk_flops(hp, rc) \
+        + c["chunk_steps"] * arch.stream_step_flops(hp, rc)
     return 100.0 * flops / prof["window_s"] / roofline.PEAK_BF16_FLOPS
 
 
@@ -67,8 +68,9 @@ def b4_share(rec: dict):
     if ks is None or not fields or "counters" not in rec["profile"]:
         return None
     shape = rec["shape"]
-    calls = roofline.stream_linear_calls(shape["hp"], fields, shape["slots"],
-                                         shape["right_context"])
+    calls = rec["arch"].stream_linear_calls(shape["hp"], fields,
+                                            shape["slots"],
+                                            shape["right_context"])
     per_step = sum(roofline.bound_s(*roofline.q8_linear(*c)) for c in calls)
     return share(rec["profile"]["counters"]["chunk_steps"] * per_step, ks[0])
 
@@ -79,11 +81,11 @@ def b1_share(rec: dict):
     if ks is None or "counters" not in rec["profile"]:
         return None
     shape = rec["shape"]
-    hp = shape["hp"]
-    chunk, keys = roofline.stream_window(hp, shape["right_context"])
-    if chunk != 1:
+    calls = rec["arch"].stream_attention_calls(shape["hp"], shape["slots"],
+                                               shape["right_context"])
+    if calls is None:
         return None
-    one = roofline.bound_s(*roofline.t1_attention(
-        shape["slots"], hp["n_heads"], keys, hp["d_model"] // hp["n_heads"]))
+    n, args = calls
+    one = roofline.bound_s(*roofline.t1_attention(*args))
     steps = rec["profile"]["counters"]["chunk_steps"]
-    return share(steps * hp["n_layers"] * one, ks[0])
+    return share(steps * n * one, ks[0])

@@ -1,6 +1,7 @@
 """BENCHMARK.json keeps the benchmark's contract, and every name in it has
-its file: each configuration, cell, traffic mix, traffic kind and metric is
-found by name, and a run's last line has exactly the contract's keys."""
+its file: each configuration, its architecture, cell, traffic mix, traffic
+kind and metric is found by name, and a run's last line has exactly the
+contract's keys."""
 
 from __future__ import annotations
 
@@ -126,6 +127,9 @@ def test_every_name_has_its_file(bench):
     for w in bench["workloads"]:
         cell = suite.cell(w["name"])
         kinds.add(cell["traffic"]["kind"])
+        # the configuration's architecture serves the cell's kind
+        assert cell["traffic"]["kind"] in \
+            suite.arch(cell["config"]["arch"]).KINDS
         limits = set(cell["sizes"]["limits"])
         assert {"served_faults", "text_off", "frames_off"} <= limits
         assert limits & {"max_gap", "off_best_per_mille"}

@@ -58,7 +58,7 @@ class StubEngine:
 
 
 def test_lag_is_timed_from_the_due_time(tiny_suite):
-    from portbench import model as model_mod
+    from portbench.archs.fastconformer_rnnt import model as model_mod
 
     cell = tiny_suite.cell("tiny-live")
     cell["traffic"] = dict(cell["traffic"], warm_s=0.3, life_s=[2.0, 4.0])

@@ -1,7 +1,7 @@
 """Nothing the benchmark loads is JAX or the JAX package: the check compares
 top-level module names whole (the port's name begins with the JAX
-package's), a run's process holds none of them, and the reference imports
-nothing of the program."""
+package's), a run's process holds none of them, and no architecture's
+reference imports anything of the program."""
 
 from __future__ import annotations
 
@@ -16,10 +16,12 @@ CHILD = textwrap.dedent("""
     import sys
     sys.modules["jax"] = None          # any `import jax` now fails
     sys.modules["nemotron_tpu"] = None  # and so does the JAX package
-    import portbench.run, portbench.core, portbench.judge, portbench.model
+    import portbench.run, portbench.core, portbench.judge, portbench.calibrate
     import portbench.streams, portbench.trace, portbench.readers
     import nemotron_tpu_torch.api, nemotron_tpu_torch.streaming.engine
     suite = portbench.core.Suite()
+    for conf in suite.bench["configs"]:
+        suite.arch(suite.config(conf["name"])["arch"])
     for kind in ("live", "backlog", "offline"):
         suite.kind(kind)
     for m in suite.bench["end_to_end"] + suite.bench["per_layer"]:
@@ -47,7 +49,12 @@ def test_the_harness_loads_no_jax():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in (core.ROOT / "reference").glob("*.py"):
+    """Every architecture's reference.py, those of portbench/archs and the
+    one the tests add (portbench/tests/tiny_ctc)."""
+    paths = sorted(core.ROOT.glob("archs/*/reference.py")) \
+        + sorted(core.ROOT.glob("tests/*/reference.py"))
+    assert len(paths) >= 2
+    for path in paths:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             names = []

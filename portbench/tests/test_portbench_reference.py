@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import gen, model as model_mod
-from portbench.reference import asr as ref
+from portbench import gen
+from portbench.archs.fastconformer_rnnt import model as model_mod
+from portbench.archs.fastconformer_rnnt import reference as ref
 from portbench.tests import tiny
 
 

@@ -1,10 +1,13 @@
-"""The yardstick's arithmetic against values worked out by hand."""
+"""The yardstick's arithmetic (roofline.py) and the nemotron architecture's
+model counts (archs/fastconformer_rnnt/counts.py) against values worked
+out by hand."""
 
 from __future__ import annotations
 
 import pytest
 
 from portbench import roofline as R
+from portbench.archs.fastconformer_rnnt import counts as C
 
 HP = {"n_mels": 128, "d_model": 1024, "n_heads": 8, "d_head": 128,
       "d_ff": 4096, "n_layers": 24, "kernel_size": 9, "vocab_size": 1025,
@@ -45,39 +48,46 @@ def test_frames_and_model_flops():
     # subsampling: widths 65 / 33 / 17 after each stride-2 level
     sub = 2 * (9 * 256 * 4 * 65 + 9 * 256 * 2 * 33 + 256 * 256 * 2 * 33
                + 9 * 256 * 17 + 256 * 256 * 17 + 17 * 256 * 1024)
-    assert R.subsampling_flops(HP) == sub == 21_372_416
+    assert C.subsampling_flops(HP) == sub == 21_372_416
     joint_enc = 2 * 1024 * 640
-    assert R.frame_flops(HP) == 24 * per_layer + sub + joint_enc
+    assert C.frame_flops(HP) == 24 * per_layer + sub + joint_enc
     assert 1.15e9 < 24 * per_layer < 1.17e9   # ~1.16 GFLOP a frame
-    assert R.attention_flops(HP, 1, 71) == 24 * 6 * 1024 * 71
+    assert C.attention_flops(HP, 1, 71) == 24 * 6 * 1024 * 71
     # LSTM: 2 layers x 2 x 4*640 x (640 + 640); joint: 640x640, 640x1025
     it = 2 * 2 * 2560 * 1280 + 2 * 640 * 640 + 2 * 640 * 1025
-    assert R.decode_iteration_flops(HP) == it == 15_238_400
-    assert R.stream_chunk_flops(HP, 0) == R.frame_flops(HP) \
+    assert C.decode_iteration_flops(HP) == it == 15_238_400
+    assert C.stream_chunk_flops(HP, 0) == C.frame_flops(HP) \
         + 24 * 6 * 1024 * 71 + 12 * it
-    assert R.stream_chunk_flops(HP, 13) == 14 * R.frame_flops(HP) \
+    assert C.stream_chunk_flops(HP, 13) == 14 * C.frame_flops(HP) \
         + 24 * 6 * 1024 * 14 * 84 + 155 * it
-    assert R.stream_step_flops(HP, 0) == 24 * 2 * 141 * 1024 ** 2
+    assert C.stream_step_flops(HP, 0) == 24 * 2 * 141 * 1024 ** 2
 
 
 def test_stream_linear_calls():
-    calls = R.stream_linear_calls(HP, ["ffn1_w1", "attn_pos_w"], 2048, 0)
+    calls = C.stream_linear_calls(HP, ["ffn1_w1", "attn_pos_w"], 2048, 0)
     assert calls == [(2048, 4096, 1024)] * 24 + [(141, 1024, 1024)] * 24
-    calls = R.stream_linear_calls(HP, ["conv_pw1_w"], 1024, 13)
+    calls = C.stream_linear_calls(HP, ["conv_pw1_w"], 1024, 13)
     assert calls == [(1024 * 14, 2048, 1024)] * 24
 
 
+def test_stream_attention_calls():
+    # R=0: one T=1 attention a layer, every slot against 70 + 1 keys
+    assert C.stream_attention_calls(HP, 2048, 0) == (24, (2048, 8, 71, 128))
+    # R=13: 14 frames a chunk, matmul attention, no T=1 kernel
+    assert C.stream_attention_calls(HP, 1024, 13) is None
+
+
 def test_offline_segments():
-    assert R.max_seg_mel_frames(HP) == 16376
-    assert R.subsampled_len(16376) == 2048
+    assert C.max_seg_mel_frames(HP) == 16376
+    assert C.subsampled_len(16376) == 2048
     # 200 s: (3,200,000 + 256 - 512 + 160) // 160 = 19,999 mel frames,
     # segments of 16,376 and 3,623
     n = 200 * 16000
-    assert R.mel_frames(n) == 19_999
-    f1, f2 = R.subsampled_len(16376), R.subsampled_len(3623)
+    assert C.mel_frames(n) == 19_999
+    f1, f2 = C.subsampled_len(16376), C.subsampled_len(3623)
     assert (f1, f2) == (2048, 454)
-    want = sum(f * R.frame_flops(HP) + 24 * 6 * 1024 * f * f
+    want = sum(f * C.frame_flops(HP) + 24 * 6 * 1024 * f * f
                + 24 * 2 * (2 * f - 1) * 1024 ** 2 for f in (f1, f2))
-    want += (2100 + 500) * 1 * R.decode_iteration_flops(HP)
-    assert R.offline_call_flops(HP, [n], 16376, [2100, 500]) == \
+    want += (2100 + 500) * 1 * C.decode_iteration_flops(HP)
+    assert C.offline_call_flops(HP, [n], 16376, [2100, 500]) == \
         pytest.approx(want)

@@ -1,5 +1,5 @@
-"""A tiny copy of the benchmark for the CPU tests: the traffic kinds, metrics,
-kernel maps and traffic kinds of portbench/ with a BENCHMARK.json of
+"""A tiny copy of the benchmark for the CPU tests: the architectures, traffic
+kinds, metrics and kernel maps of portbench/ with a BENCHMARK.json of
 tiny cells (the widths of tests/helpers.tiny_hparams with d_ff 128,
 activations in float32) and short mixes, whose
 every finished stream and file is judged."""
@@ -30,11 +30,13 @@ LIMITS = {"max_gap": 1e-3, "served_faults": 0, "text_off": 0,
 def build(dest: Path) -> tuple[Path, Path]:
     """The tiny suite under dest: (BENCHMARK.json, its benchmark root)."""
     root = dest / "portbench"
-    for sub in ("kinds", "metrics", "kernels"):
-        shutil.copytree(PORTBENCH / sub, root / sub)
+    for sub in ("archs", "kinds", "metrics", "kernels"):
+        shutil.copytree(PORTBENCH / sub, root / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for name, quant in (("tiny-q8", MATRICES), ("tiny-f32", [])):
         dump(root / "configs" / f"{name}.json", {
-            "name": name, "model": TINY_MODEL, "activations": "float32",
+            "name": name, "arch": "fastconformer_rnnt",
+            "model": TINY_MODEL, "activations": "float32",
             "kv_cache": "float32", "q8_0_fields": quant,
             "tokens_per_frame": 0.4, "calibration_s": 1,
             "calibration_clips": 4})

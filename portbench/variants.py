@@ -22,9 +22,10 @@ def shrunk(dest: Path, cells: dict) -> tuple[Path, Path]:
     from portbench import core
 
     root = dest / "portbench"
-    for sub in ("kinds", "metrics", "kernels", "traffic", "configs",
+    for sub in ("archs", "kinds", "metrics", "kernels", "traffic", "configs",
                 "workloads"):
-        shutil.copytree(core.ROOT / sub, root / sub)
+        shutil.copytree(core.ROOT / sub, root / sub,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads(core.BENCH.read_text())
     for name, change in cells.items():
         entry = next(w for w in bench["workloads"] if w["name"] == name)
